@@ -1,0 +1,88 @@
+"""Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+The same scene is built by the JAX package and by the port from one
+recipe, so the two sides hold equal arrays; ray batches are made with
+numpy from a seed and handed to both.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+
+def small_scene(mod_scene, mod_meshgen, **build_kw):
+    """tests/test_mega.py's scene: two-light icosphere mesh, mirror
+    sphere, two ground triangles — every feature of the fused segment
+    (BVH mesh, sphere, loose tris, shadows, mirror bounce, misses)."""
+    b = mod_scene.SceneBuilder()
+    mm = mod_scene.make_material
+    v, f = mod_meshgen.icosphere(subdivisions=2, radius=2.0,
+                                 center=(0, 2, 8))
+    b.add_mesh(v, f, mm(diffuse=(0.7, 0.5, 0.2), ambient=(0.7, 0.5, 0.2),
+                        specular=(0.6, 0.6, 0.6), phong=40.0))
+    b.add_sphere((-3, 1.5, 6), 1.5, mm(
+        diffuse=(0.1, 0.1, 0.1), ambient=(0.1, 0.1, 0.1),
+        specular=(1, 1, 1), phong=200.0, mirror=(0.9, 0.9, 0.9),
+        is_mirror=True))
+    g = 30.0
+    gmat = mm(diffuse=(0.5, 0.5, 0.55), ambient=(0.5, 0.5, 0.55),
+              phong=1.0)
+    b.add_triangle((-g, 0, -g), (g, 0, -g), (g, 0, g), gmat)
+    b.add_triangle((-g, 0, -g), (g, 0, g), (-g, 0, g), gmat)
+    b.add_point_light((5, 8, 0), 800.0)
+    b.add_point_light((-6, 7, 10), 500.0)
+    b.set_ambient((8, 8, 8))
+    return b.build(**build_kw)
+
+
+CAMERA = dict(position=(0, 3, -4), forward=(0, -0.15, 1), dist=1.0,
+              half_h=0.8, half_v=0.8)
+
+
+def leaves(obj, prefix=""):
+    """{path: numpy array} over the array fields of a (nested) dataclass
+    — JAX pytrees and port containers share field names."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(leaves(v, prefix + f.name + "."))
+        elif isinstance(v, torch.Tensor):
+            out[prefix + f.name] = v.cpu().numpy()
+        elif hasattr(v, "shape"):
+            out[prefix + f.name] = np.asarray(v)
+    return out
+
+
+def assert_same_arrays(a: dict, b: dict):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def segment_rays(n, seed, dead_every=7):
+    """A numpy ray batch through the small scene from around its camera:
+    ``(o, d, thr, tmax)`` with every ``dead_every``-th lane dead
+    (tmax = -1) and the rest live (tmax = 3e38)."""
+    rng = np.random.default_rng(seed)
+    o = (np.array(CAMERA["position"], np.float32)
+         + rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32))
+    target = np.stack([rng.uniform(-6, 6, n), rng.uniform(-1, 5, n),
+                       rng.uniform(4, 12, n)], -1).astype(np.float32)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    thr = rng.uniform(0.2, 1.0, (n, 3)).astype(np.float32)
+    tmax = np.full((n,), 3.0e38, np.float32)
+    tmax[::dead_every] = -1.0
+    return o, d, thr, tmax
+
+
+@pytest.fixture
+def cuda():
+    """The first CUDA card; the test skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (marker gpu)")
+    return torch.device("cuda")

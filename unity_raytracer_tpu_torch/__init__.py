@@ -1,0 +1,19 @@
+"""unity_raytracer_tpu_torch — the PyTorch + CUDA port of ``unity_raytracer_tpu``.
+
+The JAX package beside this one is the reference; this package mirrors its
+module names, and each module's docstring names its JAX twin by file. The
+port imports ``torch`` and numpy only — never ``jax`` and never the JAX
+package.
+
+Slice ported so far: the forward render of the mirror bounce chain on the
+fused segment kernel (``ops/render.py`` → ``ops/kernels/mega.py`` →
+``csrc/mega_segment.cu``), with the host BVH build and packers, the scene
+containers, presets, camera and image assembly around it. Everything else
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+    python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

@@ -1,0 +1,90 @@
+"""Carry state across from the JAX package: scene and BVH arrays to tensors.
+
+No single JAX twin: this is the renderer's "weights" converter. A scene
+and its packed BVH are the state a render runs on, and these functions
+take them from any object with the JAX ``Scene`` / ``PackedBVH``
+attribute tree — each leaf read with ``np.asarray``, so a JAX object
+mapped through ``jax.tree.map(np.asarray, ...)`` works, and so does any
+other object of the same shape — and return the port's containers on
+``device``. Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from unity_raytracer_tpu_torch.models.scene import (
+    Lights, Materials, MeshSet, Scene, Spheres, Triangles)
+from unity_raytracer_tpu_torch.ops.bvh import MeshBVH
+from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import PackedBVH
+
+
+def _t(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def _materials(m, device) -> Materials:
+    return Materials(**{k: _t(getattr(m, k), device) for k in (
+        "diffuse", "ambient", "mirror", "specular", "phong", "is_mirror",
+        "transparency", "ior", "is_dielectric")})
+
+
+def scene_from_arrays(obj, device="cpu") -> Scene:
+    """A port ``Scene`` from an object with the JAX ``Scene`` attributes."""
+    s, t, m, lt = obj.spheres, obj.triangles, obj.meshes, obj.lights
+    return Scene(
+        spheres=Spheres(centers=_t(s.centers, device),
+                        radius_sq=_t(s.radius_sq, device),
+                        materials=_materials(s.materials, device),
+                        valid=_t(s.valid, device)),
+        triangles=Triangles(verts=_t(t.verts, device),
+                            normals=_t(t.normals, device),
+                            materials=_materials(t.materials, device),
+                            valid=_t(t.valid, device)),
+        meshes=MeshSet(verts=_t(m.verts, device),
+                       normals=_t(m.normals, device),
+                       mesh_id=_t(m.mesh_id, device),
+                       valid=_t(m.valid, device),
+                       mesh_aabb_min=_t(m.mesh_aabb_min, device),
+                       mesh_aabb_max=_t(m.mesh_aabb_max, device),
+                       mesh_materials=_materials(m.mesh_materials, device),
+                       mesh_valid=_t(m.mesh_valid, device)),
+        lights=Lights(positions=_t(lt.positions, device),
+                      intensities=_t(lt.intensities, device),
+                      valid=_t(lt.valid, device),
+                      ambient=_t(lt.ambient, device)),
+        aabb_min=_t(obj.aabb_min, device),
+        aabb_max=_t(obj.aabb_max, device))
+
+
+def mesh_bvh_from_arrays(obj) -> MeshBVH:
+    """A port ``MeshBVH`` (host numpy) from an object with the JAX
+    ``MeshBVH`` attributes."""
+    a = lambda k: np.array(getattr(obj, k))
+    flip = getattr(obj, "flip", None)
+    return MeshBVH(node_min=a("node_min"), node_max=a("node_max"),
+                   first=a("first"), count=a("count"),
+                   miss_next=a("miss_next"), tri_verts=a("tri_verts"),
+                   prim_index=a("prim_index"),
+                   leaf_size=int(getattr(obj, "leaf_size")),
+                   canonical=bool(getattr(obj, "canonical", False)),
+                   flip=None if flip is None else np.array(flip))
+
+
+def packed_from_arrays(obj, device="cpu") -> PackedBVH:
+    """A port ``PackedBVH`` from an object with the JAX ``PackedBVH``
+    attributes. The rows-per-leaf counts come from the shape tags
+    (``leaf_tag``, ``bw_tag``) the JAX layout carries them in."""
+    opt = lambda k: (None if getattr(obj, k, None) is None
+                     else _t(getattr(obj, k), device))
+    leaf_tag = getattr(obj, "leaf_tag", None)
+    bw_tag = getattr(obj, "bw_tag", None)
+    return PackedBVH(
+        nodes=_t(obj.nodes, device), tris=_t(obj.tris, device),
+        leaf_prim=_t(obj.leaf_prim, device),
+        bvh=mesh_bvh_from_arrays(obj.bvh),
+        leafmeta=opt("leafmeta"), wide=opt("wide"),
+        rows_per_leaf=1 if leaf_tag is None else int(np.shape(leaf_tag)[0]),
+        tris_bw=opt("tris_bw"),
+        bw_rows_per_leaf=0 if bw_tag is None else int(np.shape(bw_tag)[0]))

@@ -1,0 +1,127 @@
+"""Build and load the port's native libraries from the sources in the checkout.
+
+No JAX twin: the JAX package loads the tracked ``native/libbvh.so`` (built
+with ``-march=native``) and rebuilds it in place when it is missing
+(``unity_raytracer_tpu/ops/bvh.py:54-90``). The port never loads or
+rewrites that file. At first use it compiles, into ``build/torch_kernels/``
+(listed in ``.gitignore``):
+
+* ``libbvh-<key>.so`` from ``native/bvh_builder.cc`` with
+  ``g++ -O3 -fPIC -shared -std=c++17`` — plus ``-mfma`` on x86-64, so that
+  the SAH cost sums contract to FMAs exactly as in the tracked library and
+  the port builds the same trees as the JAX package (no ``-march=native``:
+  the library must load on any host of its architecture);
+* ``libmega-<key>.so`` from ``csrc/mega_segment.cu`` with
+  ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+  -fmad=false -shared -Xcompiler -fPIC`` (plain C entry point, bound with
+  ctypes). ``-fmad=false`` keeps every multiply and add separately
+  rounded, as the plain PyTorch version rounds them: with contraction on,
+  grazing hits on the mirror sphere moved by up to 1e-2 on the 0-255 scale
+  (7 of 65,536 lanes of a mesh10k frame, just over the 0.01% the smoke
+  run allows); with it off the kernel matched the plain version exactly
+  on every lane checked (PERF.md).
+
+``<key>`` hashes the source and the command line, so an edited source
+builds anew and concurrent builders never share a half-written file. A
+failed build or load raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import platform
+import shutil
+import subprocess
+import threading
+import time
+
+REPO = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO / "build" / "torch_kernels"
+BVH_SRC = REPO / "native" / "bvh_builder.cc"
+MEGA_SRC = REPO / "unity_raytracer_tpu_torch" / "csrc" / "mega_segment.cu"
+
+_libs: dict = {}  # the loaded library handles
+_lock = threading.Lock()
+
+
+def _build(name: str, src: pathlib.Path, cmd_for) -> ctypes.CDLL:
+    """Compile ``src`` with ``cmd_for(out_path)`` unless a library with the
+    same key exists, then load it. The handle's ``build`` attribute records
+    the path, the compile seconds (0.0 when an earlier build was reused)
+    and the compiler's output."""
+    key_cmd = cmd_for(pathlib.Path("OUT"))
+    key = hashlib.sha256(src.read_bytes() + "\0".join(key_cmd).encode())
+    out = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd_for(tmp), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {out.name} failed ({' '.join(cmd_for(tmp))}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+        seconds, log = time.perf_counter() - t0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(str(out))
+    lib.build = {"path": str(out), "seconds": seconds, "log": log}
+    return lib
+
+
+def _which(tool: str, *fallbacks: str) -> str:
+    path = shutil.which(tool)
+    for f in fallbacks:
+        if path is None and os.path.exists(f):
+            path = f
+    if path is None:
+        raise RuntimeError(f"{tool} not found on PATH")
+    return path
+
+
+def bvh_lib() -> ctypes.CDLL:
+    """The SAH BVH builder (``urt_build_bvh_ex``)."""
+    with _lock:
+        if "bvh" not in _libs:
+            cxx = _which("g++")
+            arch = ["-mfma"] if platform.machine() in ("x86_64", "AMD64") \
+                else []
+            lib = _build("bvh", BVH_SRC, lambda out: [
+                cxx, "-O3", "-fPIC", "-shared", "-std=c++17", *arch,
+                "-o", str(out), str(BVH_SRC)])
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            lib.urt_build_bvh_ex.restype = i
+            lib.urt_build_bvh_ex.argtypes = [p, i, i, i, i, p, p, p, p, p, p]
+            _libs["bvh"] = lib
+        return _libs["bvh"]
+
+
+def mega_lib() -> ctypes.CDLL:
+    """The fused segment kernel (``urt_mega_segment``)."""
+    with _lock:
+        if "mega" not in _libs:
+            cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+            nvcc = _which("nvcc", os.path.join(cuda_home, "bin", "nvcc"))
+            lib = _build("mega", MEGA_SRC, lambda out: [
+                nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-fmad=false", "-shared",
+                "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", str(out), str(MEGA_SRC)])
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            f = ctypes.c_float
+            lib.urt_mega_segment.restype = i
+            lib.urt_mega_segment.argtypes = [
+                p, p, p, p, i, i,          # o d thr tmax n depth
+                p, i,                      # wide arity
+                p, i, i,                   # tris_bw leaf_rows bw_rows
+                p, i,                      # leafmeta meta_w
+                p, i, i, i, i, i, f,       # aux L S T M max_bounces cull
+                p, p, p, p, p,             # delta o2 d2 thr2 tmax2
+                p, p]                      # overflow stream
+            _libs["mega"] = lib
+        return _libs["mega"]

@@ -1,0 +1,465 @@
+"""Fused bounce segment: the aux block, the plain version and the kernel wrapper.
+
+Twin: ``unity_raytracer_tpu/ops/pallas/mega.py`` — ``build_aux``
+(``:1251-1289``, same ``[rows,128]`` layout) and ``trace_segment``
+(``:1292``, whose Pallas kernel ``_kernel`` at ``:459`` is replaced by
+``csrc/mega_segment.cu``) in the mode the forward render runs: hard
+forward, wide BVH walk, Baldwin–Weber leaf records, one shadow query per
+light, ``light_cull`` honoured. One segment over N rays computes
+
+* the nearest hit: mesh triangles (strict ``<``), then spheres and loose
+  triangles (strict ``best_t > t``, the reference combine order,
+  Data/Objects/Scene.cs:64-115), masked by the scene AABB;
+* the winner's material from ``aux`` (mesh ids from ``leafmeta``);
+* per light the ``light_cull`` gate and an any-hit shadow query against
+  spheres, loose triangles and the mesh;
+* Blinn-Phong radiance on the 0-255 scale and the mirror continuation.
+
+It returns ``(delta [N,3], o' [N,3], d' [N,3], thr' [N,3], tmax' [N])``.
+A lane with ``tmax < 0`` is dead on input and gets pass-through values.
+
+``trace_segment`` launches the CUDA kernel for CUDA tensors and runs
+``trace_segment_plain`` for CPU tensors, nothing else. The plain version
+finds mesh hits by brute force over every leaf slot of ``tris_bw``
+(ignoring the BVH nodes), so it checks the kernel's walk and the host
+packers independently; everything else follows the kernel's formulas.
+
+aux rows (``build_aux``):
+  row 0:            aabb_min(0:3) aabb_max(3:6) ambient(6:9) bg(9:12)
+  rows lights:      pos(0:3) intensity(3:6) valid(6)
+  rows spheres:     center(0:3) r2(3) valid(4) matid(5)
+  rows loose tris:  v0 v1 v2 (0:9) normal(9:12) valid(12) matid(13)
+  rows materials:   diffuse(0:3) ambient(3:6) mirror(6:9) specular(9:12)
+                    phong(12) is_mirror(13) transparency(14:17) ior(17)
+                    is_dielectric(18)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from unity_raytracer_tpu_torch.ops.kernels import _lib
+from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
+    _BIG, BW_PER_ROW, EPS, PALLAS_LEAF, PackedBVH)
+
+SHADOW_EPS = 1e-4  # ShadowRayEpsilon, RayTracingSetup.cs:42
+_TINY = 1e-30
+# the twin clamps squared lengths with max(x, 1e-60); 1e-60 rounds to 0
+# in float32, so the clamp is max(x, 0)
+_MIN_SQ = 0.0
+# plain version: ray x leaf-slot pairs per brute-force chunk
+_CHUNK_ELEMS = 1 << 22
+
+# kernel launches since the count was last reset (set it to 0 to start a
+# count); only trace_segment's CUDA branch adds to it
+launches = 0
+
+
+def build_aux(scene, background) -> torch.Tensor:
+    """Pack scene constants into the [rows,128] f32 aux block (module
+    docstring), on the scene's device, with device ops only (no copy to
+    the host, so no sync inside a frame)."""
+    lt, sp, tr = scene.lights, scene.spheres, scene.triangles
+    dev = scene.aabb_min.device
+    f = lambda x: x.to(torch.float32).reshape(x.shape[0], -1)
+    idx = lambda start, n: torch.arange(
+        start, start + n, device=dev, dtype=torch.float32)[:, None]
+    bg = torch.tensor(background, dtype=torch.float32, device=dev) * 255.0
+    mats = [torch.cat([f(m.diffuse), f(m.ambient), f(m.mirror),
+                       f(m.specular), f(m.phong), f(m.is_mirror),
+                       f(m.transparency), f(m.ior), f(m.is_dielectric)], 1)
+            for m in (sp.materials, tr.materials,
+                      scene.meshes.mesh_materials)]
+    blocks = [
+        torch.cat([scene.aabb_min, scene.aabb_max, lt.ambient, bg])[None],
+        torch.cat([f(lt.positions), f(lt.intensities), f(lt.valid)], 1),
+        torch.cat([f(sp.centers), f(sp.radius_sq), f(sp.valid),
+                   idx(0, sp.count)], 1),
+        torch.cat([f(tr.verts), f(tr.normals), f(tr.valid),
+                   idx(sp.count, tr.count)], 1),
+        *mats]
+    return torch.cat([torch.nn.functional.pad(x, (0, 128 - x.shape[1]))
+                      for x in blocks], 0)
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _sqrt(x):
+    """float32 sqrt, correctly rounded on every device (PyTorch's CPU
+    float32 sqrt is not always; one rounding from float64 is)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _rsqrt(x):
+    """1 / sqrt(x), as the kernel computes it."""
+    return 1.0 / _sqrt(x)
+
+
+def _fix(v):
+    """Near-zero direction components to +/-1e-30 (finite slab products)."""
+    return torch.where(v.abs() < _TINY,
+                       torch.where(v < 0, -_TINY, _TINY).to(v.dtype), v)
+
+
+def _slab(o3, inv3, box, best):
+    ox, oy, oz = o3
+    ix, iy, iz = inv3
+    t1 = (box[0] - ox) * ix
+    t2 = (box[3] - ox) * ix
+    tn = torch.minimum(t1, t2)
+    tf = torch.maximum(t1, t2)
+    t1 = (box[1] - oy) * iy
+    t2 = (box[4] - oy) * iy
+    tn = torch.maximum(tn, torch.minimum(t1, t2))
+    tf = torch.minimum(tf, torch.maximum(t1, t2))
+    t1 = (box[2] - oz) * iz
+    t2 = (box[5] - oz) * iz
+    tn = torch.maximum(tn, torch.minimum(t1, t2))
+    tf = torch.minimum(tf, torch.maximum(t1, t2))
+    tn = torch.clamp_min(tn, 0.0)
+    return (tn <= tf) & (tn <= best)
+
+
+def _sphere(o3, d3, r):
+    """Ray vs the sphere in aux row ``r`` -> (ok, t)."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    ocx, ocy, ocz = ox - r[0], oy - r[1], oz - r[2]
+    uoc = dx * ocx + dy * ocy + dz * ocz
+    oc2 = ocx * ocx + ocy * ocy + ocz * ocz
+    disc = uoc * uoc - (oc2 - r[3])
+    sq = _sqrt(torch.clamp_min(disc, 0.0))
+    big = -uoc + sq
+    small = -uoc - sq
+    t = torch.where(small < 0.0, big, small)
+    return (disc >= 0.0) & (big >= 0.0) & (r[4] > 0.0), t
+
+
+def _mt(o3, d3, v):
+    """Möller–Trumbore vs one triangle (9 values v0 v1 v2) -> (ok, t)."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    e1x, e1y, e1z = v[3] - v[0], v[4] - v[1], v[5] - v[2]
+    e2x, e2y, e2z = v[6] - v[0], v[7] - v[1], v[8] - v[2]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    par = det.abs() < EPS
+    f = 1.0 / torch.where(par, 1.0, det)
+    sx, sy, sz = ox - v[0], oy - v[1], oz - v[2]
+    u = f * (sx * px + sy * py + sz * pz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    w = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    ok = (~par & (u >= 0.0) & (u <= 1.0) & (w >= 0.0) & (u + w <= 1.0)
+          & (t > EPS))
+    return ok, t
+
+
+def _leaf_slots(packed: PackedBVH):
+    """Every non-pad leaf slot as (BW record [K,12], material id [K]) —
+    the mesh triangles the plain version tests by brute force."""
+    rpl, bw_rpl = packed.rows_per_leaf, packed.bw_rows_per_leaf
+    n_leaves = packed.tris_bw.shape[0] // bw_rpl
+    slots = rpl * PALLAS_LEAF
+    rec = packed.tris_bw.reshape(n_leaves, bw_rpl, 128)[
+        :, :, :12 * BW_PER_ROW].reshape(n_leaves, -1, 12)[:, :slots]
+    mid = packed.leafmeta[:n_leaves * rpl].reshape(n_leaves, rpl, -1)[
+        :, :, :PALLAS_LEAF].reshape(n_leaves, slots)
+    rec = rec.reshape(-1, 12)
+    keep = (rec[:, :3] != 0.0).any(dim=1)  # pad records are all zero
+    return rec[keep], mid.reshape(-1)[keep]
+
+
+def _bw_chunks(o3, d3, rec):
+    """Yield (start, ok [n,C], t [n,C]) of the BW test of rays against
+    ``rec`` in slot order, chunked to bound memory."""
+    ox, oy, oz = (c[:, None] for c in o3)
+    dx, dy, dz = (c[:, None] for c in d3)
+    chunk = max(1, _CHUNK_ELEMS // max(ox.shape[0], 1))
+    for s0 in range(0, rec.shape[0], chunk):
+        (nx, ny, nz, dh, ax, ay, az, a0, bx, by, bz,
+         b0) = rec[s0:s0 + chunk].T[:, None, :]
+        nd = nx * dx + ny * dy + nz * dz
+        par = nd.abs() < _TINY
+        t = (dh - (nx * ox + ny * oy + nz * oz)) / torch.where(par, 1.0, nd)
+        hx = ox + dx * t
+        hy = oy + dy * t
+        hz = oz + dz * t
+        u = ax * hx + ay * hy + az * hz + a0
+        v = bx * hx + by * hy + bz * hz + b0
+        ok = ~par & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
+        yield s0, ok, t
+
+
+def _nearest_mesh_plain(o3, d3, rec, mid, live):
+    """Nearest mesh hit by brute force: (best_t, n [3], matid). The first
+    slot at the minimum wins, like a strict ``<`` in visit order."""
+    n = live.shape[0]
+    dev = live.device
+    best_t = torch.where(live, _BIG, -1.0).to(torch.float32)
+    bn = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    bmat = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    idx = torch.nonzero(live).squeeze(1)
+    if idx.numel() == 0 or rec.shape[0] == 0:
+        return best_t, bn, bmat
+    o3 = tuple(c[idx] for c in o3)
+    d3 = tuple(c[idx] for c in d3)
+    bt = best_t[idx]
+    bi = torch.full_like(idx, -1)
+    for s0, ok, t in _bw_chunks(o3, d3, rec):
+        tmin, j = torch.where(ok, t, torch.inf).min(dim=1)
+        upd = tmin < bt
+        bt = torch.where(upd, tmin, bt)
+        bi = torch.where(upd, j + s0, bi)
+    hit = bi >= 0
+    sel = bi[hit]
+    best_t[idx] = bt
+    bn[idx[hit]] = rec[sel, 0:3]
+    bmat[idx[hit]] = mid[sel]
+    return best_t, bn, bmat
+
+
+def _occluded_plain(s3, l3, tmax, aux, rec, n_lights, n_spheres, n_tris):
+    """Any occluder with t < tmax between s and the light (the twin's
+    ``_occluded``): scene-box gate, spheres, loose triangles, mesh."""
+    inv3 = tuple(1.0 / _fix(c) for c in l3)
+    in_box = _slab(s3, inv3, aux[0, :6], _BIG)
+    best0 = torch.where(in_box, tmax, -1.0)
+    occ = torch.zeros_like(in_box)
+    for s in range(n_spheres):
+        ok, t = _sphere(s3, l3, aux[1 + n_lights + s])
+        occ = occ | (ok & (t < best0))
+    for k in range(n_tris):
+        r = aux[1 + n_lights + n_spheres + k]
+        ok, t = _mt(s3, l3, r[:9])
+        occ = occ | (ok & (r[12] > 0.0) & (t < best0))
+    idx = torch.nonzero((best0 > 0.0) & ~occ).squeeze(1)
+    if idx.numel() and rec.shape[0]:
+        s3i = tuple(c[idx] for c in s3)
+        l3i = tuple(c[idx] for c in l3)
+        tm = best0[idx][:, None]
+        hit = torch.zeros_like(idx, dtype=torch.bool)
+        for _, ok, t in _bw_chunks(s3i, l3i, rec):
+            hit = hit | (ok & (t < tm)).any(dim=1)
+        occ[idx] = hit
+    return occ & (best0 > 0.0)
+
+
+def trace_segment_plain(packed: PackedBVH, aux: torch.Tensor, depth: int,
+                        o: torch.Tensor, d: torch.Tensor, thr: torch.Tensor,
+                        tmax: torch.Tensor, *, n_lights: int, n_spheres: int,
+                        n_tris: int, max_bounces: int,
+                        light_cull: float = 0.0, overflow=None):
+    """Plain PyTorch version of one fused segment (same signature and
+    outputs as ``trace_segment``; ``overflow`` is unused: no stack)."""
+    del overflow
+    L, S, T = n_lights, n_spheres, n_tris
+    n_mats = aux.shape[0] - (1 + L + S + T)
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    o3, d3 = (ox, oy, oz), (dx, dy, dz)
+    live = tmax >= 0.0
+    inv3 = tuple(1.0 / _fix(c) for c in d3)
+    rec, mid = _leaf_slots(packed)
+
+    # ---- nearest hit: mesh, then spheres, then loose triangles ----------
+    best_t, bn, bmat = _nearest_mesh_plain(o3, d3, rec, mid, live)
+    bnx, bny, bnz = bn.unbind(-1)
+    for s in range(S):
+        r = aux[1 + L + s]
+        ok, ts = _sphere(o3, d3, r)
+        upd = ok & (best_t > ts)
+        rinv = _rsqrt(torch.clamp_min(r[3], _MIN_SQ))
+        px = ox + dx * ts - r[0]
+        py = oy + dy * ts - r[1]
+        pz = oz + dz * ts - r[2]
+        best_t = torch.where(upd, ts, best_t)
+        bnx = torch.where(upd, px * rinv, bnx)
+        bny = torch.where(upd, py * rinv, bny)
+        bnz = torch.where(upd, pz * rinv, bnz)
+        bmat = torch.where(upd, r[5], bmat)
+    for k in range(T):
+        r = aux[1 + L + S + k]
+        ok, tt = _mt(o3, d3, r[:9])
+        upd = ok & (r[12] > 0.0) & (best_t > tt)
+        best_t = torch.where(upd, tt, best_t)
+        bnx = torch.where(upd, r[9], bnx)
+        bny = torch.where(upd, r[10], bny)
+        bnz = torch.where(upd, r[11], bnz)
+        bmat = torch.where(upd, r[13], bmat)
+
+    in_box = _slab(o3, inv3, aux[0, :6], _BIG)
+    hit = live & in_box & (best_t < _BIG) & (best_t >= 0.0)
+
+    # ---- material: diffuse ambient mirror specular phong is_mirror ------
+    mi = bmat.to(torch.int64)
+    has_mat = (bmat >= 0.0) & (mi < n_mats) & (mi.to(bmat.dtype) == bmat)
+    mrows = aux[1 + L + S + T + mi.clamp(0, max(n_mats - 1, 0)), :14]
+    mrows = torch.where(has_mat[:, None], mrows, 0.0)
+    (kd_r, kd_g, kd_b, ka_r, ka_g, ka_b, km_r, km_g, km_b,
+     ks_r, ks_g, ks_b, phong, is_mir) = mrows.unbind(-1)
+
+    t_safe = torch.where(hit, best_t, 1.0)
+    px = ox + dx * t_safe
+    py = oy + dy * t_safe
+    pz = oz + dz * t_safe
+
+    # ---- direct lighting ---------------------------------------------------
+    col_r = ka_r * aux[0, 6]
+    col_g = ka_g * aux[0, 7]
+    col_b = ka_b * aux[0, 8]
+    s3 = (px + bnx * SHADOW_EPS, py + bny * SHADOW_EPS,
+          pz + bnz * SHADOW_EPS)
+    kdks = (torch.maximum(torch.maximum(kd_r, kd_g), kd_b)
+            + torch.maximum(torch.maximum(ks_r, ks_g), ks_b))
+    for l in range(L):
+        r = aux[1 + l]
+        ir_, ig_, ib_ = r[3], r[4], r[5]
+        lvx, lvy, lvz = r[0] - px, r[1] - py, r[2] - pz
+        ld2 = lvx * lvx + lvy * lvy + lvz * lvz
+        ldist = _sqrt(ld2)
+        linv = _rsqrt(torch.clamp_min(ld2, _MIN_SQ))
+        ldx, ldy, ldz = lvx * linv, lvy * linv, lvz * linv
+        ln = ldx * bnx + ldy * bny + ldz * bnz
+        need = hit & (ln >= 0.0) & (r[6] > 0.0)
+        if light_cull > 0.0:
+            imax = torch.maximum(torch.maximum(ir_, ig_), ib_)
+            need = need & (kdks * imax >= light_cull * ld2)
+        occ = _occluded_plain(s3, (ldx, ldy, ldz),
+                              torch.where(need, ldist, -1.0), aux, rec,
+                              L, S, T)
+        irr = 1.0 / torch.clamp_min(ld2, _MIN_SQ)
+        w = torch.where(need & ~occ, irr, 0.0)
+        dterm = torch.clamp_min(ln, 0.0) * w
+        col_r = col_r + kd_r * dterm * ir_
+        col_g = col_g + kd_g * dterm * ig_
+        col_b = col_b + kd_b * dterm * ib_
+        hx, hy, hz = ldx - dx, ldy - dy, ldz - dz
+        hinv = _rsqrt(torch.clamp_min(hx * hx + hy * hy + hz * hz, _MIN_SQ))
+        nh = torch.clamp_min(bnx * hx * hinv + bny * hy * hinv
+                             + bnz * hz * hinv, 0.0)
+        sterm = torch.where(
+            nh > 0.0,
+            torch.exp(phong * torch.log(torch.clamp_min(nh, _TINY))),
+            0.0) * w
+        col_r = col_r + ks_r * sterm * ir_
+        col_g = col_g + ks_g * sterm * ig_
+        col_b = col_b + ks_b * sterm * ib_
+
+    out = torch.stack([torch.where(hit, col_r, aux[0, 9]),
+                       torch.where(hit, col_g, aux[0, 10]),
+                       torch.where(hit, col_b, aux[0, 11])], dim=-1)
+    delta = torch.where(live[:, None], thr * out, 0.0)
+
+    # ---- mirror continuation ----------------------------------------------
+    cont = hit & (is_mir > 0.0) & (depth < max_bounces)
+    ddn = dx * bnx + dy * bny + dz * bnz
+    bn = torch.stack([bnx, bny, bnz], dim=-1)
+    p = torch.stack([px, py, pz], dim=-1)
+    rd = d - 2.0 * bn * ddn[:, None]
+    km = torch.stack([km_r, km_g, km_b], dim=-1)
+    c1 = cont[:, None]
+    o2 = torch.where(live[:, None], p + bn * SHADOW_EPS, o)
+    d2 = torch.where(c1, rd, d)
+    thr2 = torch.where(c1, thr * km, thr)
+    tmax2 = torch.where(cont, _BIG, -1.0).to(torch.float32)
+    return delta, o2, d2, thr2, tmax2
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _check_packed(packed: PackedBVH):
+    if packed.leafmeta is None or packed.wide is None \
+            or packed.tris_bw is None:
+        raise ValueError("the fused segment needs PackedBVH.leafmeta, "
+                         ".wide and .tris_bw — build it with prepare_bvh")
+
+
+def check_overflow(overflow: torch.Tensor) -> None:
+    """Raise if the kernel counted stack pushes it had to drop."""
+    n = int(overflow.item())
+    if n:
+        raise RuntimeError(f"fused segment kernel dropped {n} stack pushes "
+                           f"(stack overflow); the result is not exact")
+
+
+def trace_segment(packed: PackedBVH, aux: torch.Tensor, depth: int,
+                  o: torch.Tensor, d: torch.Tensor, thr: torch.Tensor,
+                  tmax: torch.Tensor, *, n_lights: int, n_spheres: int,
+                  n_tris: int, max_bounces: int, light_cull: float = 0.0,
+                  overflow: torch.Tensor | None = None):
+    """One fused bounce segment over all rays (module docstring).
+
+    CUDA tensors launch ``csrc/mega_segment.cu``; CPU tensors run
+    ``trace_segment_plain``. ``overflow`` is an int32 [1] device counter
+    of dropped stack pushes shared by several launches; the caller checks
+    it (``check_overflow``) once they are done. Without one, the wrapper
+    makes its own and checks it after this launch.
+    """
+    global launches
+    _check_packed(packed)
+    kw = dict(n_lights=n_lights, n_spheres=n_spheres, n_tris=n_tris,
+              max_bounces=max_bounces, light_cull=light_cull)
+    if o.device.type == "cpu":
+        return trace_segment_plain(packed, aux, depth, o, d, thr, tmax,
+                                   **kw)
+    if o.device.type != "cuda":
+        raise ValueError(f"trace_segment: unsupported device {o.device}")
+
+    n = o.shape[0]
+    arity = packed.wide.shape[1] // 8
+    if arity not in (4, 8):
+        raise NotImplementedError(
+            f"the CUDA kernel has instances for BVH arity 4 and 8, not "
+            f"{arity}")
+    if packed.rows_per_leaf * PALLAS_LEAF > 255 \
+            or packed.tris.shape[0] >= (1 << 23):
+        raise ValueError("leaf too wide or too many leaf rows for the "
+                         "kernel's stack-entry encoding")
+    ins = dict(o=o, d=d, thr=thr, tmax=tmax, wide=packed.wide,
+               tris_bw=packed.tris_bw, leafmeta=packed.leafmeta, aux=aux)
+    for name, t in ins.items():
+        if t.device != o.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"trace_segment: {name} must be a contiguous "
+                             f"float32 tensor on {o.device}")
+    if o.shape != (n, 3) or d.shape != (n, 3) or thr.shape != (n, 3) \
+            or tmax.shape != (n,) or aux.shape[1] != 128 \
+            or packed.tris_bw.shape[1] != 128:
+        raise ValueError("trace_segment: bad ray or aux shapes")
+
+    own_counter = overflow is None
+    if own_counter:
+        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+    delta = torch.empty_like(o)
+    o2 = torch.empty_like(o)
+    d2 = torch.empty_like(o)
+    thr2 = torch.empty_like(o)
+    tmax2 = torch.empty_like(tmax)
+    if n:
+        n_mats = aux.shape[0] - (1 + n_lights + n_spheres + n_tris)
+        err = _lib.mega_lib().urt_mega_segment(
+            o.data_ptr(), d.data_ptr(), thr.data_ptr(), tmax.data_ptr(),
+            n, int(depth), packed.wide.data_ptr(), arity,
+            packed.tris_bw.data_ptr(), packed.rows_per_leaf,
+            packed.bw_rows_per_leaf, packed.leafmeta.data_ptr(),
+            packed.leafmeta.shape[1], aux.data_ptr(), n_lights, n_spheres,
+            n_tris, n_mats, max_bounces, float(light_cull),
+            delta.data_ptr(), o2.data_ptr(), d2.data_ptr(),
+            thr2.data_ptr(), tmax2.data_ptr(), overflow.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"urt_mega_segment launch failed: CUDA "
+                               f"error {err}")
+        launches += 1
+    if own_counter:
+        check_overflow(overflow)
+    return delta, o2, d2, thr2, tmax2
