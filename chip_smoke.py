@@ -8,30 +8,52 @@ From the root of a checkout, on a machine with a CUDA card, it
 1. prints the card (``nvidia-smi`` name and power limit), the PyTorch and
    CUDA versions and the ``nvcc`` path;
 2. builds the port's native libraries from the checkout's sources (the
-   BVH builder and the fused segment kernel) and times the build;
+   BVH builder and the fused segment kernel, every mode) and times the
+   build; prints ptxas' registers, stack and spill per kernel instance and
+   fails if a forward instance needs more than the forward-only kernel
+   did (arity 4: 64 registers, 2,104-byte stack, 48 bytes of spill; arity
+   8: 72, 2,088, 32);
 3. holds the fused segment kernel against its plain PyTorch version on
-   the same inputs: every segment of the ``mesh10k`` chain at 256x256,
+   the same inputs, in its three modes — forward (a), record (b) and
+   record_soft (d): every segment of the ``mesh10k`` chain at 256x256,
    then a 16,384-ray slice of every segment of the flagship frame; it
-   fails if more than 0.01% of lanes fall outside rtol = atol = 5e-4;
+   fails if more than 0.01% of lanes fall outside rtol = atol = 5e-4 (hit
+   records: matid and occbits exactly, t sign exactly, st exactly _BIG
+   where unoccluded) or if a record mode's base outputs differ at all
+   from the forward mode's; the counting instance gives each mode's bound;
 4. renders the flagship frame (``mesh100k``, 1920x1080, 4 bounces) the
    way ``python -m unity_raytracer_tpu_torch render`` does, checks that
    the frame went through 5 kernel launches with no stack overflow and
    is finite and not flat, then times 1 warm-up + 3 frames with CUDA
-   events, times each of the 5 launches alone, and profiles one frame;
+   events, times each of the 5 launches alone in each mode, and profiles
+   one frame;
 5. renders a small ``mesh10k`` frame on the card and with the plain
-   version on the CPU and compares the two images.
+   version on the CPU and compares the two images;
+6. runs the flagship hard fwd+bwd step (``ops/replay.
+   replay_value_and_grad`` w.r.t. sphere centers, sphere diffuse and light
+   intensities, target = replay radiance x 0.9) and the soft one
+   (``soft_replay_value_and_grad``, chunks of 2^18 lanes): replay radiance
+   against the forward render at rtol = atol = 2e-4, finite non-zero
+   gradients, then 1 warm-up + 3 timed steps each, the records pass and
+   the replay fwd+bwd alone, and peak memory;
+7. fits the flagship for 3 steps with ``fit --replay``'s calls
+   (``__main__.run_fit``), then ``mesh10k`` at 64x64 for 5 steps on the
+   card and on the CPU from the same seeded start (losses and parameters
+   at rtol 1e-3), and compares one ``mesh10k`` 64x64 fwd+bwd on the card
+   with the CPU's.
 
 Any failure raises and the exit code is not 0. The last two lines are
 the ``nvidia-smi`` name/power-limit line and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON
-record of the kernel. Without a CUDA card, or without the package beside
-this file, it exits non-zero and prints no result.
+record of the kernel's modes. Without a CUDA card, or without the package
+beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -40,10 +62,30 @@ import time
 import numpy as np
 
 TOL = dict(rtol=5e-4, atol=5e-4)
+RAD_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_replay.py:75
 MAX_BAD_FRACTION = 1e-4   # lanes outside TOL: FMA contraction / visit order
 SLICE = 16384
+BIG = 3.0e38
 KERNEL_SRC = "unity_raytracer_tpu_torch/csrc/mega_segment.cu"
 REPLACES = "unity_raytracer_tpu/ops/pallas/mega.py:459"
+MODES = ("forward", "record", "record_soft")
+# ptxas' line for the forward kernel before the record modes sat beside it,
+# per BVH arity: that source built with the same command (nvcc 12.9 for
+# sm_90a), as ``python -m unity_raytracer_tpu_torch.ops.kernels.ptxas
+# OLD.cu`` prints it. The modes added to the source must not cost the
+# forward instances registers, stack or spill
+FORWARD_PTXAS = {4: dict(registers=64, stack=2104, spill=48),
+             8: dict(registers=72, stack=2088, spill=32)}
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 operations/s
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
+# FP32 operations per test, read off csrc/mega_segment.cu (a divide or a
+# square root counts as one): slab test 12 sub/mul + 10 min/max + clamp
+# + 2 compares; Baldwin-Weber slot 5 (n.d) + 2 (parallel) + 5 (n.o) + 2
+# (t) + 6 (hit point) + 12 (u, v) + 5 compares + the caller's t < best;
+# sphere 3 + 5 + 5 + 3 + 2 (sqrt) + 4 (roots) + 5 compares + 1; MT 6
+# (edges) + 9 (cross) + 5 (det) + 4 + 3 + 6 (u) + 9 (cross) + 6 (v) + 6
+# (t) + 6 compares + 2 (caller)
+OPS_PER_TEST = (25, 39, 28, 62)   # slab, leaf slot, sphere, MT
 
 
 def log(msg):
@@ -76,18 +118,60 @@ def compare(got, want, torch):
     return int(bad.sum()), int(cont.numel()), float(err)
 
 
+def compare_records(got, want, torch):
+    """(bad lanes, max abs err) between two hit-record tuples: matid and
+    occbits exactly, the sign of t exactly, t and n at TOL where the plain
+    version hits, st at TOL below _BIG and exactly _BIG elsewhere."""
+    hit = want[0] >= 0
+    bad = (got[2] != want[2]) | (got[3] != want[3]) | ((got[0] >= 0) != hit)
+    bad |= hit & ~torch.isclose(got[0], want[0], **TOL)
+    bad |= hit & ~torch.isclose(got[1], want[1], **TOL).all(-1)
+    err = torch.zeros((), device=hit.device)
+    if bool(hit.any()):
+        err = torch.maximum((got[0] - want[0])[hit].abs().max(),
+                            (got[1] - want[1])[hit].abs().max())
+    if len(want) > 4:
+        fin = want[4] < BIG
+        bad |= torch.where(fin, ~torch.isclose(got[4], want[4], **TOL),
+                           got[4] != want[4]).any(-1)
+        if bool(fin.any()):
+            err = torch.maximum(err, (got[4] - want[4])[fin].abs().max())
+    for i in torch.nonzero(bad).squeeze(1)[:3].tolist():
+        log(f"  record lane {i}: " + "; ".join(
+            f"{k} {g[i].tolist()} vs {w[i].tolist()}" for k, g, w in zip(
+                ("t", "n", "matid", "occbits", "st"), got, want)))
+    return int(bad.sum()), float(err)
+
+
+def ptxas_table(log_text):
+    """{(arity, mode, counting): {registers, stack, spill}} from nvcc's
+    -Xptxas -v output (instances named mega_segment_kernelILi<A>ELi<M>ELb<C>)."""
+    from unity_raytracer_tpu_torch.ops.kernels.ptxas import entries
+    out = {}
+    for name, v in entries(log_text).items():
+        m = re.search(r"mega_segment_kernelILi(\d)ELi(\d)ELb(\d)E", name)
+        if m:
+            out[int(m.group(1)), MODES[int(m.group(2))],
+                bool(int(m.group(3)))] = v
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from unity_raytracer_tpu_torch.__main__ import run_fit
+    from unity_raytracer_tpu_torch.fit import get_params
     from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
     from unity_raytracer_tpu_torch.models.presets import get_preset
     from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops import replay as rp
     from unity_raytracer_tpu_torch.ops.kernels import _lib, mega
     from unity_raytracer_tpu_torch.ops.render import (
-        check_supported, render, render_frame, resolve_mode)
+        check_supported, render, render_frame, resolve_mode, trace_radiance)
+    from unity_raytracer_tpu_torch.utils.config import DiffConfig
 
     dev = torch.device("cuda:0")
     smi = nvidia_smi("name,power.limit")
@@ -103,9 +187,15 @@ def main():
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s total (bvh {lib_bvh.build['seconds']:.3f} "
         f"s, mega {lib_mega.build['seconds']:.3f} s) {card}")
-    for line in lib_mega.build["log"].splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            log(f"  ptxas: {line.strip()}")
+    ptx = ptxas_table(lib_mega.build["log"])
+    for (arity, mode, counting), v in sorted(ptx.items()):
+        log(f"  ptxas: arity {arity} {mode}{' counting' if counting else ''}"
+            f": {v.get('registers')} registers, {v.get('stack')} bytes "
+            f"stack, {v.get('spill')} bytes spill")
+    fwd = {a: ptx.get((a, "forward", False), {}) for a in FORWARD_PTXAS}
+    ptxas_worse = bool(lib_mega.build["log"]) and any(
+        fwd[a].get(k, 1 << 30) > v for a, line in FORWARD_PTXAS.items()
+        for k, v in line.items())
 
     def segment_kw(scene, cfg):
         return dict(n_lights=scene.lights.positions.shape[0],
@@ -138,8 +228,86 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / repeats
 
-    max_err, bad_total, lanes_total = 0.0, 0, 0
+    mode_kw = {"forward": {}, "record": dict(record=True),
+               "record_soft": dict(record_soft=True)}
+
+    def work(packed, aux, kw, segs):
+        """(bytes, operations) one launch per segment in ``segs`` must
+        move and compute, per mode (record's walk is forward's): inputs
+        read once and outputs written once, the BVH arrays and the aux
+        block read once per launch that has a live lane (a launch whose
+        lanes are all dead reads none of them); operations from the
+        counting instance."""
+        tables = sum(t.numel() * 4 for t in (packed.wide, packed.tris_bw,
+                                             packed.leafmeta, aux))
+        lanes = sum(ins[0].shape[0] for _, ins in segs)
+        live_launches = sum(bool((ins[3] >= 0).any()) for _, ins in segs)
+        ops = {}
+        for counted in ("forward", "record_soft"):
+            counts = torch.zeros(4, dtype=torch.int64, device=dev)
+            for depth, ins in segs:
+                mega.trace_segment(packed, aux, depth, *ins, counts=counts,
+                                   **mode_kw[counted], **kw)
+            ops[counted] = sum(n * k for n, k in zip(counts.tolist(),
+                                                     OPS_PER_TEST))
+        rec_bytes = {"forward": 0, "record": 24,
+                     "record_soft": 24 + 4 * kw["n_lights"]}
+        return {mode: (lanes * (40 + 52 + rec_bytes[mode])
+                       + tables * live_launches,
+                       ops["record_soft" if mode == "record_soft"
+                           else "forward"]) for mode in MODES}
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    stats = {m: dict(max_err=0.0, bad=0, lanes=0, ms=0.0, plain_ms=0.0)
+             for m in MODES}
     failures = []  # checks that failed; raised after every phase has run
+    if ptxas_worse:
+        failures.append(f"forward instances need more than the "
+                        f"forward-only kernel's {FORWARD_PTXAS}: {fwd}")
+
+    def check_modes(packed, aux, depth, ins, kw, name, plain_soft=None,
+                    timed=False):
+        """Kernel vs plain in modes (b) and (d) on one segment's inputs,
+        and their base outputs against mode (a)'s, bitwise."""
+        fwd = mega.trace_segment(packed, aux, depth, *ins, **kw)
+        for mode in ("record", "record_soft"):
+            got = mega.trace_segment(packed, aux, depth, *ins,
+                                     **mode_kw[mode], **kw)
+            want = plain_soft
+            if want is None or timed:
+                want = mega.trace_segment_plain(packed, aux, depth, *ins,
+                                                **mode_kw[mode], **kw)
+            bad, lanes, err = compare(got[:5], want[:5], torch)
+            rbad = compare_records(got[5], want[5][:len(got[5])], torch)
+            same = all(torch.equal(a, b) for a, b in zip(got[:5], fwd))
+            st = stats[mode]
+            st["max_err"] = max(st["max_err"], err, rbad[1])
+            st["bad"] += int(bad + rbad[0])
+            st["lanes"] += lanes
+            note = ""
+            if timed:
+                kt = events_ms(lambda: mega.trace_segment(
+                    packed, aux, depth, *ins, **mode_kw[mode], **kw), 5)
+                pt = events_ms(lambda: mega.trace_segment_plain(
+                    packed, aux, depth, *ins, **mode_kw[mode], **kw), 1)
+                st["ms"] += kt
+                st["plain_ms"] += pt
+                note = f"; kernel {kt:.4f} ms, plain {pt:.4f} ms {card}"
+            log(f"{name} {mode}: {bad} lanes outside rtol=atol=5e-4, "
+                f"{rbad[0]} record lanes off, max abs err "
+                f"{max(err, rbad[1]):.3g}, base outputs "
+                f"{'equal' if same else 'DIFFER from'} mode (a){note}")
+            if bad + rbad[0] > MAX_BAD_FRACTION * lanes:
+                failures.append(f"{name} {mode}: {bad + rbad[0]} of {lanes} "
+                                f"lanes disagree")
+            if not same:
+                failures.append(f"{name} {mode}: base outputs differ from "
+                                f"the forward mode's")
+
+    max_err, bad_total, lanes_total = 0.0, 0, 0
 
     # ---- kernel vs plain: mesh10k 256x256, every segment --------------------
     scene, cam, cfg = get_preset("mesh10k", width=256, height=256, device=dev)
@@ -159,6 +327,12 @@ def main():
         if bad > MAX_BAD_FRACTION * lanes:
             failures.append(f"mesh10k segment {depth}: {bad} of {lanes} "
                             f"lanes disagree")
+        # modes (b) and (d) against one plain record_soft run, whose base
+        # outputs and first four records are mode (b)'s too
+        plain_soft = mega.trace_segment_plain(packed, aux, depth, *ins,
+                                              record_soft=True, **kw)
+        check_modes(packed, aux, depth, ins, kw,
+                    f"mesh10k 256x256 segment {depth}", plain_soft)
 
     # ---- flagship: BVH prepare, then kernel vs plain on ray slices ----------
     scene, cam, cfg = get_preset("mesh100k", device=dev)
@@ -174,7 +348,9 @@ def main():
     aux = mega.build_aux(scene, cfg.background)
     kw = segment_kw(scene, cfg)
     k_ms = p_ms = 0.0
+    frame_segs, slice_segs = [], []
     for depth, ins in enumerate(chain_inputs(scene, cam, cfg, packed, aux)):
+        frame_segs.append((depth, ins))
         live_idx = torch.nonzero(ins[3] >= 0).squeeze(1)
         if live_idx.numel() >= SLICE:
             pick = live_idx[torch.linspace(0, live_idx.numel() - 1, SLICE,
@@ -183,6 +359,7 @@ def main():
             dead_idx = torch.nonzero(ins[3] < 0).squeeze(1)
             pick = torch.cat([live_idx, dead_idx[:SLICE - live_idx.numel()]])
         sl = [x[pick].contiguous() for x in ins]
+        slice_segs.append((depth, sl))
         got = mega.trace_segment(packed, aux, depth, *sl, **kw)
         want = mega.trace_segment_plain(packed, aux, depth, *sl, **kw)
         bad, lanes, err = compare(got, want, torch)
@@ -199,18 +376,37 @@ def main():
         if bad > MAX_BAD_FRACTION * lanes:
             failures.append(f"mesh100k segment {depth}: {bad} of {lanes} "
                             f"lanes disagree")
+        check_modes(packed, aux, depth, sl, kw,
+                    f"mesh100k segment {depth} slice", timed=True)
     log(f"kernel vs plain: {bad_total} of {lanes_total} lanes outside "
         f"tolerance, max abs err {max_err:.6g}")
+    for mode in ("record", "record_soft"):
+        st = stats[mode]
+        log(f"kernel vs plain, mode {mode}: {st['bad']} of {st['lanes']} "
+            f"lanes off, max abs err {st['max_err']:.6g}; slices: kernel "
+            f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms {card}")
+    stats["forward"].update(max_err=max_err, bad=bad_total,
+                            lanes=lanes_total, ms=k_ms, plain_ms=p_ms)
+    slice_work = work(packed, aux, kw, slice_segs)
+    frame_work = work(packed, aux, kw, frame_segs)
+    for mode in MODES:
+        for what, wk in (("slices", slice_work), ("frame", frame_work)):
+            nb, ops = wk[mode]
+            b, by = bound(nb, ops)
+            log(f"bound {mode} {what}: {nb} bytes, {ops:.6g} FP32 "
+                f"operations -> {b:.4f} ms ({by}) [H100 SXM peaks]")
 
     # ---- the main path: the flagship frame as the CLI renders it ------------
-    mega.launches = 0
+    for m in mega.launches:
+        mega.launches[m] = 0
     img = render(scene, cam, cfg, bvh=packed)
     torch.cuda.synchronize()
-    launches = mega.launches
+    launches = dict(mega.launches)
     n_segments = cfg.max_bounces + 1
-    if launches != n_segments:
+    if launches["forward"] != n_segments or sum(launches.values()) \
+            != n_segments:
         raise AssertionError(f"frame made {launches} kernel launches, "
-                             f"expected {n_segments}")
+                             f"expected {n_segments} forward")
     if tuple(img.shape) != (cam.height, cam.width, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
@@ -219,52 +415,65 @@ def main():
     if std <= 0.01:
         raise AssertionError(f"image std {std} <= 0.01: nothing rendered")
     log(f"mesh100k {cam.width}x{cam.height} depth {cfg.max_bounces}: "
-        f"{launches} launches, stack overflow 0, image std {std:.4f}, "
-        f"mean {float(img.mean()):.4f}")
+        f"{launches['forward']} launches, stack overflow 0, image std "
+        f"{std:.4f}, mean {float(img.mean()):.4f}")
 
     frame_ms = events_ms(lambda: render_frame(scene, cam, cfg, packed), 3)
-    # the five launches of one frame alone
-    o, d = generate_rays_blocks(cam, cfg.block_size)
-    seg_ms = []
-    n = o.shape[0]
-    thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    tmax = torch.full((n,), 3.0e38, dtype=torch.float32, device=dev)
-    for depth in range(n_segments):
-        ms = events_ms(lambda: mega.trace_segment(
-            packed, aux, depth, o, d, thr, tmax, **kw), 3)
-        seg_ms.append(ms)
-        _, o, d, thr, tmax = mega.trace_segment(packed, aux, depth, o, d,
-                                                thr, tmax, **kw)
+    # the five launches of one frame alone, in each mode
+    seg_ms = {m: [] for m in MODES}
+    for depth, ins in frame_segs:
+        for mode in MODES:
+            seg_ms[mode].append(events_ms(lambda: mega.trace_segment(
+                packed, aux, depth, *ins, **mode_kw[mode], **kw), 3))
     n_lights = int(scene.lights.valid.sum())
     issued = cam.width * cam.height * n_segments * (1 + n_lights)
     log(f"mesh100k frame: {frame_ms:.3f} ms, {issued / frame_ms * 1e3:.4g} "
         f"issued rays/s ({issued} = pixels x {n_segments} segments x "
         f"(1 + {n_lights} lights)) {card}")
-    log(f"fused kernel per frame: {sum(seg_ms):.3f} ms (segments "
-        f"{', '.join(f'{m:.3f}' for m in seg_ms)} ms) {card}")
-    # where one frame's device time goes (torch.profiler's CUDA trace)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        render_frame(scene, cam, cfg, packed)
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    ops = sorted(prof.key_averages(), key=dev_us, reverse=True)
-    busy_us = sum(dev_us(e) for e in ops)
-    if busy_us > 0:
-        log(f"profile of one frame: device busy {busy_us / 1e3:.3f} ms "
-            f"= {busy_us / 1e3 / frame_ms:.1%} of the timed frame "
-            f"{frame_ms:.3f} ms {card}")
-        for e in ops[:8]:
-            log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:70]}")
-    else:
-        log("profile of one frame: no device time recorded (not measured)")
+    log("mesh100k frame live lanes per segment: " + ", ".join(
+        str(int((ins[3] >= 0).sum())) for _, ins in frame_segs)
+        + f" of {frame_segs[0][1][0].shape[0]}")
+    for mode in MODES:
+        nb, ops = frame_work[mode]
+        b, by = bound(nb, ops)
+        log(f"fused kernel per frame, mode {mode}: {sum(seg_ms[mode]):.3f} "
+            f"ms (segments {', '.join(f'{m:.3f}' for m in seg_ms[mode])} "
+            f"ms); bound {b:.4f} ms ({by}) {card}")
+    def profile_once(fn, what, timed_ms):
+        """Where one call's device time goes (torch.profiler's CUDA
+        trace): busy share of the timed call, top kernels."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0))
+        # kernel rows only: an aten:: row repeats its kernels' device time
+        ops = sorted((e for e in prof.key_averages()
+                      if dev_us(e) > 0 and not e.key.startswith("aten::")),
+                     key=dev_us, reverse=True)
+        busy_us = sum(dev_us(e) for e in ops)
+        if busy_us > 0:
+            n_k = sum(e.count for e in ops)
+            log(f"profile of {what}: device busy {busy_us / 1e3:.3f} ms "
+                f"= {busy_us / 1e3 / timed_ms:.1%} of the timed "
+                f"{timed_ms:.3f} ms, {n_k} kernel launches {card}")
+            for e in ops[:8]:
+                log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
+                    f"{e.key[:70]}")
+        else:
+            log(f"profile of {what}: no device time recorded (not "
+                f"measured)")
+
+    profile_once(lambda: render_frame(scene, cam, cfg, packed), "one frame",
+                 frame_ms)
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # ---- small frame: card vs the plain version on the CPU ------------------
-    s_cpu, c_cpu, cfg_s = get_preset("mesh10k", width=64, height=64)
+    s_cpu, c_cpu, cfg_s = get_preset("mesh10k", width=64, height=64,
+                                     device="cpu")
     img_cpu = render(s_cpu, c_cpu, cfg_s).numpy()
     img_card = render(s_cpu.to(dev), c_cpu.to(dev), cfg_s).cpu().numpy()
     bad_px = int((~np.isclose(img_card, img_cpu, **TOL).all(-1)).sum())
@@ -273,13 +482,168 @@ def main():
         f"{float(np.abs(img_card - img_cpu).max()):.3g}")
     if bad_px > max(1, MAX_BAD_FRACTION * 64 * 64):
         failures.append("card image disagrees with the CPU image")
+
+    # ---- flagship fwd+bwd: hard, then soft ----------------------------------
+    names = ("sphere_centers", "sphere_diffuse", "light_intensities")
+    params = get_params(scene, names)
+    o, d = generate_rays_blocks(cam, cfg.block_size)
+    fwd_rad = trace_radiance(scene, o, d, cfg, bvh=packed)
+    soft_cfg = cfg.with_(diff=DiffConfig(soft_shadow_temp=1.0,
+                                         soft_hit_temp=0.1,
+                                         straight_through=True))
+    chunk = 1 << 18
+    steps = {
+        "hard": dict(cfg=cfg, soft=False, vg=lambda tgt, k: (
+            rp.replay_value_and_grad(scene, params, o, d, tgt, cfg, packed,
+                                     live_segments=k))),
+        "soft": dict(cfg=soft_cfg, soft=True, vg=lambda tgt, k: (
+            rp.soft_replay_value_and_grad(scene, params, o, d, tgt,
+                                          soft_cfg, packed, live_segments=k,
+                                          chunk=chunk)))}
+    path_launches = {}
+    for kind, sp in steps.items():
+        _, recs = rp.trace_records(scene, o, d, sp["cfg"], packed,
+                                   soft=sp["soft"])
+        k = rp.live_depth(recs)
+        with torch.no_grad():
+            rad = (rp.trace_radiance_replay_soft(scene, o, d, soft_cfg,
+                                                 packed, chunk=chunk)
+                   if sp["soft"] else
+                   rp.replay_radiance(scene, o, d, recs, cfg))
+        bad = int((~torch.isclose(rad, fwd_rad, **RAD_TOL).all(-1)).sum())
+        err = float((rad - fwd_rad).abs().max())
+        log(f"mesh100k {kind} replay radiance vs forward render: {bad} of "
+            f"{o.shape[0]} lanes outside rtol=atol=2e-4, max abs err "
+            f"{err:.3g}; live segments {k}")
+        if bad > MAX_BAD_FRACTION * o.shape[0]:
+            failures.append(f"{kind} replay radiance disagrees with the "
+                            f"forward render on {bad} lanes")
+        target = rad * 0.9
+        # the main path: one fwd+bwd step, counts read just after
+        for m in mega.launches:
+            mega.launches[m] = 0
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = sp["vg"](target, k)
+        torch.cuda.synchronize()
+        path_launches[kind] = dict(mega.launches)
+        peak = torch.cuda.max_memory_allocated()
+        mode = "record_soft" if sp["soft"] else "record"
+        if path_launches[kind][mode] != n_segments:
+            failures.append(f"{kind} fwd+bwd made {path_launches[kind]} "
+                            f"launches, expected {n_segments} {mode}")
+        if not bool(torch.isfinite(loss)):
+            failures.append(f"{kind} fwd+bwd loss {float(loss)}")
+        for n_, g in grads.items():
+            if not bool(torch.isfinite(g).all()) or not bool(
+                    (g != 0).any()):
+                failures.append(f"{kind} fwd+bwd grad {n_} not finite or "
+                                f"all zero")
+        step_ms = events_ms(lambda: sp["vg"](target, k), 3)
+        rec_ms = events_ms(lambda: rp.trace_records(
+            scene, o, d, sp["cfg"], packed, soft=sp["soft"]), 3)
+        log(f"mesh100k {kind} fwd+bwd: loss {float(loss):.6g}, "
+            f"{path_launches[kind][mode]} {mode} launches, grad max |g| "
+            + ", ".join(f"{n_} {float(g.abs().max()):.4g}"
+                        for n_, g in grads.items())
+            + f"; step {step_ms:.3f} ms = {issued / step_ms * 1e3:.4g} "
+            f"issued rays/s fwd+bwd; records pass {rec_ms:.3f} ms, replay "
+            f"fwd+bwd ~{step_ms - rec_ms:.3f} ms (step minus records); "
+            f"peak memory {peak / 2**30:.3f} GiB {card}")
+        profile_once(lambda: sp["vg"](target, k),
+                     f"one {kind} fwd+bwd step", step_ms)
+        if not sp["soft"]:
+            # the replay fwd+bwd alone, on fixed records
+            leaves = {n_: v.detach().clone().requires_grad_(True)
+                      for n_, v in params.items()}
+            from unity_raytracer_tpu_torch.fit import set_params
+
+            def replay_only():
+                r = rp.replay_radiance(set_params(scene, leaves), o, d,
+                                       recs, cfg, live_segments=k)
+                ((r - target) ** 2).mean().backward()
+            log(f"mesh100k hard replay fwd+bwd alone: "
+                f"{events_ms(replay_only, 3):.3f} ms {card}")
+
+    # ---- fit --replay: the flagship, then mesh10k card vs CPU ---------------
+    for m in mega.launches:
+        mega.launches[m] = 0
+    times = {}
+    for n_steps in (1, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _, _ = run_fit("mesh100k", 1920, 1080, n_steps, 0.02, 0, dev)
+        torch.cuda.synchronize()
+        times[n_steps] = time.perf_counter() - t0
+        if len(res.losses) != n_steps or not np.isfinite(res.losses).all():
+            failures.append(f"mesh100k fit losses {res.losses}")
+    fit_launches = dict(mega.launches)
+    log(f"mesh100k 1920x1080 fit --replay 3 steps: losses "
+        f"{[float(x) for x in res.losses]}, {fit_launches} launches over "
+        f"both fits; {times[3]:.3f} s in all, step "
+        f"{(times[3] - times[1]) / 2 * 1e3:.3f} ms (3-step minus 1-step "
+        f"fit, /2) {card}")
+    if fit_launches["record_soft"] == 0:
+        failures.append("fit made no record_soft launch")
+    fits = {}
+    for where in (dev, torch.device("cpu")):
+        fits[where.type] = run_fit("mesh10k", 64, 64, 5, 0.02, 0, where)[0]
+    a, b = fits["cuda"], fits["cpu"]
+    ok = np.allclose(a.losses, b.losses, rtol=1e-3) and all(
+        np.allclose(a.params[n_].cpu().numpy(), b.params[n_].numpy(),
+                    rtol=1e-3, atol=1e-6) for n_ in a.params)
+    diff = {n_: float((a.params[n_].cpu() - b.params[n_]).abs().max())
+            for n_ in a.params}
+    log(f"mesh10k 64x64 fit 5 steps card vs CPU: losses "
+        f"{[float(x) for x in a.losses]} vs {[float(x) for x in b.losses]}, "
+        f"loss_ratio {a.losses[-1] / a.losses[0]:.4f} vs "
+        f"{b.losses[-1] / b.losses[0]:.4f}, params max abs diff "
+        + ", ".join(f"{n_} {v:.3g}" for n_, v in diff.items())
+        + f": {'agree' if ok else 'DISAGREE'} at rtol 1e-3")
+    if not ok:
+        failures.append("mesh10k fit on the card disagrees with the CPU")
+    # one hard fwd+bwd, card vs CPU
+    out = []
+    for where in ("cpu", dev):
+        s, c = s_cpu.to(where), c_cpu.to(where)
+        pk = bvhmod.prepare_bvh(s, cfg_s)
+        o_, d_ = generate_rays_blocks(c, cfg_s.block_size)
+        tgt = rp.trace_radiance_replay(s, o_, d_, cfg_s, pk) * 0.9
+        p_ = {n_: v * 1.01 for n_, v in get_params(s, names).items()}
+        loss, g = rp.replay_value_and_grad(s, p_, o_, d_, tgt, cfg_s, pk)
+        out.append((float(loss), {n_: v.cpu() for n_, v in g.items()}))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    ok = np.isclose(l_card, l_cpu, rtol=1e-4) and all(
+        np.allclose(g_card[n_], g_cpu[n_], rtol=5e-3,
+                    atol=5e-4 * max(float(g_cpu[n_].abs().max()), 1e-6))
+        for n_ in names)
+    log(f"mesh10k 64x64 fwd+bwd card vs CPU: loss {l_card:.6g} vs "
+        f"{l_cpu:.6g}, grads "
+        + ", ".join(f"{n_} max abs diff "
+                    f"{float((g_card[n_] - g_cpu[n_]).abs().max()):.3g}"
+                    for n_ in names)
+        + f": {'agree' if ok else 'DISAGREE'}")
+    if not ok:
+        failures.append("mesh10k fwd+bwd on the card disagrees with the CPU")
     if failures:
         raise AssertionError("; ".join(failures))
 
-    print(json.dumps({"kernels": [{
-        "name": "mega_segment", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]}))
+    main_launches = {"forward": launches["forward"],
+                     "record": path_launches["hard"]["record"],
+                     "record_soft": path_launches["soft"]["record_soft"]}
+    kernels = []
+    for mode in MODES:
+        st = stats[mode]
+        b, by = bound(*slice_work[mode])
+        fb, fby = bound(*frame_work[mode])
+        kernels.append({
+            "name": f"mega_segment/{mode}", "mode": mode, "route": "cuda",
+            "source": KERNEL_SRC, "replaces": REPLACES,
+            "launches": main_launches[mode], "max_abs_err": st["max_err"],
+            "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": b,
+            "bound_by": by, "library_ms": None,
+            "frame_ms": sum(seg_ms[mode]), "frame_bound_ms": fb,
+            "frame_bound_by": fby})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,8 @@ def _jax_scene(name):
 
 def _port_scene(name):
     if name == "small":
-        return small_scene(t_scene, t_meshgen)
-    return get_preset(name, width=8, height=8)[0]
+        return small_scene(t_scene, t_meshgen, device="cpu")
+    return get_preset(name, width=8, height=8, device="cpu")[0]
 
 
 @pytest.mark.parametrize("name,leaf,arity", [
@@ -80,9 +80,9 @@ def test_packed_from_arrays_roundtrip():
     from unity_raytracer_tpu.ops import bvh as j_bvh
     js, cfg = _jax_scene("small")
     jp = j_bvh.prepare_bvh(js, cfg.with_(kernel="mega"))
-    conv = packed_from_arrays(jax.tree.map(np.asarray, jp))
+    conv = packed_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
     mine = t_bvh.prepare_bvh(scene_from_arrays(
-        jax.tree.map(np.asarray, js)), cfg)
+        jax.tree.map(np.asarray, js), "cpu"), cfg)
     assert_same_arrays(_packed_arrays(conv), _packed_arrays(mine))
     assert (conv.rows_per_leaf, conv.bw_rows_per_leaf) == (
         mine.rows_per_leaf, mine.bw_rows_per_leaf)
@@ -108,7 +108,7 @@ def test_widen_refuses_deep_tree():
 
 
 def test_presplit_and_meshless_raise():
-    scene = small_scene(t_scene, t_meshgen)
+    scene = small_scene(t_scene, t_meshgen, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_bvh.prepare_bvh(scene, CFG.with_(bvh_presplit=0.3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -118,7 +118,7 @@ def test_presplit_and_meshless_raise():
 
 @pytest.mark.gpu
 def test_prepare_bvh_on_card_equal(cuda):
-    scene = small_scene(t_scene, t_meshgen)
+    scene = small_scene(t_scene, t_meshgen, device="cpu")
     on_card = t_bvh.prepare_bvh(scene.to(cuda), CFG, cuda)
     assert on_card.wide.device.type == "cuda"
     assert_same_arrays(_packed_arrays(on_card),

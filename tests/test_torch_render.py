@@ -87,8 +87,8 @@ def test_import_leaves_jax_out():
     (dict(bvh_arity=0), "#12"),
     (dict(use_bvh=False), "#10")])
 def test_off_slice_configs_raise(change, item):
-    ts = small_scene(t_scene, t_meshgen)
-    tc = Camera.make(width=8, height=8, **CAMERA)
+    ts = small_scene(t_scene, t_meshgen, device="cpu")
+    tc = Camera.make(width=8, height=8, device="cpu", **CAMERA)
     with pytest.raises(NotImplementedError, match=f"{item} in ROADMAP"):
         render(ts, tc, CFG.with_(**change))
 
@@ -96,7 +96,7 @@ def test_off_slice_configs_raise(change, item):
 @pytest.mark.parametrize("name", ["reference_demo", "three_spheres",
                                   "cornell_box"])
 def test_off_slice_presets_raise(name):
-    scene, cam, cfg = get_preset(name, width=8, height=8)
+    scene, cam, cfg = get_preset(name, width=8, height=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, cam, cfg)
 
@@ -113,10 +113,10 @@ def test_cli_render_writes_png(tmp_path):
 
 @pytest.mark.gpu
 def test_render_on_card_matches_cpu(cuda):
-    before = mega.launches
+    before = mega.launches["forward"]
     got = _port_render(64, cuda)
     torch.cuda.synchronize()
-    assert mega.launches == before + CFG.max_bounces + 1
+    assert mega.launches["forward"] == before + CFG.max_bounces + 1
     want = _port_render(64)
     bad = ~np.isclose(got, want, **TOL).all(-1)
     assert bad.sum() <= 2, np.nonzero(bad)  # FMA-flipped edge pixels

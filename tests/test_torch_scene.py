@@ -52,7 +52,7 @@ def test_preset_table_matches():
 @pytest.mark.parametrize("name,w,h", SIZES)
 def test_preset_equal(jx, name, w, h):
     js, jc, jcfg = jx["presets"].get_preset(name, width=w, height=h)
-    ts, tc, tcfg = get_preset(name, width=w, height=h)
+    ts, tc, tcfg = get_preset(name, width=w, height=h, device="cpu")
     assert_same_arrays(leaves(js), leaves(ts))
     assert_same_arrays(leaves(jc), leaves(tc))
     assert (jc.width, jc.height) == (tc.width, tc.height)
@@ -64,23 +64,24 @@ def test_scene_builder_padding_equal(jx):
     kw = dict(pad_spheres=3, pad_triangles=4, pad_mesh_tris=400,
               pad_meshes=2, pad_lights=4)
     js = small_scene(jx["scene"], jx["meshgen"], **kw)
-    ts = small_scene(t_scene, t_meshgen, **kw)
+    ts = small_scene(t_scene, t_meshgen, device="cpu", **kw)
     assert_same_arrays(leaves(js), leaves(ts))
     assert ts.spheres.count == 3 and ts.meshes.count == 400
 
 
 def test_scene_from_arrays_equal(jx):
     js = small_scene(jx["scene"], jx["meshgen"])
-    ts = scene_from_arrays(jx["jax"].tree.map(np.asarray, js))
+    ts = scene_from_arrays(jx["jax"].tree.map(np.asarray, js), "cpu")
     assert_same_arrays(leaves(js), leaves(ts))
-    assert_same_arrays(leaves(ts), leaves(small_scene(t_scene, t_meshgen)))
+    assert_same_arrays(leaves(ts), leaves(small_scene(t_scene, t_meshgen,
+                                                      device="cpu")))
 
 
 @pytest.mark.parametrize("name,w,h", SIZES)
 @pytest.mark.parametrize("bs", [32, 1])
 def test_primary_rays_bitwise(jx, name, w, h, bs):
     _, jc, _ = jx["presets"].get_preset(name, width=w, height=h)
-    _, tc, _ = get_preset(name, width=w, height=h)
+    _, tc, _ = get_preset(name, width=w, height=h, device="cpu")
     jo, jd = jx["camera"].generate_rays_blocks(jc, bs)
     to, td = generate_rays_blocks(tc, bs)
     np.testing.assert_array_equal(np.asarray(jo), to.numpy())
@@ -99,7 +100,7 @@ def test_unswizzle_matches(jx, w, h, bs):
 
 
 def test_camera_to_device_roundtrip():
-    cam = Camera.make(width=8, height=6, **CAMERA)
+    cam = Camera.make(width=8, height=6, device="cpu", **CAMERA)
     back = cam.to("cpu")
     assert (back.width, back.height) == (8, 6)
     assert_same_arrays(leaves(cam), leaves(back))
@@ -107,7 +108,7 @@ def test_camera_to_device_roundtrip():
 
 @pytest.mark.gpu
 def test_rays_and_unswizzle_on_card(cuda):
-    _, tc, cfg = get_preset("mesh100k", width=96, height=54)
+    _, tc, cfg = get_preset("mesh100k", width=96, height=54, device="cpu")
     o, d = generate_rays_blocks(tc, cfg.block_size)
     og, dg = generate_rays_blocks(tc.to(cuda), cfg.block_size)
     np.testing.assert_array_equal(og.cpu().numpy(), o.numpy())

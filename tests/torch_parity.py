@@ -37,6 +37,34 @@ def small_scene(mod_scene, mod_meshgen, **build_kw):
     return b.build(**build_kw)
 
 
+def replay_scene(mod_scene, mod_meshgen, **build_kw):
+    """tests/test_replay.py's scene (:27-55): the small scene plus a
+    second, diffuse sphere, so sphere, loose-triangle and mesh winners,
+    occluded and lit lights, a mirror chain and misses all show up in a
+    16x16 frame through ``CAMERA``."""
+    b = mod_scene.SceneBuilder()
+    mm = mod_scene.make_material
+    v, f = mod_meshgen.icosphere(subdivisions=2, radius=2.0,
+                                 center=(0, 2, 8))
+    b.add_mesh(v, f, mm(diffuse=(0.7, 0.5, 0.2), ambient=(0.7, 0.5, 0.2),
+                        specular=(0.6, 0.6, 0.6), phong=40.0))
+    b.add_sphere((-3, 1.5, 6), 1.5, mm(
+        diffuse=(0.2, 0.1, 0.1), ambient=(0.1, 0.1, 0.1),
+        specular=(1, 1, 1), phong=200.0, mirror=(0.9, 0.9, 0.9),
+        is_mirror=True))
+    b.add_sphere((2.5, 1.0, 4.5), 1.0, mm(
+        diffuse=(0.2, 0.6, 0.3), ambient=(0.2, 0.6, 0.3), phong=10.0))
+    g = 30.0
+    gmat = mm(diffuse=(0.5, 0.5, 0.55), ambient=(0.5, 0.5, 0.55),
+              phong=1.0)
+    b.add_triangle((-g, 0, -g), (g, 0, -g), (g, 0, g), gmat)
+    b.add_triangle((-g, 0, -g), (g, 0, g), (-g, 0, g), gmat)
+    b.add_point_light((5, 8, 0), 800.0)
+    b.add_point_light((-6, 7, 10), 500.0)
+    b.set_ambient((8, 8, 8))
+    return b.build(**build_kw)
+
+
 CAMERA = dict(position=(0, 3, -4), forward=(0, -0.15, 1), dist=1.0,
               half_h=0.8, half_v=0.8)
 
@@ -61,6 +89,31 @@ def assert_same_arrays(a: dict, b: dict):
     for k in a:
         assert a[k].dtype == b[k].dtype, k
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+REC_TOL = dict(rtol=5e-4, atol=5e-4)
+BIG = 3.0e38
+
+
+def record_bad_lanes(got, want):
+    """[...lanes] bool mask of hit records that disagree: ``matid`` and
+    ``occbits`` exactly, the sign of ``t`` exactly, ``t`` and ``n`` at
+    rtol = atol = 5e-4 where ``want`` hits, and ``st`` (when present) at
+    that tolerance where below _BIG and exactly _BIG elsewhere."""
+    g = [np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+         for x in got]
+    w = [np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+         for x in want]
+    hit = w[0] >= 0
+    bad = (g[2] != w[2]) | (g[3] != w[3]) | ((g[0] >= 0) != hit)
+    bad |= hit & ~np.isclose(g[0], w[0], **REC_TOL)
+    bad |= hit & ~np.isclose(g[1], w[1], **REC_TOL).all(-1)
+    if len(w) > 4:
+        fin = w[4] < BIG
+        st_bad = np.where(fin, ~np.isclose(g[4], w[4], **REC_TOL),
+                          g[4] != w[4])
+        bad |= st_bad.any(-1)
+    return bad
 
 
 def segment_rays(n, seed, dead_every=7):

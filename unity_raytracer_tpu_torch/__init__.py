@@ -5,13 +5,17 @@ module names, and each module's docstring names its JAX twin by file. The
 port imports ``torch`` and numpy only — never ``jax`` and never the JAX
 package.
 
-Slice ported so far: the forward render of the mirror bounce chain on the
+Slices ported so far: the forward render of the mirror bounce chain on the
 fused segment kernel (``ops/render.py`` → ``ops/kernels/mega.py`` →
 ``csrc/mega_segment.cu``), with the host BVH build and packers, the scene
-containers, presets, camera and image assembly around it. Everything else
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+containers, presets, camera and image assembly around it; and training by
+record-replay — the kernel's record modes, the differentiable shading
+replay (``ops/replay.py``) and the fitting loop (``fit.py``). Everything
+else raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Entry points run on the CUDA card unless the caller asks for the CPU.
 
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
+    python -m unity_raytracer_tpu_torch fit --preset mesh100k --replay
 """
 
 __version__ = "0.1.0"

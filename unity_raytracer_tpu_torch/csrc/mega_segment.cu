@@ -1,13 +1,21 @@
 // Fused bounce-segment kernel for Hopper (sm_90a): one thread per ray.
 //
 // Replaces the TPU kernel unity_raytracer_tpu/ops/pallas/mega.py:_kernel
-// (its pallas_call is at mega.py:1398) in the flagship mode the forward
-// render runs: hard forward, wide BVH4/8 walk, Baldwin–Weber leaf records,
-// one any-hit shadow walk per light with the light_cull gate, Blinn-Phong
-// shading on the 0-255 scale and the mirror continuation. It reads the
-// host-built arrays unchanged (wide rows, tris_bw rows with a 128-float
-// stride, leafmeta, the aux block of ops/kernels/mega.build_aux) and writes
-// the five outputs of one segment.
+// (its pallas_call is at mega.py:1398) in three modes, a template
+// parameter each:
+//   FORWARD      the hard forward the render runs: wide BVH4/8 walk,
+//                Baldwin–Weber leaf records, one any-hit shadow walk per
+//                light with the light_cull gate, Blinn-Phong shading on
+//                the 0-255 scale and the mirror continuation;
+//   RECORD       the same, plus the hit records of mega.py:958-971 for
+//                the differentiable replay: t, shading normal, combined
+//                material id and the per-light occlusion bits;
+//   RECORD_SOFT  RECORD with the min-mode shadow walks of
+//                mega.py:1064-1248 (and :105-273): per light the nearest
+//                occluder closer than the light, written as st [N, L].
+// It reads the host-built arrays unchanged (wide rows, tris_bw rows with a
+// 128-float stride, leafmeta, the aux block of ops/kernels/mega.build_aux)
+// and writes the five outputs of one segment, plus the records.
 //
 // Design: one thread per ray with a private stack of STACK (int code,
 // float entry distance) entries. Each thread walks near-first with its own
@@ -17,17 +25,30 @@
 // best_t. The TPU kernel's per-tile union walk, scalar SMEM cursor, shared
 // stale prune and its tile_r / walk_unroll / occ_mode / near_mode knobs do
 // not exist here: they were the TPU's answer to one cursor per tile and
-// change no result. Shadow walks stop at the first occluder closer than
-// the light, after testing spheres and loose triangles first.
+// change no result. Any-hit shadow walks stop at the first occluder closer
+// than the light, after testing spheres and loose triangles first. A
+// min-mode walk starts from best = the light distance, lowers it with
+// spheres and loose triangles (strict <), then walks near-first, pruning
+// pops beyond best and lowering best on every closer hit; it never stops
+// early. Its occlusion mask (best < best0) is the any-hit walk's, so the
+// shading, delta and continuation of RECORD_SOFT equal FORWARD's.
 //
 // What bounds it on this card: divergent pointer chasing. The 32 rays of a
 // warp visit different nodes and leaves, so the loads of the ~10 MB of BVH
 // rows (they fit in the 50 MB L2) are scattered and serialised, and the
 // per-thread stack lives in local memory beside a register-heavy ray state,
 // which limits occupancy. wgmma and TMA do not apply: there is no dense
-// tile product and no regular tile to copy. This first version does
-// nothing more about it than 16-byte loads of node and leaf records; the
-// speed work is for later.
+// tile product and no regular tile to copy. The record modes add 6 (RECORD)
+// or 6 + L (RECORD_SOFT) output streams per lane, and RECORD_SOFT's
+// min-mode walks visit every box nearer than the nearest occluder instead
+// of stopping at the first one. This simple version does nothing about
+// either yet beyond 16-byte loads of node and leaf records; the speed work
+// is for later.
+//
+// A counting instance (template flag COUNT, launched only by chip_smoke.py
+// to measure the work) adds each lane's slab tests, leaf-slot tests,
+// sphere tests and Möller–Trumbore tests to four device counters; the
+// kernel's bound in PERF.md is computed from them.
 //
 // Numerics follow the TPU kernel and the plain PyTorch version
 // (ops/kernels/mega.py:trace_segment_plain) formula by formula: IEEE
@@ -59,6 +80,8 @@ constexpr float kTiny = 1e-30f;
 // to 0 in float32, so the clamp is max(x, 0)
 constexpr float kMinSq = 0.0f;
 
+enum Mode { kForward = 0, kRecord = 1, kRecordSoft = 2 };
+
 struct Args {
   const float* o;
   const float* d;
@@ -85,6 +108,15 @@ struct Args {
   int n_mats;
   int max_bounces;
   float light_cull;
+  // records (RECORD, RECORD_SOFT): t [n], n [n,3], matid [n], occbits [n],
+  // st [n, n_lights] (RECORD_SOFT)
+  float* rt;
+  float* rn;
+  float* rmat;
+  float* rocc;
+  float* rst;
+  // COUNT: slab tests, leaf-slot tests, sphere tests, MT tests
+  unsigned long long* counts;
 };
 
 struct Ray {
@@ -93,10 +125,20 @@ struct Ray {
   float ix, iy, iz;
 };
 
+template <bool COUNT>
 struct Stack {
   int code[kStack];
   float key[kStack];
   int sp;
+};
+
+// the counting instance's stack also carries the lane's tallies
+template <>
+struct Stack<true> {
+  int code[kStack];
+  float key[kStack];
+  int sp;
+  unsigned long long slab, leaf, sphere, tri;
 };
 
 __device__ __forceinline__ float fix_dir(float v) {
@@ -198,7 +240,8 @@ __device__ __forceinline__ int leaf_code(int leaf_row, int count) {
   return -2 - (leaf_row * 256 + count);
 }
 
-__device__ __forceinline__ void push(Stack& st, int code, float key,
+template <bool C>
+__device__ __forceinline__ void push(Stack<C>& st, int code, float key,
                                      int* overflow) {
   if (st.sp < kStack) {
     st.code[st.sp] = code;
@@ -210,7 +253,8 @@ __device__ __forceinline__ void push(Stack& st, int code, float key,
 }
 
 // Pop the nearest entry that can still beat `best`; false when empty.
-__device__ __forceinline__ bool pop(Stack& st, float best, int& code) {
+template <bool C>
+__device__ __forceinline__ bool pop(Stack<C>& st, float best, int& code) {
   while (st.sp > 0) {
     --st.sp;
     if (st.key[st.sp] <= best) {
@@ -223,9 +267,9 @@ __device__ __forceinline__ bool pop(Stack& st, float best, int& code) {
 
 // Slab-test the ARITY children of wide row `node`; push the hits
 // far-to-near (ORDERED) or in reverse slot order.
-template <int ARITY, bool ORDERED>
+template <int ARITY, bool ORDERED, bool C>
 __device__ __forceinline__ void expand(const Args& a, int node, const Ray& r,
-                                       float best, Stack& st) {
+                                       float best, Stack<C>& st) {
   const float4* row =
       reinterpret_cast<const float4*>(a.wide + (size_t)node * 8 * ARITY);
   float key[ARITY];
@@ -234,6 +278,7 @@ __device__ __forceinline__ void expand(const Args& a, int node, const Ray& r,
   for (int c = 0; c < ARITY; ++c) {
     const float4 lo = __ldg(row + 2 * c);      // lx ly lz hx
     const float4 hi = __ldg(row + 2 * c + 1);  // hy hz meta count
+    if constexpr (C) st.slab += hi.w >= 0.f;
     float tn;
     const bool hit = hi.w >= 0.f &&
                      slab(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, best, tn);
@@ -271,8 +316,8 @@ __device__ __forceinline__ const float* bw_record(const Args& a,
 }
 
 // Nearest mesh hit: near-first walk with a per-thread best_t.
-template <int ARITY>
-__device__ void nearest_mesh(const Args& a, const Ray& r, Stack& st,
+template <int ARITY, bool C>
+__device__ void nearest_mesh(const Args& a, const Ray& r, Stack<C>& st,
                              float& best_t, float& bnx, float& bny,
                              float& bnz, float& bmat) {
   st.sp = 0;
@@ -284,6 +329,7 @@ __device__ void nearest_mesh(const Args& a, const Ray& r, Stack& st,
       const int x = -2 - cursor;
       const int leaf_row = x >> 8;
       const int count = x & 255;
+      if constexpr (C) st.leaf += count;
       for (int j = 0; j < count; ++j) {
         float t, nx, ny, nz;
         if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) &&
@@ -302,9 +348,9 @@ __device__ void nearest_mesh(const Args& a, const Ray& r, Stack& st,
 }
 
 // Any-hit mesh occlusion closer than tmax.
-template <int ARITY>
+template <int ARITY, bool C>
 __device__ bool occluded_mesh(const Args& a, const Ray& r, float tmax,
-                              Stack& st) {
+                              Stack<C>& st) {
   st.sp = 0;
   int cursor = 0;
   do {
@@ -315,6 +361,7 @@ __device__ bool occluded_mesh(const Args& a, const Ray& r, float tmax,
       const int leaf_row = x >> 8;
       const int count = x & 255;
       for (int j = 0; j < count; ++j) {
+        if constexpr (C) ++st.leaf;
         float t, nx, ny, nz;
         if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) &&
             t < tmax)
@@ -327,28 +374,73 @@ __device__ bool occluded_mesh(const Args& a, const Ray& r, float tmax,
 
 // Shadow query from s toward a light at distance tmax (TPU _occluded):
 // scene-box gate, spheres, loose triangles, then the BVH.
-template <int ARITY>
+template <int ARITY, bool C>
 __device__ bool occluded(const Args& a, const Ray& r, float tmax,
-                         Stack& st) {
+                         Stack<C>& st) {
   float tn;
+  if constexpr (C) ++st.slab;
   if (!slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3], a.aux[4], a.aux[5], r,
             kBig, tn))
     return false;
   if (!(tmax > 0.f)) return false;
   const float* srow = a.aux + (size_t)(1 + a.n_lights) * kRow;
   for (int s = 0; s < a.n_spheres; ++s, srow += kRow) {
+    if constexpr (C) ++st.sphere;
     float t;
     if (sphere_hit(srow, r, t) && t < tmax) return true;
   }
   const float* trow = a.aux + (size_t)(1 + a.n_lights + a.n_spheres) * kRow;
   for (int k = 0; k < a.n_tris; ++k, trow += kRow) {
+    if constexpr (C) ++st.tri;
     float t;
     if (mt_hit(trow, r, t) && trow[12] > 0.f && t < tmax) return true;
   }
   return occluded_mesh<ARITY>(a, r, tmax, st);
 }
 
-template <int ARITY>
+// Min-mode shadow query (TPU _occluded with min_mode): the nearest
+// occluder t below best0, where best0 is the light distance, or -1 when
+// the ray starts outside the scene box. Returns best0 itself when nothing
+// is closer. Never retires early: the walk pops every entry nearer than
+// the running best.
+template <int ARITY, bool C>
+__device__ float nearest_occluder(const Args& a, const Ray& r, float best0,
+                                  Stack<C>& st) {
+  float best = best0;
+  const float* srow = a.aux + (size_t)(1 + a.n_lights) * kRow;
+  for (int s = 0; s < a.n_spheres; ++s, srow += kRow) {
+    if constexpr (C) ++st.sphere;
+    float t;
+    if (sphere_hit(srow, r, t) && t < best) best = t;
+  }
+  const float* trow = a.aux + (size_t)(1 + a.n_lights + a.n_spheres) * kRow;
+  for (int k = 0; k < a.n_tris; ++k, trow += kRow) {
+    if constexpr (C) ++st.tri;
+    float t;
+    if (mt_hit(trow, r, t) && trow[12] > 0.f && t < best) best = t;
+  }
+  if (!(best > 0.f)) return best;
+  st.sp = 0;
+  int cursor = 0;
+  do {
+    if (cursor >= 0) {
+      expand<ARITY, true>(a, cursor, r, best, st);
+    } else {
+      const int x = -2 - cursor;
+      const int leaf_row = x >> 8;
+      const int count = x & 255;
+      if constexpr (C) st.leaf += count;
+      for (int j = 0; j < count; ++j) {
+        float t, nx, ny, nz;
+        if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) && t < best)
+          best = t;
+      }
+    }
+  } while (pop(st, best, cursor));
+  return best;
+}
+
+template <int ARITY, int MODE, bool C>
 __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -367,10 +459,20 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
     d2[0] = dx; d2[1] = dy; d2[2] = dz;
     thr2[0] = tr; thr2[1] = tg; thr2[2] = tb;
     a.tmax2[i] = -1.f;
+    if constexpr (MODE != kForward) {  // record defaults (mega.py:528-536)
+      a.rt[i] = -1.f;
+      a.rn[3 * i] = a.rn[3 * i + 1] = a.rn[3 * i + 2] = 0.f;
+      a.rmat[i] = -1.f;
+      a.rocc[i] = 0.f;
+      if constexpr (MODE == kRecordSoft)
+        for (int l = 0; l < a.n_lights; ++l)
+          a.rst[(size_t)i * a.n_lights + l] = kBig;
+    }
     return;
   }
 
-  Stack st;
+  Stack<C> st;
+  if constexpr (C) st.slab = st.leaf = st.sphere = st.tri = 0;
   const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
   const int L = a.n_lights, S = a.n_spheres, T = a.n_tris;
 
@@ -381,6 +483,7 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
 
   const float* srow = a.aux + (size_t)(1 + L) * kRow;
   for (int s = 0; s < S; ++s, srow += kRow) {
+    if constexpr (C) ++st.sphere;
     float ts;
     if (sphere_hit(srow, r, ts) && best_t > ts) {
       const float rinv = rsqrt_clamped(srow[3]);
@@ -396,6 +499,7 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
   }
   const float* trow = a.aux + (size_t)(1 + L + S) * kRow;
   for (int k = 0; k < T; ++k, trow += kRow) {
+    if constexpr (C) ++st.tri;
     float tt;
     if (mt_hit(trow, r, tt) && trow[12] > 0.f && best_t > tt) {
       best_t = tt;
@@ -407,6 +511,7 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
   }
 
   float tn_box;
+  if constexpr (C) ++st.slab;
   const bool in_box = slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3], a.aux[4],
                            a.aux[5], r, kBig, tn_box);
   const bool hit = in_box && best_t < kBig && best_t >= 0.f;
@@ -436,6 +541,9 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
   const float sz = pz + bnz * kShadowEps;
   const float kdks = fmaxf(fmaxf(m[0], m[1]), m[2]) +
                      fmaxf(fmaxf(m[9], m[10]), m[11]);
+  float occbits = 0.f;  // RECORD modes: sum of 2^l over occluded lights
+  if constexpr (MODE == kRecordSoft)
+    for (int l = 0; l < L; ++l) a.rst[(size_t)i * L + l] = kBig;
   const float* lrow = a.aux + kRow;
   for (int l = 0; l < L; ++l, lrow += kRow) {
     const float lvx = lrow[0] - px, lvy = lrow[1] - py, lvz = lrow[2] - pz;
@@ -449,9 +557,27 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
       const float imax = fmaxf(fmaxf(lrow[3], lrow[4]), lrow[5]);
       need = need && kdks * imax >= a.light_cull * ld2;
     }
-    if (!need) continue;
-    if (occluded<ARITY>(a, make_ray(sx, sy, sz, ldx, ldy, ldz), ldist, st))
-      continue;
+    if (!need) continue;  // a culled or unneeded light is not occluded
+    bool occ;
+    if constexpr (MODE == kRecordSoft) {
+      const Ray sr = make_ray(sx, sy, sz, ldx, ldy, ldz);
+      float tn;
+      if constexpr (C) ++st.slab;
+      const float best0 = slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3],
+                               a.aux[4], a.aux[5], sr, kBig, tn)
+                              ? ldist
+                              : -1.f;
+      const float best = nearest_occluder<ARITY>(a, sr, best0, st);
+      occ = best < best0 && best0 > 0.f;
+      if (occ) a.rst[(size_t)i * L + l] = best;
+    } else {
+      occ = occluded<ARITY>(a, make_ray(sx, sy, sz, ldx, ldy, ldz), ldist,
+                            st);
+    }
+    if constexpr (MODE != kForward) {
+      if (occ) occbits += static_cast<float>(1 << l);
+    }
+    if (occ) continue;
     const float w = 1.0f / fmaxf(ld2, kMinSq);  // Intensity / d^2 (:350)
     const float dterm = fmaxf(0.f, ln) * w;
     col_r += m[0] * dterm * lrow[3];
@@ -473,6 +599,16 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
   delta[1] = tg * (hit ? col_g : a.aux[10]);
   delta[2] = tb * (hit ? col_b : a.aux[11]);
 
+  // ---- hit records for the replay (mega.py:958-971) --------------------
+  if constexpr (MODE != kForward) {
+    a.rt[i] = hit ? best_t : -1.f;
+    a.rn[3 * i] = bnx;
+    a.rn[3 * i + 1] = bny;
+    a.rn[3 * i + 2] = bnz;
+    a.rmat[i] = hit ? bmat : -1.f;
+    a.rocc[i] = occbits;
+  }
+
   // ---- mirror continuation (:358-373) ----------------------------------
   const bool cont = hit && m[13] > 0.f && a.depth < a.max_bounces;
   const float ddn = dx * bnx + dy * bny + dz * bnz;
@@ -486,14 +622,53 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
   thr2[0] = cont ? tr * m[6] : tr;
   thr2[1] = cont ? tg * m[7] : tg;
   thr2[2] = cont ? tb * m[8] : tb;
+
+  if constexpr (C) {
+    atomicAdd(a.counts, st.slab);
+    atomicAdd(a.counts + 1, st.leaf);
+    atomicAdd(a.counts + 2, st.sphere);
+    atomicAdd(a.counts + 3, st.tri);
+  }
+}
+
+template <int ARITY>
+cudaError_t launch(const Args& a, int mode, bool count, cudaStream_t s) {
+  const dim3 grid((a.n + kBlock - 1) / kBlock);
+  switch (mode * 2 + (count ? 1 : 0)) {
+    case 0:
+      mega_segment_kernel<ARITY, kForward, false><<<grid, kBlock, 0, s>>>(a);
+      break;
+    case 1:
+      mega_segment_kernel<ARITY, kForward, true><<<grid, kBlock, 0, s>>>(a);
+      break;
+    case 2:
+      mega_segment_kernel<ARITY, kRecord, false><<<grid, kBlock, 0, s>>>(a);
+      break;
+    case 3:
+      mega_segment_kernel<ARITY, kRecord, true><<<grid, kBlock, 0, s>>>(a);
+      break;
+    case 4:
+      mega_segment_kernel<ARITY, kRecordSoft, false><<<grid, kBlock, 0, s>>>(a);
+      break;
+    case 5:
+      mega_segment_kernel<ARITY, kRecordSoft, true><<<grid, kBlock, 0, s>>>(a);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// One segment over n rays on `stream`. Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for an arity without an instance).
+// One segment over n rays on `stream`, in `mode` (0 FORWARD, 1 RECORD,
+// 2 RECORD_SOFT). The record pointers (rt, rn, rmat, rocc; rst for
+// RECORD_SOFT) may point into larger buffers, e.g. one segment's rows of a
+// [B, n] array; they are unused in FORWARD. A non-null `counts` (4 x u64)
+// selects the counting instance. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an arity or mode without an instance
+// or a missing record pointer).
 int urt_mega_segment(const float* o, const float* d, const float* thr,
                      const float* tmax, int n, int depth, const float* wide,
                      int arity, const float* tris_bw, int leaf_rows,
@@ -501,26 +676,28 @@ int urt_mega_segment(const float* o, const float* d, const float* thr,
                      const float* aux, int n_lights, int n_spheres,
                      int n_tris, int n_mats, int max_bounces,
                      float light_cull, float* delta, float* o2, float* d2,
-                     float* thr2, float* tmax2, int* overflow,
-                     void* stream) {
+                     float* thr2, float* tmax2, int* overflow, int mode,
+                     float* rt, float* rn, float* rmat, float* rocc,
+                     float* rst, unsigned long long* counts, void* stream) {
+  if (mode != kForward &&
+      (!rt || !rn || !rmat || !rocc ||
+       (mode == kRecordSoft && n_lights > 0 && !rst)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{o, d, thr, tmax, wide, tris_bw, leafmeta, aux,
                delta, o2, d2, thr2, tmax2, overflow,
                n, depth, leaf_rows, bw_rows, meta_w,
                n_lights, n_spheres, n_tris, n_mats, max_bounces,
-               light_cull};
-  const dim3 grid((n + kBlock - 1) / kBlock);
+               light_cull, rt, rn, rmat, rocc, rst, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool count = counts != nullptr;
   switch (arity) {
     case 4:
-      mega_segment_kernel<4><<<grid, kBlock, 0, s>>>(a);
-      break;
+      return static_cast<int>(launch<4>(a, mode, count, s));
     case 8:
-      mega_segment_kernel<8><<<grid, kBlock, 0, s>>>(a);
-      break;
+      return static_cast<int>(launch<8>(a, mode, count, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

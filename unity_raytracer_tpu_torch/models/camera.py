@@ -45,7 +45,7 @@ class Camera:
     def make(position=(0.0, 0.0, 0.0), forward=(0.0, 0.0, 1.0),
              up=(0.0, 1.0, 0.0), dist: float = 10.0, half_h: float = 20.0,
              half_v: float = 10.0, width: int = 50, height: int = 50,
-             device="cpu") -> "Camera":
+             device="cuda") -> "Camera":
         f = np.asarray(forward, np.float32)
         f = f / np.linalg.norm(f)
         u = np.asarray(up, np.float32)

@@ -1,4 +1,4 @@
-"""Carry state across from the JAX package: scene and BVH arrays to tensors.
+"""Carry state across from the JAX package: scene, BVH and fit state to tensors.
 
 No single JAX twin: this is the renderer's "weights" converter. A scene
 and its packed BVH are the state a render runs on, and these functions
@@ -6,10 +6,14 @@ take them from any object with the JAX ``Scene`` / ``PackedBVH``
 attribute tree — each leaf read with ``np.asarray``, so a JAX object
 mapped through ``jax.tree.map(np.asarray, ...)`` works, and so does any
 other object of the same shape — and return the port's containers on
-``device``. Nothing here imports JAX.
+``device``. A fit's state (its parameters and optax's Adam moments) comes
+across with ``params_from_arrays`` and ``adam_state_from_arrays``, so a
+fit begun in JAX continues in the port. Nothing here imports JAX.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ def _materials(m, device) -> Materials:
         "transparency", "ior", "is_dielectric")})
 
 
-def scene_from_arrays(obj, device="cpu") -> Scene:
+def scene_from_arrays(obj, device="cuda") -> Scene:
     """A port ``Scene`` from an object with the JAX ``Scene`` attributes."""
     s, t, m, lt = obj.spheres, obj.triangles, obj.meshes, obj.lights
     return Scene(
@@ -72,7 +76,7 @@ def mesh_bvh_from_arrays(obj) -> MeshBVH:
                    flip=None if flip is None else np.array(flip))
 
 
-def packed_from_arrays(obj, device="cpu") -> PackedBVH:
+def packed_from_arrays(obj, device="cuda") -> PackedBVH:
     """A port ``PackedBVH`` from an object with the JAX ``PackedBVH``
     attributes. The rows-per-leaf counts come from the shape tags
     (``leaf_tag``, ``bw_tag``) the JAX layout carries them in."""
@@ -88,3 +92,27 @@ def packed_from_arrays(obj, device="cpu") -> PackedBVH:
         rows_per_leaf=1 if leaf_tag is None else int(np.shape(leaf_tag)[0]),
         tris_bw=opt("tris_bw"),
         bw_rows_per_leaf=0 if bw_tag is None else int(np.shape(bw_tag)[0]))
+
+
+def params_from_arrays(d, device="cuda") -> Dict[str, torch.Tensor]:
+    """Fit parameters from a {name: array} dict (the JAX ``get_params``
+    dict mapped through ``np.asarray``, or a checkpoint's) -> leaf tensors
+    on ``device`` that require grad."""
+    return {k: _t(v, device).requires_grad_(True) for k, v in d.items()}
+
+
+def adam_state_from_arrays(count, mu, nu, optimizer: torch.optim.Adam,
+                           params: Dict[str, torch.Tensor]) -> None:
+    """Install an Adam state into ``optimizer`` for ``params`` (the
+    tensors it optimizes, by name): ``count`` is the step count and
+    ``mu`` / ``nu`` the first / second moments by name — optax's
+    ``ScaleByAdamState`` leaves (``count``, ``mu``, ``nu``) as numpy, or a
+    checkpoint's. optax's adam defaults (b1 0.9, b2 0.999, eps 1e-8, eps
+    outside the square root) are ``torch.optim.Adam``'s, so the next step
+    continues the same sequence."""
+    for k, p in params.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count)),
+                                 dtype=torch.float32),
+            "exp_avg": _t(np.asarray(mu[k], np.float32), p.device),
+            "exp_avg_sq": _t(np.asarray(nu[k], np.float32), p.device)}

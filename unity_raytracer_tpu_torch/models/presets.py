@@ -2,7 +2,8 @@
 
 Twin: ``unity_raytracer_tpu/models/presets.py`` — all five constructors,
 ``PRESETS`` and ``get_preset``, building equal scenes, cameras and configs
-(``tests/test_torch_scene.py``), on the ``device`` each takes. The presets
+(``tests/test_torch_scene.py``), on the ``device`` each takes: the CUDA
+card unless the caller asks for another (``device="cpu"``). The presets
 only build scenes; the forward render ported so far takes ``mesh10k`` and
 ``mesh100k`` (mirror chain on the BVH), while ``render`` raises for the
 others (``cornell_box`` is a dielectric tree; ``reference_demo`` and
@@ -31,7 +32,7 @@ Preset = Tuple[Scene, Camera, RenderConfig]
 
 
 def reference_demo(width: int = 50, height: int = 50,
-                   device="cpu") -> Preset:
+                   device="cuda") -> Preset:
     """The reference's Demo-RayTracing scene, from its serialized values.
 
     Sources: RayTracing.unity prefab overrides (positions/rotations,
@@ -71,7 +72,7 @@ def reference_demo(width: int = 50, height: int = 50,
 
 
 def three_spheres(width: int = 256, height: int = 256,
-                  device="cpu") -> Preset:
+                  device="cuda") -> Preset:
     """Baseline config 1: 3 spheres + ground plane, depth-1 Blinn-Phong +
     hard shadows."""
     b = SceneBuilder()
@@ -104,7 +105,7 @@ def three_spheres(width: int = 256, height: int = 256,
 
 
 def cornell_box(width: int = 512, height: int = 512,
-                device="cpu") -> Preset:
+                device="cuda") -> Preset:
     """Baseline config 2: Cornell box, 512x512, depth-4 reflection +
     refraction, brute-force intersection."""
     b = SceneBuilder()
@@ -156,7 +157,7 @@ def cornell_box(width: int = 512, height: int = 512,
 
 
 def mesh_scene(n_tris: int = 10240, width: int = 1024, height: int = 1024,
-               use_bvh: bool = True, device="cpu") -> Preset:
+               use_bvh: bool = True, device="cuda") -> Preset:
     """Baseline config 3/5 geometry: icosphere mesh budgeted to ~n_tris
     triangles + mirror sphere + ground, multi-light shadows.
 
@@ -209,12 +210,12 @@ def mesh_scene(n_tris: int = 10240, width: int = 1024, height: int = 1024,
 
 
 def mesh10k(width: int = 1024, height: int = 1024,
-            device="cpu") -> Preset:
+            device="cuda") -> Preset:
     return mesh_scene(10240, width, height, device=device)
 
 
 def mesh100k(width: int = 1920, height: int = 1080,
-             device="cpu") -> Preset:
+             device="cuda") -> Preset:
     """Baseline config 5 scene (flagship bench): ~100k tris at 1080p."""
     return mesh_scene(102400, width, height, device=device)
 

@@ -243,7 +243,7 @@ class SceneBuilder:
 
     def build(self, pad_spheres: int = 0, pad_triangles: int = 0,
               pad_mesh_tris: int = 0, pad_meshes: int = 0,
-              pad_lights: int = 0, device="cpu") -> Scene:
+              pad_lights: int = 0, device="cuda") -> Scene:
         S = max(len(self._spheres), pad_spheres, 1)
         T = max(len(self._tris), pad_triangles, 1)
         K = max(len(self._mesh_tris), pad_meshes, 1)

@@ -2,8 +2,10 @@
 
 Twin: ``unity_raytracer_tpu/ops/bvh.py`` — ``MeshBVH`` (here a dataclass
 of numpy arrays: the tree is host data), ``build`` on its native path only
-(``:274-327``), ``canonical_winding`` (``:632-644``) and the ``mega``
-branch of ``prepare_bvh`` (``:680-726``). The C++ builder is compiled
+(``:274-327``), ``_mt_one`` (``:522-538``, the differentiable per-ray
+Möller–Trumbore the record replay uses), ``canonical_winding``
+(``:632-644``) and the ``mega`` branch of ``prepare_bvh``
+(``:680-726``). The C++ builder is compiled
 from ``native/bvh_builder.cc`` into ``build/`` (``ops/kernels/_lib.py``);
 the tracked ``native/libbvh.so`` is never loaded. Equal inputs give arrays
 equal to the JAX package's (``tests/test_torch_bvh.py``).
@@ -22,9 +24,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from unity_raytracer_tpu_torch.ops.intersect import dot3
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    PALLAS_LEAF, PackedBVH, pack_bw, pack_rows)
+    EPS, PALLAS_LEAF, PackedBVH, pack_bw, pack_rows)
 from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import widen
 
 LEAF_SIZE = 4
@@ -91,6 +94,26 @@ def build(verts: np.ndarray, valid: np.ndarray | None = None,
                    leaf_size=leaf_size)
 
 
+def _mt_one(o, d, v0, v1, v2):
+    """Möller–Trumbore for one triangle per ray (``[N,3]`` each), +inf on
+    a miss; differentiable in every input where it hits. Same rejects and
+    epsilon as the fused segment's test."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    h = torch.linalg.cross(d, e2, dim=-1)
+    a = dot3(e1, h)
+    parallel = a.abs() < EPS
+    f = 1.0 / torch.where(parallel, 1.0, a)
+    s = o - v0
+    u = f * dot3(s, h)
+    q = torch.linalg.cross(s, e1, dim=-1)
+    v = f * dot3(d, q)
+    t = f * dot3(e2, q)
+    miss = (parallel | (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
+            | (t <= EPS))
+    return torch.where(miss, torch.inf, t)
+
+
 def canonical_winding(verts: np.ndarray, normals: np.ndarray,
                       return_flip: bool = False):
     """Swap v1/v2 of triangles whose derived normal
@@ -104,9 +127,10 @@ def canonical_winding(verts: np.ndarray, normals: np.ndarray,
     return (v, flip) if return_flip else v
 
 
-def prepare_bvh(scene, cfg, device="cpu") -> PackedBVH:
+def prepare_bvh(scene, cfg, device=None) -> PackedBVH:
     """Build the fused segment kernel's BVH for ``scene`` on the host and
-    move it to ``device``: native SAH build with ``cfg.bvh_leaf``-triangle
+    move it to ``device`` (default: the scene's device): native SAH build
+    with ``cfg.bvh_leaf``-triangle
     leaves and ``cfg.bvh_bins`` bins, ``pack_rows``, ``widen`` to
     ``cfg.bvh_arity``, ``pack_bw``, and the per-leaf-slot combined
     material ids (``leafmeta``, table order spheres ++ loose triangles ++
@@ -133,4 +157,5 @@ def prepare_bvh(scene, cfg, device="cpu") -> PackedBVH:
     mwidth = max(16, -(-lp.shape[1] // 8) * 8)
     leafmeta = np.zeros((lp.shape[0], mwidth), np.float32)
     leafmeta[:, : lp.shape[1]] = matid.astype(np.float32)
-    return packed.replace(leafmeta=torch.from_numpy(leafmeta)).to(device)
+    return packed.replace(leafmeta=torch.from_numpy(leafmeta)).to(
+        scene.aabb_min.device if device is None else device)

@@ -100,17 +100,21 @@ def bvh_lib() -> ctypes.CDLL:
         return _libs["bvh"]
 
 
+def nvcc_cmd(src: pathlib.Path, out: pathlib.Path) -> list:
+    """The command that builds the fused segment kernel's library."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = _which("nvcc", os.path.join(cuda_home, "bin", "nvcc"))
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(out), str(src)]
+
+
 def mega_lib() -> ctypes.CDLL:
-    """The fused segment kernel (``urt_mega_segment``)."""
+    """The fused segment kernel (``urt_mega_segment``, every mode)."""
     with _lock:
         if "mega" not in _libs:
-            cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-            nvcc = _which("nvcc", os.path.join(cuda_home, "bin", "nvcc"))
-            lib = _build("mega", MEGA_SRC, lambda out: [
-                nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-fmad=false", "-shared",
-                "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-o", str(out), str(MEGA_SRC)])
+            lib = _build("mega", MEGA_SRC,
+                         lambda out: nvcc_cmd(MEGA_SRC, out))
             p = ctypes.c_void_p
             i = ctypes.c_int
             f = ctypes.c_float
@@ -122,6 +126,8 @@ def mega_lib() -> ctypes.CDLL:
                 p, i,                      # leafmeta meta_w
                 p, i, i, i, i, i, f,       # aux L S T M max_bounces cull
                 p, p, p, p, p,             # delta o2 d2 thr2 tmax2
-                p, p]                      # overflow stream
+                p, i,                      # overflow mode
+                p, p, p, p, p,             # records: t n matid occbits st
+                p, p]                      # counts stream
             _libs["mega"] = lib
         return _libs["mega"]

@@ -2,27 +2,38 @@
 
 Twin: ``unity_raytracer_tpu/ops/pallas/mega.py`` — ``build_aux``
 (``:1251-1289``, same ``[rows,128]`` layout) and ``trace_segment``
-(``:1292``, whose Pallas kernel ``_kernel`` at ``:459`` is replaced by
-``csrc/mega_segment.cu``) in the mode the forward render runs: hard
-forward, wide BVH walk, Baldwin–Weber leaf records, one shadow query per
-light, ``light_cull`` honoured. One segment over N rays computes
+(``:1292-1459``, whose Pallas kernel ``_kernel`` at ``:459`` is replaced by
+``csrc/mega_segment.cu``) in three modes: the hard forward the render runs
+(a), ``record`` (b) and ``record_soft`` (d), on the wide BVH walk with
+Baldwin–Weber leaf records, one shadow query per light, ``light_cull``
+honoured. One segment over N rays computes
 
 * the nearest hit: mesh triangles (strict ``<``), then spheres and loose
   triangles (strict ``best_t > t``, the reference combine order,
   Data/Objects/Scene.cs:64-115), masked by the scene AABB;
 * the winner's material from ``aux`` (mesh ids from ``leafmeta``);
-* per light the ``light_cull`` gate and an any-hit shadow query against
-  spheres, loose triangles and the mesh;
+* per light the ``light_cull`` gate and a shadow query against spheres,
+  loose triangles and the mesh: any-hit, or in ``record_soft`` mode the
+  nearest occluder (the twin's min mode, ``:1064-1248``);
 * Blinn-Phong radiance on the 0-255 scale and the mirror continuation.
 
 It returns ``(delta [N,3], o' [N,3], d' [N,3], thr' [N,3], tmax' [N])``.
 A lane with ``tmax < 0`` is dead on input and gets pass-through values.
+With ``record`` (or ``record_soft``, which implies it) the return gains a
+hit-record tuple ``(t [N], n [N,3], matid [N], occbits [N])`` for the
+differentiable replay (``ops/replay.py``): ``t`` and ``matid`` are -1
+where the lane does not hit, ``n`` is the winner's shading normal,
+``occbits`` is the sum of 2^l over occluded lights as float32 (a culled or
+unneeded light is not occluded). ``record_soft`` adds ``st [N, L]``, the
+nearest occluder distance per light, ``_BIG`` where unoccluded. Dead lanes
+record ``t = -1, n = 0, matid = -1, occbits = 0, st = _BIG``.
 
 ``trace_segment`` launches the CUDA kernel for CUDA tensors and runs
 ``trace_segment_plain`` for CPU tensors, nothing else. The plain version
-finds mesh hits by brute force over every leaf slot of ``tris_bw``
-(ignoring the BVH nodes), so it checks the kernel's walk and the host
-packers independently; everything else follows the kernel's formulas.
+finds mesh hits and occluders by brute force over every leaf slot of
+``tris_bw`` (ignoring the BVH nodes), so it checks the kernel's walk and
+the host packers independently; everything else follows the kernel's
+formulas.
 
 aux rows (``build_aux``):
   row 0:            aabb_min(0:3) aabb_max(3:6) ambient(6:9) bg(9:12)
@@ -41,8 +52,8 @@ import torch
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
     _BIG, BW_PER_ROW, EPS, PALLAS_LEAF, PackedBVH)
+from unity_raytracer_tpu_torch.ops.shade import SHADOW_EPS
 
-SHADOW_EPS = 1e-4  # ShadowRayEpsilon, RayTracingSetup.cs:42
 _TINY = 1e-30
 # the twin clamps squared lengths with max(x, 1e-60); 1e-60 rounds to 0
 # in float32, so the clamp is max(x, 0)
@@ -50,9 +61,12 @@ _MIN_SQ = 0.0
 # plain version: ray x leaf-slot pairs per brute-force chunk
 _CHUNK_ELEMS = 1 << 22
 
-# kernel launches since the count was last reset (set it to 0 to start a
-# count); only trace_segment's CUDA branch adds to it
-launches = 0
+# kernel launches per mode since the counts were last reset (set them to 0
+# to start a count); only trace_segment's CUDA branch adds to them
+MODES = ("forward", "record", "record_soft")
+launches = dict.fromkeys(MODES, 0)
+# per-light occlusion bits are a float32 sum of 2^l: exact up to 2^24
+MAX_RECORD_LIGHTS = 24
 
 
 def build_aux(scene, background) -> torch.Tensor:
@@ -251,14 +265,47 @@ def _occluded_plain(s3, l3, tmax, aux, rec, n_lights, n_spheres, n_tris):
     return occ & (best0 > 0.0)
 
 
+def _occluded_min_plain(s3, l3, tmax, aux, rec, n_lights, n_spheres, n_tris):
+    """The twin's min-mode shadow query (``:1145-1157``, ``:1209-1211``):
+    the nearest occluder below ``best0`` (the light distance, or -1 when
+    the lane needs no query or starts outside the scene box) over
+    spheres, loose triangles and every mesh leaf slot -> (occluded, st),
+    with st = _BIG where not occluded."""
+    inv3 = tuple(1.0 / _fix(c) for c in l3)
+    in_box = _slab(s3, inv3, aux[0, :6], _BIG)
+    best0 = torch.where(in_box, tmax, -1.0)
+    best = best0
+    for s in range(n_spheres):
+        ok, t = _sphere(s3, l3, aux[1 + n_lights + s])
+        best = torch.where(ok & (t < best), t, best)
+    for k in range(n_tris):
+        r = aux[1 + n_lights + n_spheres + k]
+        ok, t = _mt(s3, l3, r[:9])
+        best = torch.where(ok & (r[12] > 0.0) & (t < best), t, best)
+    idx = torch.nonzero(best > 0.0).squeeze(1)
+    if idx.numel() and rec.shape[0]:
+        s3i = tuple(c[idx] for c in s3)
+        l3i = tuple(c[idx] for c in l3)
+        bi = best[idx]
+        for _, ok, t in _bw_chunks(s3i, l3i, rec):
+            tmin = torch.where(ok, t, torch.inf).min(dim=1).values
+            bi = torch.where(tmin < bi, tmin, bi)
+        best = best.clone()
+        best[idx] = bi
+    occ = (best < best0) & (best0 > 0.0)
+    return occ, torch.where(occ, best, _BIG).to(torch.float32)
+
+
 def trace_segment_plain(packed: PackedBVH, aux: torch.Tensor, depth: int,
                         o: torch.Tensor, d: torch.Tensor, thr: torch.Tensor,
                         tmax: torch.Tensor, *, n_lights: int, n_spheres: int,
                         n_tris: int, max_bounces: int,
-                        light_cull: float = 0.0, overflow=None):
+                        light_cull: float = 0.0, record: bool = False,
+                        record_soft: bool = False, overflow=None):
     """Plain PyTorch version of one fused segment (same signature and
     outputs as ``trace_segment``; ``overflow`` is unused: no stack)."""
     del overflow
+    record = record or record_soft
     L, S, T = n_lights, n_spheres, n_tris
     n_mats = aux.shape[0] - (1 + L + S + T)
     ox, oy, oz = o.unbind(-1)
@@ -318,6 +365,8 @@ def trace_segment_plain(packed: PackedBVH, aux: torch.Tensor, depth: int,
           pz + bnz * SHADOW_EPS)
     kdks = (torch.maximum(torch.maximum(kd_r, kd_g), kd_b)
             + torch.maximum(torch.maximum(ks_r, ks_g), ks_b))
+    occbits = torch.zeros_like(best_t)
+    sts = []
     for l in range(L):
         r = aux[1 + l]
         ir_, ig_, ib_ = r[3], r[4], r[5]
@@ -331,9 +380,14 @@ def trace_segment_plain(packed: PackedBVH, aux: torch.Tensor, depth: int,
         if light_cull > 0.0:
             imax = torch.maximum(torch.maximum(ir_, ig_), ib_)
             need = need & (kdks * imax >= light_cull * ld2)
-        occ = _occluded_plain(s3, (ldx, ldy, ldz),
-                              torch.where(need, ldist, -1.0), aux, rec,
-                              L, S, T)
+        query = (s3, (ldx, ldy, ldz), torch.where(need, ldist, -1.0), aux,
+                 rec, L, S, T)
+        if record_soft:
+            occ, st = _occluded_min_plain(*query)
+            sts.append(st)
+        else:
+            occ = _occluded_plain(*query)
+        occbits = occbits + occ.to(torch.float32) * float(1 << l)
         irr = 1.0 / torch.clamp_min(ld2, _MIN_SQ)
         w = torch.where(need & ~occ, irr, 0.0)
         dterm = torch.clamp_min(ln, 0.0) * w
@@ -369,7 +423,18 @@ def trace_segment_plain(packed: PackedBVH, aux: torch.Tensor, depth: int,
     d2 = torch.where(c1, rd, d)
     thr2 = torch.where(c1, thr * km, thr)
     tmax2 = torch.where(cont, _BIG, -1.0).to(torch.float32)
-    return delta, o2, d2, thr2, tmax2
+    base = (delta, o2, d2, thr2, tmax2)
+    if not record:
+        return base
+    # hit records (twin :958-974); a dead lane keeps the defaults of
+    # :528-536 because it never hits and never queries a light
+    rec_out = (torch.where(hit, best_t, -1.0), bn,
+               torch.where(hit, bmat, -1.0), occbits)
+    if record_soft:
+        rec_out += (torch.stack(sts, dim=-1) if L else
+                    torch.zeros((o.shape[0], 0), dtype=torch.float32,
+                                device=o.device),)
+    return base + (rec_out,)
 
 
 # ---------------------------------------------------------------------------
@@ -391,26 +456,72 @@ def check_overflow(overflow: torch.Tensor) -> None:
                            f"(stack overflow); the result is not exact")
 
 
+def _record_buffers(out, n, n_lights, soft, device):
+    """The record outputs: ``out`` checked, or new tensors."""
+    shapes = [(n,), (n, 3), (n,), (n,)] + ([(n, n_lights)] if soft else [])
+    if out is None:
+        return tuple(torch.empty(s, dtype=torch.float32, device=device)
+                     for s in shapes)
+    out = tuple(out)
+    if len(out) != len(shapes) or any(
+            t.shape != s or t.dtype != torch.float32 or t.device != device
+            or not t.is_contiguous() for t, s in zip(out, shapes)):
+        raise ValueError(f"trace_segment: out must be contiguous float32 "
+                         f"tensors on {device} shaped {shapes}")
+    return out
+
+
 def trace_segment(packed: PackedBVH, aux: torch.Tensor, depth: int,
                   o: torch.Tensor, d: torch.Tensor, thr: torch.Tensor,
                   tmax: torch.Tensor, *, n_lights: int, n_spheres: int,
                   n_tris: int, max_bounces: int, light_cull: float = 0.0,
-                  overflow: torch.Tensor | None = None):
+                  record: bool = False, record_soft: bool = False,
+                  overflow: torch.Tensor | None = None, out=None,
+                  counts: torch.Tensor | None = None):
     """One fused bounce segment over all rays (module docstring).
 
     CUDA tensors launch ``csrc/mega_segment.cu``; CPU tensors run
-    ``trace_segment_plain``. ``overflow`` is an int32 [1] device counter
-    of dropped stack pushes shared by several launches; the caller checks
-    it (``check_overflow``) once they are done. Without one, the wrapper
-    makes its own and checks it after this launch.
+    ``trace_segment_plain``. ``record_soft`` implies ``record``.
+    ``overflow`` is an int32 [1] device counter of dropped stack pushes
+    shared by several launches; the caller checks it (``check_overflow``)
+    once they are done. Without one, the wrapper makes its own and checks
+    it after this launch.
+
+    ``out`` (record modes): the tensors to write the records into, in the
+    order of the record tuple — e.g. one segment's rows of ``[B, N, ...]``
+    buffers (``ops/replay.trace_records``); they are returned as the
+    record tuple. ``counts`` (CUDA only, for measurement): an int64 [4]
+    device tensor; the launch then runs the kernel's counting instance,
+    which adds the slab tests, Baldwin–Weber leaf-slot tests, sphere tests
+    and Möller–Trumbore tests it made, in that order.
     """
-    global launches
     _check_packed(packed)
+    record = record or record_soft
+    if record and n_lights > MAX_RECORD_LIGHTS:
+        # twin :1350-1356: the bits are a float32 sum of 2^l, exact only
+        # up to 2^24
+        raise ValueError(
+            f"record=True packs per-light occlusion bits into one f32 "
+            f"(exact only for <= {MAX_RECORD_LIGHTS} lights); got "
+            f"n_lights={n_lights}")
+    if out is not None and not record:
+        raise ValueError("trace_segment: out is for the record modes")
+    mode = "record_soft" if record_soft else "record" if record else "forward"
     kw = dict(n_lights=n_lights, n_spheres=n_spheres, n_tris=n_tris,
               max_bounces=max_bounces, light_cull=light_cull)
     if o.device.type == "cpu":
-        return trace_segment_plain(packed, aux, depth, o, d, thr, tmax,
-                                   **kw)
+        if counts is not None:
+            raise ValueError("trace_segment: counts needs the CUDA kernel")
+        res = trace_segment_plain(packed, aux, depth, o, d, thr, tmax,
+                                  record=record, record_soft=record_soft,
+                                  **kw)
+        if out is not None:
+            out = _record_buffers(out, o.shape[0], n_lights, record_soft,
+                                  o.device)
+            for dst, src in zip(out, res[5]):
+                dst.copy_(src)
+            res = res[:5] + (out,)
+        return res
     if o.device.type != "cuda":
         raise ValueError(f"trace_segment: unsupported device {o.device}")
 
@@ -435,6 +546,10 @@ def trace_segment(packed: PackedBVH, aux: torch.Tensor, depth: int,
             or tmax.shape != (n,) or aux.shape[1] != 128 \
             or packed.tris_bw.shape[1] != 128:
         raise ValueError("trace_segment: bad ray or aux shapes")
+    if counts is not None and (counts.shape != (4,) or counts.dtype !=
+                               torch.int64 or counts.device != o.device):
+        raise ValueError(f"trace_segment: counts must be an int64 [4] "
+                         f"tensor on {o.device}")
 
     own_counter = overflow is None
     if own_counter:
@@ -444,8 +559,11 @@ def trace_segment(packed: PackedBVH, aux: torch.Tensor, depth: int,
     d2 = torch.empty_like(o)
     thr2 = torch.empty_like(o)
     tmax2 = torch.empty_like(tmax)
+    rec = (_record_buffers(out, n, n_lights, record_soft, o.device)
+           if record else ())
     if n:
         n_mats = aux.shape[0] - (1 + n_lights + n_spheres + n_tris)
+        ptr = lambda i: rec[i].data_ptr() if i < len(rec) else None
         err = _lib.mega_lib().urt_mega_segment(
             o.data_ptr(), d.data_ptr(), thr.data_ptr(), tmax.data_ptr(),
             n, int(depth), packed.wide.data_ptr(), arity,
@@ -455,11 +573,14 @@ def trace_segment(packed: PackedBVH, aux: torch.Tensor, depth: int,
             n_tris, n_mats, max_bounces, float(light_cull),
             delta.data_ptr(), o2.data_ptr(), d2.data_ptr(),
             thr2.data_ptr(), tmax2.data_ptr(), overflow.data_ptr(),
+            MODES.index(mode), ptr(0), ptr(1), ptr(2), ptr(3), ptr(4),
+            None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
         if err:
             raise RuntimeError(f"urt_mega_segment launch failed: CUDA "
                                f"error {err}")
-        launches += 1
+        launches[mode] += 1
     if own_counter:
         check_overflow(overflow)
-    return delta, o2, d2, thr2, tmax2
+    base = (delta, o2, d2, thr2, tmax2)
+    return base + (rec,) if record else base
