@@ -7,12 +7,13 @@ From the root of a checkout, on a machine with a CUDA card, it
 
 1. prints the card (``nvidia-smi`` name and power limit), the PyTorch and
    CUDA versions and the ``nvcc`` path;
-2. builds the port's native libraries from the checkout's sources (the
-   BVH builder and the fused segment kernel, every mode) and times the
-   build; prints ptxas' registers, stack and spill per kernel instance and
-   fails if a forward instance needs more than the forward-only kernel
-   did (arity 4: 64 registers, 2,104-byte stack, 48 bytes of spill; arity
-   8: 72, 2,088, 32);
+2. builds the port's native libraries from the checkout's sources, one
+   compiler process per source started together (the BVH builder, the
+   fused segment kernel in every mode, the BVH walks, the brute-force
+   nearest triangle) and times the build; prints ptxas' registers, stack
+   and spill per kernel instance and fails if a fused forward instance
+   needs more than the forward-only kernel did (arity 4: 64 registers,
+   2,104-byte stack, 48 bytes of spill; arity 8: 72, 2,088, 32);
 3. holds the fused segment kernel against its plain PyTorch version on
    the same inputs, in its three modes — forward (a), record (b) and
    record_soft (d): every segment of the ``mesh10k`` chain at 256x256,
@@ -21,32 +22,64 @@ From the root of a checkout, on a machine with a CUDA card, it
    records: matid and occbits exactly, t sign exactly, st exactly _BIG
    where unoccluded) or if a record mode's base outputs differ at all
    from the forward mode's; the counting instance gives each mode's bound;
-4. renders the flagship frame (``mesh100k``, 1920x1080, 4 bounces) the
-   way ``python -m unity_raytracer_tpu_torch render`` does, checks that
-   the frame went through 5 kernel launches with no stack overflow and
-   is finite and not flat, then times 1 warm-up + 3 frames with CUDA
-   events, times each of the 5 launches alone in each mode, and profiles
-   one frame;
-5. renders a small ``mesh10k`` frame on the card and with the plain
-   version on the CPU and compares the two images;
+4. renders the flagship frame (``mesh100k``, 1920x1080, 4 bounces) on the
+   fused kernel (``kernel='mega'``), checks that the frame went through 5
+   kernel launches with no stack overflow and is finite and not flat,
+   then times 1 warm-up + 3 frames with CUDA events, times each of the 5
+   launches alone in each mode, and profiles one frame;
+5. renders a small ``mesh10k`` frame on the fused kernel on the card and
+   with its plain version on the CPU and compares the two images;
 6. runs the flagship hard fwd+bwd step (``ops/replay.
    replay_value_and_grad`` w.r.t. sphere centers, sphere diffuse and light
    intensities, target = replay radiance x 0.9) and the soft one
    (``soft_replay_value_and_grad``, chunks of 2^18 lanes): replay radiance
-   against the forward render at rtol = atol = 2e-4, finite non-zero
-   gradients, then 1 warm-up + 3 timed steps each, the records pass and
-   the replay fwd+bwd alone, and peak memory;
+   against the fused forward render at rtol = atol = 2e-4, finite
+   non-zero gradients, then 1 warm-up + 3 timed steps each, the records
+   pass and the replay fwd+bwd alone, and peak memory;
 7. fits the flagship for 3 steps with ``fit --replay``'s calls
    (``__main__.run_fit``), then ``mesh10k`` at 64x64 for 5 steps on the
    card and on the CPU from the same seeded start (losses and parameters
    at rtol 1e-3), and compares one ``mesh10k`` 64x64 fwd+bwd on the card
-   with the CPU's.
+   with the CPU's;
+8. the composed path (``ops/render._trace_chain``) on the flagship BVH:
+   every traversal kernel (``traverse_packet4``, ``traverse_wide`` at
+   arity 4 and 8, ``traverse_packet3``) against the plain version on
+   16,384-ray slices of the composed frame's own launches — the primary
+   rays (nearest), segment 0's light-major shadow rays (any-hit, t_max =
+   light distance) and segment 1's mostly retired lanes (negative t_max):
+   t equal on every nearest lane, the MeshSet row equal on every lane
+   whose t does not tie (tied lanes counted), the occlusion predicate
+   equal on every any-hit lane, culled lanes a miss, no stack overflow;
+   the counting instance gives each kernel's bound;
+9. renders the flagship composed frame with ``kernel='pallas'`` (the
+   traversal ``'auto'`` takes on the card), then ``'wide'`` (arity 4 and
+   8) and ``'pallas3'``: each within rtol = atol = 5e-4 of the fused frame
+   on at least 99.99% of lanes, timed (1 warm-up + 3 frames), each of its
+   traversal launches timed alone, one profiled; the per-segment live
+   lanes of ``trace_radiance_stats`` against the fused frame's;
+10. runs bench.py's composed fwd+bwd unit (``fit.
+    make_chunked_value_and_grad`` with remat, chunks of 2^18 lanes, hard
+    visibility, target = composed radiance x 0.9) and holds its loss and
+    gradients against the replay's hard step on the same target (loss
+    rtol 1e-4, gradients rtol 5e-3, atol 5e-4 x the largest |g|), then
+    times 1 warm-up + 3 steps and reads the peak memory;
+11. holds the brute-force nearest-triangle kernel against its plain
+    version on 65,536 ``mesh10k`` primary rays ((t, index) on every
+    lane), times it on the whole 1024x1024 batch, and renders a small
+    BVH-less ``mesh10k`` frame through it on the card and with the plain
+    version on the CPU;
+12. fits on the composed path (``fit`` without ``--replay``) on the card
+    and on the CPU from the same start, losses and parameters at rtol
+    1e-3: the ``three_spheres`` toy (48x48, 5 steps, whole image) and
+    ``mesh10k`` (32x32, 2 steps, depth 1, chunked with remat).
 
-Any failure raises and the exit code is not 0. The last two lines are
-the ``nvidia-smi`` name/power-limit line and
-``{"ok": true, "device": {...}}``; the line before them is the JSON
-record of the kernel's modes. Without a CUDA card, or without the package
-beside this file, it exits non-zero and prints no result.
+Every kernel's launch count is read from its main path's run alone: the
+counts are set to 0 just before that run and read just after. Any failure
+raises and the exit code is not 0. The last two lines are the
+``nvidia-smi`` name/power-limit line and ``{"ok": true, "device":
+{...}}``; the line before them is the JSON record of every kernel. Without
+a CUDA card, or without the package beside this file, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -68,6 +101,23 @@ SLICE = 16384
 BIG = 3.0e38
 KERNEL_SRC = "unity_raytracer_tpu_torch/csrc/mega_segment.cu"
 REPLACES = "unity_raytracer_tpu/ops/pallas/mega.py:459"
+TRAVERSE_SRC = "unity_raytracer_tpu_torch/csrc/traverse.cu"
+NEAREST_SRC = "unity_raytracer_tpu_torch/csrc/nearest_tri.cu"
+# the walks of the composed path: layout -> (name in the kernels line,
+# frame kernel, BVH arity, the TPU kernel's pallas_call)
+WALKS = {
+    "mk4": ("traverse_packet4", "pallas", 4,
+            "unity_raytracer_tpu/ops/pallas/traverse_mk4.py:225"),
+    "wide4": ("traverse_wide/arity4", "wide", 4,
+              "unity_raytracer_tpu/ops/pallas/traverse_wide.py:473"),
+    "wide8": ("traverse_wide/arity8", "wide", 8,
+              "unity_raytracer_tpu/ops/pallas/traverse_wide.py:473"),
+    "mk3": ("traverse_packet3", "pallas3", 4,
+            "unity_raytracer_tpu/ops/pallas/traverse_mk3.py:354"),
+}
+NEAREST_REPLACES = "unity_raytracer_tpu/ops/pallas/intersect_mk.py:145"
+# tests/test_replay.py:106-108: gradient rtol, atol x max |g|
+GRAD_RTOL, GRAD_ATOL = 5e-3, 5e-4
 MODES = ("forward", "record", "record_soft")
 # ptxas' line for the forward kernel before the record modes sat beside it,
 # per BVH arity: that source built with the same command (nvcc 12.9 for
@@ -86,6 +136,16 @@ HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # (edges) + 9 (cross) + 5 (det) + 4 + 3 + 6 (u) + 9 (cross) + 6 (v) + 6
 # (t) + 6 compares + 2 (caller)
 OPS_PER_TEST = (25, 39, 28, 62)   # slab, leaf slot, sphere, MT
+# the walks' counting instance: slab tests, MT tests (csrc/traverse.cu
+# computes both as the fused kernel does)
+WALK_OPS = (25, 62)
+# bytes a walk moves per lane: a live lane reads o, d, tmax and writes t,
+# slot, leaf row; a culled lane (tmax < 0) reads tmax only
+WALK_LIVE_BYTES, WALK_CULLED_BYTES = 24 + 4 + 12, 4 + 12
+# bytes a walk reads per binary node row (three float4: box, leaf row,
+# count, miss link, right child) and per leaf slot (one 9-float triangle);
+# a wide row is read whole
+NODE_ROW_BYTES, SLOT_BYTES = 48, 36
 
 
 def log(msg):
@@ -156,6 +216,400 @@ def ptxas_table(log_text):
     return out
 
 
+def events_ms(fn, repeats):
+    """Mean ms of ``repeats`` calls after one warm-up, by CUDA events."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(repeats):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / repeats
+
+
+def bound(nbytes, ops):
+    """(ms, 'bytes' | 'operations'): the larger of bytes / HBM rate and
+    FP32 operations / FP32 rate."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def profile_once(fn, what, timed_ms, card):
+    """Where one call's device time goes (torch.profiler's CUDA trace):
+    busy share of the timed call, top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    # kernel rows only: an aten:: row repeats its kernels' device time
+    ops = sorted((e for e in prof.key_averages()
+                  if dev_us(e) > 0 and not e.key.startswith("aten::")),
+                 key=dev_us, reverse=True)
+    busy_us = sum(dev_us(e) for e in ops)
+    if busy_us > 0:
+        n_k = sum(e.count for e in ops)
+        log(f"profile of {what}: device busy {busy_us / 1e3:.3f} ms "
+            f"= {busy_us / 1e3 / timed_ms:.1%} of the timed "
+            f"{timed_ms:.3f} ms, {n_k} kernel launches {card}")
+        for e in ops[:8]:
+            log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
+                f"{e.key[:70]}")
+    else:
+        log(f"profile of {what}: no device time recorded (not measured)")
+
+
+def capture_walks(fn):
+    """Run ``fn`` with every traversal launch's inputs recorded: a list of
+    (layout, o, d, tmax, any_hit) in launch order. The launches run (and
+    count) as usual."""
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    seen, walk_raw = [], m3.walk_raw
+
+    def spy(layout, packed, o, d, tmax, any_hit=False, **kw):
+        seen.append((layout, o, d, tmax, any_hit))
+        return walk_raw(layout, packed, o, d, tmax, any_hit, **kw)
+
+    m3.walk_raw = spy
+    try:
+        fn()
+    finally:
+        m3.walk_raw = walk_raw
+    return seen
+
+
+def walk_work(layout, packed, launches):
+    """(bytes, FP32 operations) the walk must move and compute for the
+    launches ``[(o, d, tmax, any_hit)]``, each input read once and each
+    output written once: 40 B per live lane and 16 B per culled lane, plus
+    each node (or wide) row and each leaf slot that the launch's counting
+    instance reads, once per launch; operations from the counting
+    instance's slab and MT tests."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    table = packed.nodes if layout in ("mk3", "mk4") else packed.wide
+    row_bytes = NODE_ROW_BYTES if layout in ("mk3", "mk4") else \
+        table.shape[1] * 4
+    counts = torch.zeros(2, dtype=torch.int64, device=table.device)
+    nbytes = 0
+    for o, d, tmax, any_hit in launches:
+        seen = tuple(torch.zeros(k, dtype=torch.uint8, device=table.device)
+                     for k in (table.shape[0],
+                               packed.tris.shape[0] * m3.PALLAS_LEAF))
+        m3.walk_raw(layout, packed, o, d, tmax, any_hit, counts=counts,
+                    seen=seen)
+        live = int((tmax >= 0).sum())
+        nbytes += (live * WALK_LIVE_BYTES
+                   + (o.shape[0] - live) * WALK_CULLED_BYTES
+                   + int(seen[0].sum()) * row_bytes
+                   + int(seen[1].sum()) * SLOT_BYTES)
+    ops = sum(n * k for n, k in zip(counts.tolist(), WALK_OPS))
+    return nbytes, ops
+
+
+def check_walk(layout, packed, ins, plain, torch):
+    """Kernel vs plain raw outputs on one slice -> (bad lanes, tied lanes,
+    max abs err of t): nearest t equal on every lane, the MeshSet row
+    equal unless the kernel's triangle ties the plain t, any-hit
+    occlusion equal, culled lanes a miss with t = tmax."""
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    from unity_raytracer_tpu_torch.ops.kernels.mega import _mt
+    o, d, tmax, any_hit = ins
+    t, slot, leaf = m3.walk_raw(layout, packed, o, d, tmax, any_hit)
+    culled = tmax < 0
+    bad = culled & ((slot != -1) | (t != tmax))
+    if any_hit:
+        bad |= ~culled & ((t < 0) != (plain[0] < 0))
+        return int(bad.sum()), 0, 0.0
+    bad |= t != plain[0]
+    hit = plain[1] >= 0
+    row = lambda s, lf: packed.bvh.prim_index[packed.leaf_prim[
+        lf.clamp_min(0).long(), s.clamp_min(0).long()].long()]
+    other = hit & (row(slot, leaf) != row(plain[1], plain[2]))
+    # a different triangle at exactly the plain t is a tie, not a fault
+    i = torch.nonzero(other).squeeze(1)
+    tie = torch.zeros_like(other)
+    if i.numel():
+        v = packed.tris[leaf[i].long(), :126].reshape(-1, 14, 9)[
+            torch.arange(i.numel(), device=i.device), slot[i].long()]
+        ok, t_k = _mt(tuple(c[i] for c in o.unbind(-1)),
+                      tuple(c[i] for c in d.unbind(-1)), v.T)
+        tie[i] = ok & (t_k == plain[0][i])
+    bad |= other & ~tie
+    err = float((t - plain[0])[hit].abs().max()) if bool(hit.any()) else 0.0
+    return int(bad.sum()), int(tie.sum()), err
+
+
+def composed_phases(dev, card, failures, scene, cam, cfg, packed, fused_img,
+                    fused_live, issued, names):
+    """Phases 8-12 (module docstring); returns the kernels-line rows of
+    the four walks and the nearest-triangle kernel."""
+    import torch
+    from unity_raytracer_tpu_torch.__main__ import run_fit
+    from unity_raytracer_tpu_torch.fit import (
+        get_params, make_chunked_value_and_grad)
+    from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops import replay as rp
+    from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    from unity_raytracer_tpu_torch.ops.render import (
+        render, render_frame, trace_radiance, trace_radiance_stats)
+
+    bvhs = {4: packed,
+            8: bvhmod.prepare_bvh(scene, cfg.with_(bvh_arity=8), dev)}
+    o, d = generate_rays_blocks(cam, cfg.block_size)
+    rows = {}
+
+    # ---- 8. the walks against their plain version on the frame's launches
+    frame_walks = {}
+    for layout, (name, kernel, arity, _) in WALKS.items():
+        fcfg = cfg.with_(kernel=kernel)
+        frame_walks[layout] = capture_walks(
+            lambda: render_frame(scene, cam, fcfg, bvhs[arity]))
+    seg0 = frame_walks["mk4"]
+    pick = lambda n, k: torch.linspace(0, n - 1, k, device=dev).long()
+
+    def take(launch, live_only):
+        _, lo, ld, lt, any_hit = launch
+        idx = torch.nonzero(lt >= 0).squeeze(1) if live_only else \
+            torch.arange(lt.shape[0], device=dev)
+        idx = idx[pick(idx.numel(), min(SLICE, idx.numel()))]
+        return (lo[idx].contiguous(), ld[idx].contiguous(),
+                lt[idx].contiguous(), any_hit)
+
+    slices = {"primary rays, nearest": take(seg0[0], True),
+              "segment-0 shadow rays, any-hit": take(seg0[1], True),
+              "segment-1 rays, mostly culled": take(seg0[2], False)}
+    plain = {}
+    for what, ins in slices.items():
+        plain[what] = m3.traverse_plain(bvhs[4], *ins)
+        plain_ms = events_ms(lambda: m3.traverse_plain(bvhs[4], *ins), 1)
+        plain[what] = (plain[what], plain_ms)
+        log(f"walk slice {what}: {int((ins[2] >= 0).sum())} live of "
+            f"{ins[0].shape[0]}; plain version {plain_ms:.3f} ms {card}")
+    for layout, (name, kernel, arity, replaces) in WALKS.items():
+        pk = bvhs[arity]
+        ms = plain_ms = err = 0.0
+        bad_all = ties = lanes = 0
+        ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+        for what, ins in slices.items():
+            bad, tie, e = check_walk(layout, pk, ins, plain[what][0], torch)
+            kt = events_ms(lambda: m3.walk_raw(layout, pk, *ins,
+                                               overflow=ovf), 5)
+            ms, plain_ms = ms + kt, plain_ms + plain[what][1]
+            bad_all, ties, err = bad_all + bad, ties + tie, max(err, e)
+            lanes += ins[0].shape[0]
+            log(f"{name} on {what}: {bad} lanes off, {tie} lanes tie, max "
+                f"abs err of t {e:.3g}; kernel {kt:.4f} ms {card}")
+            if bad:
+                failures.append(f"{name} on {what}: {bad} lanes disagree "
+                                f"with the plain version")
+        m3.check_overflow(ovf, name)
+        nb, ops = walk_work(layout, pk, list(slices.values()))
+        b, by = bound(nb, ops)
+        rows[layout] = dict(
+            name=name, route="cuda", source=TRAVERSE_SRC, replaces=replaces,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None, lanes_checked=lanes,
+            tied_lanes=ties, slice_bytes=nb, slice_ops=ops)
+        log(f"{name}: {bad_all} of {lanes} lanes off, {ties} tied; slices "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b:.4f} ms "
+            f"({by}: {nb} bytes, {ops:.6g} FP32 operations) {card}")
+
+    # ---- 9. the composed frames: main path of each walk
+    for layout, (name, kernel, arity, _) in WALKS.items():
+        fcfg = cfg.with_(kernel=kernel)
+        for k in m3.launches:
+            m3.launches[k] = 0
+        img = render(scene, cam, fcfg, bvh=bvhs[arity])
+        torch.cuda.synchronize()
+        launched = dict(m3.launches)
+        rows[layout]["launches"] = launched[layout]
+        if launched[layout] == 0 or sum(launched.values()) != \
+                launched[layout]:
+            failures.append(f"{kernel} frame made launches {launched}")
+        fin = bool(torch.isfinite(img).all())
+        std = float(img.std())
+        bad = int((~torch.isclose(img, fused_img, **TOL).all(-1)).sum())
+        err = float((img - fused_img).abs().max())
+        f_ms = events_ms(lambda: render_frame(scene, cam, fcfg,
+                                              bvh=bvhs[arity]), 3)
+        launches = frame_walks[layout]
+        ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+        per = [events_ms(lambda: m3.walk_raw(layout, bvhs[arity], *x[1:],
+                                             overflow=ovf), 3)
+               for x in launches]
+        m3.check_overflow(ovf, name)
+        nb, ops = walk_work(layout, bvhs[arity], [x[1:] for x in launches])
+        fb, fby = bound(nb, ops)
+        rows[layout].update(frame_ms=sum(per), frame_bound_ms=fb,
+                            frame_bound_by=fby, frame_bytes=nb,
+                            frame_ops=ops, composed_frame_ms=f_ms)
+        log(f"composed frame kernel={kernel} arity {arity}: {f_ms:.3f} ms, "
+            f"{issued / f_ms * 1e3:.4g} issued rays/s; {launched[layout]} "
+            f"{name} launches ({', '.join(f'{m:.3f}' for m in per)} ms "
+            f"alone, lanes {[x[1].shape[0] for x in launches]}); bound "
+            f"{fb:.4f} ms ({fby}: {nb} bytes, {ops:.6g} FP32 operations); "
+            f"vs the fused frame: {bad} of "
+            f"{img.shape[0] * img.shape[1]} pixels outside rtol=atol=5e-4, "
+            f"max abs err {err:.3g}; std {std:.4f} {card}")
+        if not fin or std <= 0.01:
+            failures.append(f"{kernel} frame not finite or flat")
+        if bad > MAX_BAD_FRACTION * img.shape[0] * img.shape[1]:
+            failures.append(f"{kernel} frame differs from the fused frame "
+                            f"on {bad} pixels")
+        if layout == "mk4":
+            profile_once(lambda: render_frame(scene, cam, fcfg, bvhs[4]),
+                         "one composed frame (kernel='pallas')", f_ms, card)
+    cfg_p = cfg.with_(kernel="pallas")
+    _, (live, shadow) = trace_radiance_stats(scene, o, d, cfg_p,
+                                             bvh=packed)
+    live, shadow = live.tolist(), shadow.tolist()
+    off = max(abs(a - b) / max(b, 1) for a, b in zip(live, fused_live))
+    log(f"trace_radiance_stats: live nearest lanes per segment {live} "
+        f"(fused frame: {fused_live}), live shadow lanes {shadow}; "
+        f"{sum(live) + sum(shadow)} live rays of {issued} issued")
+    if off > 1e-4:
+        failures.append(f"live lanes {live} differ from the fused frame's "
+                        f"{fused_live}")
+
+    # ---- 10. bench.py's composed fwd+bwd unit against the replay's step
+    params = get_params(scene, names)
+    cfg_g = cfg_p.with_(remat=True)
+    with torch.no_grad():
+        target = trace_radiance(scene, o, d, cfg_g, bvh=packed) * 0.9
+    vg = make_chunked_value_and_grad(scene, cfg_g, o, d, target, bvh=packed,
+                                     chunk=1 << 18)
+    for k in m3.launches:
+        m3.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = vg(params)
+    torch.cuda.synchronize()
+    step_launches = m3.launches["mk4"]
+    peak = torch.cuda.max_memory_allocated()
+    _, recs = rp.trace_records(scene, o, d, cfg, packed)
+    r_loss, r_grads = rp.replay_value_and_grad(
+        scene, params, o, d, target, cfg, packed,
+        live_segments=rp.live_depth(recs))
+    ok_loss = abs(float(loss) - float(r_loss)) <= 1e-4 * abs(float(r_loss))
+    notes = []
+    for n_, g in grads.items():
+        want = r_grads[n_]
+        scale = float(want.abs().max())
+        close = bool(torch.isclose(g, want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL * max(scale, 1e-12)).all())
+        notes.append(f"{n_} max |g| {float(g.abs().max()):.4g} (replay "
+                     f"{scale:.4g}), max abs diff "
+                     f"{float((g - want).abs().max()):.3g}"
+                     f"{'' if close else ' OUTSIDE'}")
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            failures.append(f"composed fwd+bwd grad {n_} not finite or "
+                            f"all zero")
+        if not close:
+            failures.append(f"composed fwd+bwd grad {n_} differs from the "
+                            f"replay's")
+    if not ok_loss:
+        failures.append(f"composed fwd+bwd loss {float(loss)} vs replay "
+                        f"{float(r_loss)}")
+    step_ms = events_ms(lambda: vg(params), 3)
+    log(f"composed fwd+bwd (8 chunks of 2^18, remat, hard): loss "
+        f"{float(loss):.6g} vs replay {float(r_loss):.6g}; "
+        + "; ".join(notes)
+        + f"; {step_launches} traverse_packet4 launches; step "
+        f"{step_ms:.3f} ms = {issued / step_ms * 1e3:.4g} issued rays/s "
+        f"fwd+bwd; peak memory {peak / 2**30:.3f} GiB {card}")
+    profile_once(lambda: vg(params), "one composed fwd+bwd step", step_ms,
+                 card)
+
+    # ---- 11. the brute-force nearest triangle (no-BVH big meshes)
+    s10, c10, cfg10 = get_preset("mesh10k", device=dev)
+    o10, d10 = generate_rays_blocks(c10, cfg10.block_size)
+    v10, ok10 = s10.meshes.verts, s10.meshes.valid
+    idx = pick(o10.shape[0], 65536)
+    so, sd = o10[idx].contiguous(), d10[idx].contiguous()
+    got = imk.nearest_triangle_pallas(so, sd, v10, ok10)
+    want = imk.nearest_triangle_plain(so, sd, v10, ok10)
+    same_t = (got[0] == want[0]) | (torch.isinf(got[0])
+                                    & torch.isinf(want[0]))
+    bad = int((~same_t | (got[1] != want[1])).sum())
+    hits = int((want[1] >= 0).sum())
+    k_ms = events_ms(lambda: imk.nearest_triangle_pallas(so, sd, v10, ok10),
+                     5)
+    p_ms = events_ms(lambda: imk.nearest_triangle_plain(so, sd, v10, ok10),
+                     1)
+    full_ms = events_ms(lambda: imk.nearest_triangle_pallas(o10, d10, v10,
+                                                            ok10), 2)
+    n_t = int(ok10.sum())
+    tri_bytes = v10.shape[0] * (36 + 4)
+    sb = bound(so.shape[0] * 32 + tri_bytes, so.shape[0] * n_t * 62)
+    fb = bound(o10.shape[0] * 32 + tri_bytes, o10.shape[0] * n_t * 62)
+    log(f"nearest_triangle on {so.shape[0]} mesh10k rays x {n_t} "
+        f"triangles: {bad} lanes off ({hits} hits); kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.3f} ms, bound {sb[0]:.4f} ms ({sb[1]}); whole "
+        f"{o10.shape[0]}-ray batch {full_ms:.3f} ms, bound {fb[0]:.4f} ms "
+        f"({fb[1]}) {card}")
+    if bad or hits == 0:
+        failures.append(f"nearest_triangle: {bad} lanes off, {hits} hits")
+    small = dict(width=24, height=24)
+    sc, cc, cs = get_preset("mesh10k", device="cpu", **small)
+    cs = cs.with_(use_bvh=False, kernel="pallas")
+    img_cpu = render(sc, cc, cs).numpy()
+    imk.launches["nearest_triangle"] = 0
+    img_card = render(sc.to(dev), cc.to(dev), cs)
+    torch.cuda.synchronize()
+    n_launch = imk.launches["nearest_triangle"]
+    img_card = img_card.cpu().numpy()
+    bad_px = int((~np.isclose(img_card, img_cpu, **TOL).all(-1)).sum())
+    log(f"mesh10k 24x24 without a BVH (kernel='pallas'): {n_launch} "
+        f"nearest_triangle launches; card vs CPU plain: {bad_px} of "
+        f"{24 * 24} pixels outside rtol=atol=5e-4, max abs err "
+        f"{float(np.abs(img_card - img_cpu).max()):.3g}")
+    if bad_px > max(1, MAX_BAD_FRACTION * 24 * 24) or n_launch == 0:
+        failures.append("no-BVH mesh10k frame: card disagrees with the CPU "
+                        "or made no nearest_triangle launch")
+    rows["nearest"] = dict(
+        name="nearest_triangle", route="cuda", source=NEAREST_SRC,
+        replaces=NEAREST_REPLACES, launches=n_launch, max_abs_err=float(
+            (got[0] - want[0])[want[1] >= 0].abs().max()) if hits else 0.0,
+        ms=k_ms, plain_ms=p_ms, bound_ms=sb[0], bound_by=sb[1],
+        library_ms=None, full_batch_ms=full_ms, full_batch_bound_ms=fb[0])
+
+    # ---- 12. the composed fits, card vs CPU: the CLI's default toy (whole
+    # image) and a BVH preset (depth 1, chunked, remat: fit.py's chunked
+    # branch, through the walks on the card and the plain walk on the CPU)
+    for preset, size, steps in (("three_spheres", 48, 5), ("mesh10k", 32, 2)):
+        fits = {}
+        for where in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            fits[where.type] = run_fit(preset, size, size, steps, 0.02, 0,
+                                       where, replay=False)[0]
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+            fits[where.type + "_s"] = time.perf_counter() - t0
+        a, b = fits["cuda"], fits["cpu"]
+        ok = np.allclose(a.losses, b.losses, rtol=1e-3) and all(
+            np.allclose(a.params[n_].cpu().numpy(), b.params[n_].numpy(),
+                        rtol=1e-3, atol=1e-6) for n_ in a.params)
+        log(f"{preset} {size}x{size} composed fit, {steps} steps, card vs "
+            f"CPU: losses {[float(x) for x in a.losses]} vs "
+            f"{[float(x) for x in b.losses]}: "
+            f"{'agree' if ok else 'DISAGREE'} at rtol 1e-3; card "
+            f"{fits['cuda_s']:.3f} s, CPU {fits['cpu_s']:.3f} s in all "
+            f"{card}")
+        if not ok or not a.losses[-1] < a.losses[0]:
+            failures.append(f"composed {preset} fit: card disagrees with "
+                            f"the CPU or the loss did not fall")
+    return [rows[k] for k in ("mk4", "wide4", "wide8", "mk3", "nearest")]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -182,11 +636,23 @@ def main():
 
     # ---- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_bvh = _lib.bvh_lib()
-    lib_mega = _lib.mega_lib()
+    libs = _lib.build_all()   # one compiler process per source, together
     build_s = time.perf_counter() - t0
-    log(f"build: {build_s:.3f} s total (bvh {lib_bvh.build['seconds']:.3f} "
-        f"s, mega {lib_mega.build['seconds']:.3f} s) {card}")
+    lib_mega = libs["mega"]
+    log(f"build: {build_s:.3f} s wall, all at once ("
+        + ", ".join(f"{k} {v.build['seconds']:.3f} s"
+                    for k, v in libs.items()) + f") {card}")
+    from unity_raytracer_tpu_torch.ops.kernels.ptxas import entries
+    for name in ("traverse", "nearest_tri"):
+        for entry, v in sorted(entries(libs[name].build["log"]).items()):
+            m = re.search(r"traverse_kernelILi(\d)ELb(\d)ELb(\d)E", entry)
+            what = (f"{('mk3', 'mk4', 'wide4', 'wide8')[int(m.group(1))]} "
+                    f"{'any-hit' if m.group(2) == '1' else 'nearest'}"
+                    f"{' counting' if m.group(3) == '1' else ''}"
+                    if m else name)
+            log(f"  ptxas: {what}: {v.get('registers')} registers, "
+                f"{v.get('stack')} bytes stack, {v.get('spill')} bytes "
+                f"spill")
     ptx = ptxas_table(lib_mega.build["log"])
     for (arity, mode, counting), v in sorted(ptx.items()):
         log(f"  ptxas: arity {arity} {mode}{' counting' if counting else ''}"
@@ -217,17 +683,6 @@ def main():
                 **segment_kw(scene, cfg))
         return segs
 
-    def events_ms(fn, repeats):
-        fn()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(repeats):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / repeats
-
     mode_kw = {"forward": {}, "record": dict(record=True),
                "record_soft": dict(record_soft=True)}
 
@@ -256,10 +711,6 @@ def main():
                        + tables * live_launches,
                        ops["record_soft" if mode == "record_soft"
                            else "forward"]) for mode in MODES}
-
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
 
     stats = {m: dict(max_err=0.0, bad=0, lanes=0, ms=0.0, plain_ms=0.0)
              for m in MODES}
@@ -396,10 +847,11 @@ def main():
             log(f"bound {mode} {what}: {nb} bytes, {ops:.6g} FP32 "
                 f"operations -> {b:.4f} ms ({by}) [H100 SXM peaks]")
 
-    # ---- the main path: the flagship frame as the CLI renders it ------------
+    # ---- the fused path: the flagship frame on the fused kernel --------------
+    cfg_m = cfg.with_(kernel="mega")
     for m in mega.launches:
         mega.launches[m] = 0
-    img = render(scene, cam, cfg, bvh=packed)
+    img = render(scene, cam, cfg_m, bvh=packed)
     torch.cuda.synchronize()
     launches = dict(mega.launches)
     n_segments = cfg.max_bounces + 1
@@ -418,7 +870,8 @@ def main():
         f"{launches['forward']} launches, stack overflow 0, image std "
         f"{std:.4f}, mean {float(img.mean()):.4f}")
 
-    frame_ms = events_ms(lambda: render_frame(scene, cam, cfg, packed), 3)
+    fused_img = img
+    frame_ms = events_ms(lambda: render_frame(scene, cam, cfg_m, packed), 3)
     # the five launches of one frame alone, in each mode
     seg_ms = {m: [] for m in MODES}
     for depth, ins in frame_segs:
@@ -439,41 +892,15 @@ def main():
         log(f"fused kernel per frame, mode {mode}: {sum(seg_ms[mode]):.3f} "
             f"ms (segments {', '.join(f'{m:.3f}' for m in seg_ms[mode])} "
             f"ms); bound {b:.4f} ms ({by}) {card}")
-    def profile_once(fn, what, timed_ms):
-        """Where one call's device time goes (torch.profiler's CUDA
-        trace): busy share of the timed call, top kernels."""
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        dev_us = lambda e: getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0.0))
-        # kernel rows only: an aten:: row repeats its kernels' device time
-        ops = sorted((e for e in prof.key_averages()
-                      if dev_us(e) > 0 and not e.key.startswith("aten::")),
-                     key=dev_us, reverse=True)
-        busy_us = sum(dev_us(e) for e in ops)
-        if busy_us > 0:
-            n_k = sum(e.count for e in ops)
-            log(f"profile of {what}: device busy {busy_us / 1e3:.3f} ms "
-                f"= {busy_us / 1e3 / timed_ms:.1%} of the timed "
-                f"{timed_ms:.3f} ms, {n_k} kernel launches {card}")
-            for e in ops[:8]:
-                log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
-                    f"{e.key[:70]}")
-        else:
-            log(f"profile of {what}: no device time recorded (not "
-                f"measured)")
-
-    profile_once(lambda: render_frame(scene, cam, cfg, packed), "one frame",
-                 frame_ms)
+    profile_once(lambda: render_frame(scene, cam, cfg_m, packed),
+                 "one fused frame", frame_ms, card)
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # ---- small frame: card vs the plain version on the CPU ------------------
     s_cpu, c_cpu, cfg_s = get_preset("mesh10k", width=64, height=64,
                                      device="cpu")
+    cfg_s = cfg_s.with_(kernel="mega")
     img_cpu = render(s_cpu, c_cpu, cfg_s).numpy()
     img_card = render(s_cpu.to(dev), c_cpu.to(dev), cfg_s).cpu().numpy()
     bad_px = int((~np.isclose(img_card, img_cpu, **TOL).all(-1)).sum())
@@ -487,7 +914,7 @@ def main():
     names = ("sphere_centers", "sphere_diffuse", "light_intensities")
     params = get_params(scene, names)
     o, d = generate_rays_blocks(cam, cfg.block_size)
-    fwd_rad = trace_radiance(scene, o, d, cfg, bvh=packed)
+    fwd_rad = trace_radiance(scene, o, d, cfg_m, bvh=packed)
     soft_cfg = cfg.with_(diff=DiffConfig(soft_shadow_temp=1.0,
                                          soft_hit_temp=0.1,
                                          straight_through=True))
@@ -550,7 +977,7 @@ def main():
             f"fwd+bwd ~{step_ms - rec_ms:.3f} ms (step minus records); "
             f"peak memory {peak / 2**30:.3f} GiB {card}")
         profile_once(lambda: sp["vg"](target, k),
-                     f"one {kind} fwd+bwd step", step_ms)
+                     f"one {kind} fwd+bwd step", step_ms, card)
         if not sp["soft"]:
             # the replay fwd+bwd alone, on fixed records
             leaves = {n_: v.detach().clone().requires_grad_(True)
@@ -624,6 +1051,10 @@ def main():
         + f": {'agree' if ok else 'DISAGREE'}")
     if not ok:
         failures.append("mesh10k fwd+bwd on the card disagrees with the CPU")
+    # ---- the composed path: phases 8-12 --------------------------------------
+    fused_live = [int((ins[3] >= 0).sum()) for _, ins in frame_segs]
+    walk_rows = composed_phases(dev, card, failures, scene, cam, cfg, packed,
+                                fused_img, fused_live, issued, names)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -643,7 +1074,7 @@ def main():
             "bound_by": by, "library_ms": None,
             "frame_ms": sum(seg_ms[mode]), "frame_bound_ms": fb,
             "frame_bound_by": fby})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + walk_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,12 +108,19 @@ def test_widen_refuses_deep_tree():
 
 
 def test_presplit_and_meshless_raise():
+    """SBVH presplitting raises naming its ROADMAP item; a meshless build
+    is the twin's single empty leaf (it no longer raises)."""
+    from unity_raytracer_tpu.ops import bvh as j_bvh
     scene = small_scene(t_scene, t_meshgen, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="#14 in ROADMAP"):
         t_bvh.prepare_bvh(scene, CFG.with_(bvh_presplit=0.3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_bvh.build(np.zeros((4, 3, 3), np.float32),
-                    np.zeros((4,), bool))
+    got = t_bvh.build(np.zeros((4, 3, 3), np.float32), np.zeros((4,), bool))
+    want = j_bvh.build(np.zeros((4, 3, 3), np.float32), np.zeros((4,), bool))
+    for k in ("node_min", "node_max", "first", "count", "miss_next",
+              "tri_verts", "prim_index"):
+        np.testing.assert_array_equal(getattr(got, k),
+                                      np.asarray(getattr(want, k)),
+                                      err_msg=k)
 
 
 @pytest.mark.gpu

@@ -16,7 +16,15 @@ JAX ``fit(use_replay=True)`` frozen by ``tests/torch_goldens.py``
   Adam moments) carried across with ``models/convert.py``, then 1 step in
   the port, against JAX's 3rd step;
 * the port's own checkpoint and resume against an uninterrupted run;
-* the ``fit`` CLI.
+* the composed path (``use_replay=False``): the CLI's ``three_spheres``
+  toy at 16x16, 3 steps from ``torch_goldens.fit_toy_inputs``' seeded
+  start, against a 3-step JAX composed ``fit`` frozen in
+  ``tests/goldens/torch/composed.npz`` (losses at rtol 1e-4, parameters
+  at rtol 1e-3, atol 1e-5); the chunked branch (``ray_chunk``) against
+  the whole-image step (losses at rtol 1e-4, parameters at rtol 1e-4,
+  atol 1e-6: the same sum, chunked); a mesh-vertex fit through
+  ``bind_verts`` that lowers the loss;
+* the ``fit`` CLI, with and without ``--replay``.
 
 The target image is the port's render at the true parameters; the
 frozen file holds the one JAX was given, and the test checks they agree.
@@ -30,7 +38,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_goldens import CFG, FCFG, FIT_NAMES as NAMES, fit_inputs, load
+from torch_goldens import (
+    CFG, FCFG, FIT_NAMES as NAMES, TOY_FCFG, fit_inputs, fit_toy_inputs,
+    load)
 from unity_raytracer_tpu_torch import fit as t_fit
 from unity_raytracer_tpu_torch.models.convert import (
     adam_state_from_arrays, params_from_arrays)
@@ -132,15 +142,85 @@ def test_checkpoint_resume_equals_uninterrupted(port, tmp_path):
                                    rtol=0, atol=0)
 
 
-def test_composed_path_raises(port):
-    scene, cam, packed, target, init = port
-    with pytest.raises(NotImplementedError, match="#10 in ROADMAP"):
-        t_fit.fit(scene, cam, CFG, target,
-                  t_fit.FitConfig(steps=1, **dict(FCFG, use_replay=False)),
-                  bvh=packed)
-    for fn in (t_fit.make_loss_fn, t_fit.make_chunked_value_and_grad):
-        with pytest.raises(NotImplementedError, match="#10 in ROADMAP"):
-            fn(scene, cam, CFG, target)
+def test_composed_path_raises():
+    """The composed path runs now; what it still lacks raises, naming the
+    ROADMAP item: the dielectric tree (cornell_box), in both steps."""
+    from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    scene, cam, cfg = get_preset("cornell_box", width=8, height=8,
+                                 device="cpu")
+    params = t_fit.get_params(scene, NAMES)
+    loss_fn = t_fit.make_loss_fn(scene, cam, cfg,
+                                 torch.zeros((8, 8, 3)))
+    with pytest.raises(NotImplementedError, match="#8 in ROADMAP"):
+        loss_fn(params)
+    o, d = generate_rays_blocks(cam, cfg.block_size)
+    vg = t_fit.make_chunked_value_and_grad(scene, cfg, o, d,
+                                           torch.zeros_like(o), chunk=32)
+    with pytest.raises(NotImplementedError, match="#8 in ROADMAP"):
+        vg(params)
+
+
+def test_composed_fit_matches_jax():
+    """The composed whole-image step (the CLI default, three_spheres)."""
+    g = load("composed")
+    scene, cam, cfg, target, init = fit_toy_inputs()
+    np.testing.assert_allclose(target.numpy(), g["toy/target"], rtol=5e-4,
+                               atol=5e-4)
+    for k in NAMES:
+        np.testing.assert_array_equal(init[k], g[f"toy/init/{k}"])
+    res = t_fit.fit(scene, cam, cfg, torch.from_numpy(g["toy/target"]),
+                    t_fit.FitConfig(steps=3, **TOY_FCFG),
+                    init_params={k: torch.from_numpy(v)
+                                 for k, v in init.items()})
+    assert res.step == 3 and res.live_prefix is None
+    np.testing.assert_allclose(res.losses, g["toy/losses"], rtol=1e-4)
+    assert res.losses[-1] < res.losses[0]
+    for k in NAMES:
+        np.testing.assert_allclose(res.params[k].numpy(), g[f"toy/final/{k}"],
+                                   err_msg=k, **P_TOL)
+
+
+def test_composed_fit_chunked_equals_whole():
+    """``rcfg.ray_chunk`` takes the chunked branch (per-chunk backward,
+    weighted mean over the image's lanes); it is the whole-image step."""
+    scene, cam, cfg, target, init = fit_toy_inputs()
+    init = {k: torch.from_numpy(v) for k, v in init.items()}
+    fcfg = t_fit.FitConfig(steps=2, **TOY_FCFG)
+    whole = t_fit.fit(scene, cam, cfg, target, fcfg, init_params=init)
+    chunked = t_fit.fit(scene, cam, cfg.with_(ray_chunk=96, remat=True),
+                        target, fcfg, init_params=init)
+    np.testing.assert_allclose(chunked.losses, whole.losses, rtol=1e-4)
+    for k in NAMES:
+        np.testing.assert_allclose(chunked.params[k].numpy(),
+                                   whole.params[k].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_mesh_verts_fit_lowers_loss():
+    """``mesh_verts`` through ``bind_verts`` on the composed path
+    (tests/test_mesh_grad.py's scene, BVH padded 0.5): a dented face
+    pulled back lowers the loss."""
+    from torch_goldens import MESH_CFG
+    from torch_parity import mesh_grad_scene
+    from unity_raytracer_tpu_torch.models import camera, meshgen, scene
+    from unity_raytracer_tpu_torch.ops import bvh as t_bvh
+    from unity_raytracer_tpu_torch.ops.render import render
+    from unity_raytracer_tpu_torch.utils.config import DiffConfig
+    sc, cam = mesh_grad_scene(scene, meshgen, camera, device="cpu")
+    cfg = MESH_CFG.with_(bvh_pad=0.5)
+    bvh = t_bvh.prepare_bvh(sc, cfg)
+    target = render(sc, cam, cfg, bvh=bvh)
+    v = sc.meshes.verts.clone()
+    nrm = sc.meshes.normals
+    face = int(torch.argmax(-nrm[:, 2]))  # the face looking at the camera
+    v[face, 0] += 0.35 * nrm[face]
+    res = t_fit.fit(sc, cam, cfg.with_(diff=DiffConfig()), target,
+                    t_fit.FitConfig(param_names=("mesh_verts",),
+                                    learning_rate=0.01, steps=8,
+                                    log_every=0),
+                    init_params={"mesh_verts": v}, bvh=bvh)
+    assert res.losses[-1] < res.losses[0] * 0.9, res.losses
 
 
 def _cli(*args):
@@ -150,9 +230,19 @@ def _cli(*args):
 
 
 def test_cli_fit_prints_json(tmp_path):
-    proc = _cli("fit", "--preset", "mesh10k", "--replay", "--size", "8",
-                "--steps", "2", "--device", "cpu", "--out-dir",
-                str(tmp_path))
+    _cli_fit(tmp_path, "--preset", "mesh10k", "--replay")
+
+
+@pytest.mark.parametrize("preset", ["three_spheres", "mesh10k"])
+def test_cli_fit_composed_prints_json(tmp_path, preset):
+    """Without --replay: the composed toy (the default preset) and the
+    composed chunked/remat fit of a BVH preset."""
+    _cli_fit(tmp_path, "--preset", preset)
+
+
+def _cli_fit(tmp_path, *args):
+    proc = _cli("fit", *args, "--size", "8", "--steps", "2", "--device",
+                "cpu", "--out-dir", str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert sorted(out) == ["center_err", "final_loss", "loss_ratio"]
@@ -162,13 +252,15 @@ def test_cli_fit_prints_json(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ("--preset", "three_spheres", "--replay"),
-    ("--preset", "mesh10k")])
+    ("--preset", "cornell_box", "--replay"),
+    ("--preset", "cornell_box")])
 def test_cli_fit_off_slice_raises(args):
+    """Off the ported routes (the dielectric tree) the CLI fails naming
+    the ROADMAP item, with or without --replay."""
     proc = _cli("fit", *args, "--size", "8", "--steps", "1", "--device",
                 "cpu")
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "#10" in proc.stderr
+    assert "NotImplementedError" in proc.stderr and "#8" in proc.stderr
 
 
 def test_cli_without_card_refuses():

@@ -1,10 +1,11 @@
 """Frozen JAX references for the port's replay and fit parity tests.
 
-    python tests/torch_goldens.py
+    python tests/torch_goldens.py [replay] [fit] [composed]
 
-rewrites ``tests/goldens/torch/replay.npz`` and ``fit.npz`` from the JAX
-package, on tests/test_replay.py's scene (``torch_parity.replay_scene``)
-at 16x16 through ``torch_parity.CAMERA``:
+rewrites (all three, or the ones named) ``tests/goldens/torch/replay.npz``, ``fit.npz`` and
+``composed.npz`` from the JAX package. The first two are on
+tests/test_replay.py's scene (``torch_parity.replay_scene``) at 16x16
+through ``torch_parity.CAMERA``:
 
 * ``replay.npz``: the rays; the hard and soft records of JAX
   ``trace_records`` (Pallas interpreter) and their radiance; the eager JAX
@@ -14,12 +15,20 @@ at 16x16 through ``torch_parity.CAMERA``:
 * ``fit.npz``: a 3-step JAX ``fit(use_replay=True)`` from ``fit_inputs``'
   seeded start and target image — its losses and final parameters, and
   its checkpoint after step 2 (parameters and optax's Adam count and
-  moments).
+  moments);
+* ``composed.npz``: eager ``jax.grad`` of the composed path (the
+  reference tests/test_torch_grad.py holds the port's autograd to) on
+  tests/test_grad.py's scenes — ``three_spheres`` at 16x16 with 0 and 1
+  bounces, the specular probe, and test_grad_chunked.py's soft 24x24
+  loss — and on test_mesh_grad.py's mesh-vertex scene (``bind_verts``);
+  and a 3-step composed JAX ``fit`` of the CLI's ``three_spheres`` toy
+  from ``fit_toy_inputs``' seeded start.
 
-Computing these live costs ~80 s of CPU per test run, so
-tests/test_torch_replay.py and tests/test_torch_fit.py load them. The
-constants below are those tests' recipe: change one, rerun the script.
-Nothing here imports JAX until the script runs.
+Computing these live costs ~80 s (replay, fit) and ~95 s (composed) of
+CPU per test run, so tests/test_torch_replay.py, tests/test_torch_fit.py
+and tests/test_torch_grad.py load them. The constants below are those
+tests' recipe: change one, rerun the script. Nothing here imports JAX
+until the script runs.
 """
 
 import pathlib
@@ -52,6 +61,19 @@ FIT_NAMES = ("sphere_centers", "sphere_diffuse")
 FCFG = dict(param_names=FIT_NAMES, learning_rate=0.02, soft_shadow_temp=1.0,
             soft_hit_temp=0.1, log_every=0, use_replay=True)
 FIT_SEED = 7
+# the composed gradients (tests/test_grad.py's classes) and fit
+GRAD_NAMES = ("sphere_centers", "sphere_radius_sq", "tri_verts",
+              "sphere_diffuse", "sphere_specular", "sphere_mirror",
+              "light_intensities", "light_positions")
+CHUNK_NAMES = ("sphere_centers", "sphere_diffuse", "light_intensities")
+CHUNK_SOFT = dict(soft_shadow_temp=1.0, soft_hit_temp=0.05,
+                  straight_through=True)
+MESH_CFG = RenderConfig(max_bounces=1, background=(0.04, 0.05, 0.07),
+                        use_bvh=True, mode="scan", kernel="xla",
+                        block_size=8, bvh_pad=0.2)
+TOY_SIZE = 16
+TOY_FCFG = dict(param_names=FIT_NAMES, learning_rate=0.02,
+                soft_shadow_temp=1.0, soft_hit_temp=0.1, log_every=0)
 
 
 def load(name: str) -> dict:
@@ -81,6 +103,128 @@ def fit_inputs():
             "sphere_diffuse": torch.clamp(
                 true_p["sphere_diffuse"] + noise(-0.2, 0.2), 0.0, 1.0)}
     return scene, cam, packed, target, init
+
+
+def grad_scene(pkg: str, which: str):
+    """``(scene, cam, cfg)`` of one composed-gradient case, from package
+    ``pkg`` ('jax' or 'torch', on the CPU): ``mb0`` / ``mb1``
+    three_spheres at 16x16 with 0 / 1 bounces, ``spec`` the specular
+    probe, ``soft`` test_grad_chunked.py's 24x24 soft-visibility setup."""
+    import importlib
+    root = "unity_raytracer_tpu" if pkg == "jax" else \
+        "unity_raytracer_tpu_torch"
+    mod = lambda m: importlib.import_module(f"{root}.{m}")
+    kw = {} if pkg == "jax" else dict(device="cpu")
+    presets, config = mod("models.presets"), mod("utils.config")
+    if which == "spec":
+        from torch_parity import specular_probe
+        scene, cam = specular_probe(mod("models.scene"),
+                                    mod("models.camera"), **kw)
+        cfg = config.RenderConfig(max_bounces=0)
+    elif which == "soft":
+        scene, cam, cfg = presets.three_spheres(width=24, height=24, **kw)
+        cfg = cfg.with_(max_bounces=1, block_size=8,
+                        diff=config.DiffConfig(**CHUNK_SOFT))
+    else:
+        scene, cam, cfg = presets.three_spheres(width=16, height=16, **kw)
+        cfg = cfg.with_(max_bounces=int(which[2]))
+    return scene, cam, cfg.with_(mode="scan")
+
+
+def fit_toy_inputs(pkg: str = "torch"):
+    """The CLI's three_spheres toy fit at TOY_SIZE (``__main__.fit_setup``)
+    and its seeded start (``run_fit``'s perturbation, seed 0), from
+    package ``pkg``: ``(scene, cam, cfg, target, init)``."""
+    if pkg == "torch":
+        from unity_raytracer_tpu_torch.__main__ import fit_setup
+        scene, cam, cfg, _, target, _ = fit_setup(
+            "three_spheres", TOY_SIZE, TOY_SIZE, False, "cpu")
+    else:
+        from unity_raytracer_tpu.models.camera import Camera
+        from unity_raytracer_tpu.models.presets import three_spheres
+        from unity_raytracer_tpu.ops.render import render, resolve_mode
+        scene, _, cfg = three_spheres(width=TOY_SIZE, height=TOY_SIZE)
+        cfg = resolve_mode(scene, cfg.with_(max_bounces=0))
+        cam = Camera.from_fov(position=(0, 5, 6), look_at=(0, 2.5, 26),
+                              fov_y_deg=40.0, width=TOY_SIZE,
+                              height=TOY_SIZE)
+        target = render(scene, cam, cfg)
+    rng = np.random.default_rng(0)
+    c = np.asarray(scene.spheres.centers, np.float32)
+    kd = np.asarray(scene.spheres.materials.diffuse, np.float32)
+    init = {"sphere_centers": c + rng.uniform(-0.4, 0.4, c.shape)
+            .astype(np.float32),
+            "sphere_diffuse": np.clip(kd + rng.uniform(-0.2, 0.2, kd.shape)
+                                      .astype(np.float32), 0.0, 1.0)}
+    return scene, cam, cfg, target, init
+
+
+def _composed_arrays() -> dict:
+    import jax
+    import jax.numpy as jnp
+    from unity_raytracer_tpu import fit as j_fit
+    from unity_raytracer_tpu.models import camera, meshgen, scene
+    from unity_raytracer_tpu.ops import bvh as j_bvh
+    from unity_raytracer_tpu.ops.render import render, trace_radiance
+    from torch_parity import mesh_grad_scene
+
+    out = {}
+    for which in ("mb0", "mb1", "spec"):
+        js, jc, cfg = grad_scene("jax", which)
+        names = ("sphere_specular",) if which == "spec" else GRAD_NAMES
+
+        def loss(p):
+            return jnp.mean(render(j_fit.set_params(js, p), jc, cfg))
+
+        with jax.disable_jit():  # eager: the port follows its op order
+            val, grads = jax.value_and_grad(loss)(j_fit.get_params(js,
+                                                                   names))
+        out[f"{which}/loss"] = np.asarray(val)
+        for k, g in grads.items():
+            out[f"{which}/grad/{k}"] = np.asarray(g)
+
+    js, jc, cfg = grad_scene("jax", "soft")
+    o, d = camera.generate_rays_blocks(jc, cfg.block_size)
+    target = trace_radiance(js, o, d, cfg) * 0.85
+    out["soft/target"] = np.asarray(target)
+
+    def loss(p):
+        rad = trace_radiance(j_fit.set_params(js, p), o, d, cfg)
+        return jnp.mean((rad - target) ** 2)
+
+    with jax.disable_jit():
+        val, grads = jax.value_and_grad(loss)(j_fit.get_params(js,
+                                                               CHUNK_NAMES))
+    out["soft/loss"] = np.asarray(val)
+    for k, g in grads.items():
+        out[f"soft/grad/{k}"] = np.asarray(g)
+
+    ms, mc = mesh_grad_scene(scene, meshgen, camera)
+    bvh = j_bvh.prepare_bvh(ms, MESH_CFG)
+    o, d = camera.generate_rays_blocks(mc, MESH_CFG.block_size)
+
+    def mesh_loss(verts):
+        import dataclasses
+        s = dataclasses.replace(
+            ms, meshes=dataclasses.replace(ms.meshes, verts=verts))
+        rad = trace_radiance(s, o, d, MESH_CFG, bvh=j_bvh.bind_verts(bvh, s))
+        return jnp.mean(rad)
+
+    with jax.disable_jit():
+        val, g = jax.value_and_grad(mesh_loss)(ms.meshes.verts)
+    out["mesh/loss"] = np.asarray(val)
+    out["mesh/grad"] = np.asarray(g)
+
+    ts, tc, tcfg, target, init = fit_toy_inputs("jax")
+    res = j_fit.fit(ts, tc, tcfg, target,
+                    j_fit.FitConfig(steps=3, **TOY_FCFG),
+                    init_params={k: jnp.asarray(v) for k, v in init.items()})
+    out["toy/target"] = np.asarray(target)
+    out["toy/losses"] = np.asarray(res.losses)
+    for k in FIT_NAMES:
+        out[f"toy/init/{k}"] = init[k]
+        out[f"toy/final/{k}"] = np.asarray(res.params[k])
+    return out
 
 
 def _replay_arrays() -> dict:
@@ -166,8 +310,11 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
     GOLDEN_DIR.mkdir(parents=True, exist_ok=True)
-    for name, make in (("replay", _replay_arrays), ("fit", _fit_arrays)):
-        np.savez_compressed(GOLDEN_DIR / f"{name}.npz", **make())
+    which = sys.argv[1:] or ["replay", "fit", "composed"]
+    makers = {"replay": _replay_arrays, "fit": _fit_arrays,
+              "composed": _composed_arrays}
+    for name in which:
+        np.savez_compressed(GOLDEN_DIR / f"{name}.npz", **makers[name]())
         print(GOLDEN_DIR / f"{name}.npz")
 
 

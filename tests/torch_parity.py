@@ -69,6 +69,42 @@ CAMERA = dict(position=(0, 3, -4), forward=(0, -0.15, 1), dist=1.0,
               half_h=0.8, half_v=0.8)
 
 
+def specular_probe(mod_scene, mod_camera, **kw):
+    """tests/test_grad.py:116-141's probe: one big sphere and an
+    off-axis light, so a specular highlight covers pixels at 16x16."""
+    b = mod_scene.SceneBuilder()
+    b.add_sphere((0, 0, 10), 3.0, mod_scene.make_material(
+        diffuse=(0.2, 0.2, 0.2), ambient=(0.1, 0.1, 0.1),
+        specular=(0.9, 0.9, 0.9), phong=30.0))
+    b.add_point_light((3, 4, 0), 20000.0)
+    b.set_ambient((10, 10, 10))
+    cam = mod_camera.Camera.make(position=(0, 0, 0), forward=(0, 0, 1),
+                                 dist=1.0, half_h=0.5, half_v=0.5, width=16,
+                                 height=16, **kw)
+    return b.build(**kw), cam
+
+
+def mesh_grad_scene(mod_scene, mod_meshgen, mod_camera, **kw):
+    """tests/test_mesh_grad.py:33-50's scene: a 80-triangle icosphere over
+    a ground plane, one light, 24x24."""
+    b = mod_scene.SceneBuilder()
+    mm = mod_scene.make_material
+    v, f = mod_meshgen.icosphere(subdivisions=1, radius=2.0,
+                                 center=(0, 2, 8))
+    b.add_mesh(v, f, mm(diffuse=(0.7, 0.5, 0.2), ambient=(0.7, 0.5, 0.2),
+                        specular=(0.4, 0.4, 0.4), phong=30.0))
+    g = 30.0
+    gmat = mm(diffuse=(0.5, 0.5, 0.55), ambient=(0.5, 0.5, 0.55), phong=1.0)
+    b.add_triangle((-g, 0, -g), (g, 0, -g), (g, 0, g), gmat)
+    b.add_triangle((-g, 0, -g), (g, 0, g), (-g, 0, g), gmat)
+    b.add_point_light((5, 9, 2), 900.0)
+    b.set_ambient((8, 8, 8))
+    cam = mod_camera.Camera.make(position=(0, 2.5, 2), forward=(0, -0.05, 1),
+                                 dist=1.0, half_h=0.5, half_v=0.5, width=24,
+                                 height=24, **kw)
+    return b.build(**kw), cam
+
+
 def leaves(obj, prefix=""):
     """{path: numpy array} over the array fields of a (nested) dataclass
     — JAX pytrees and port containers share field names."""

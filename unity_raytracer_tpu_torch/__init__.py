@@ -5,17 +5,21 @@ module names, and each module's docstring names its JAX twin by file. The
 port imports ``torch`` and numpy only — never ``jax`` and never the JAX
 package.
 
-Slices ported so far: the forward render of the mirror bounce chain on the
+Slices ported so far: the mirror bounce chain on its two routes — the
 fused segment kernel (``ops/render.py`` → ``ops/kernels/mega.py`` →
-``csrc/mega_segment.cu``), with the host BVH build and packers, the scene
-containers, presets, camera and image assembly around it; and training by
-record-replay — the kernel's record modes, the differentiable shading
-replay (``ops/replay.py``) and the fitting loop (``fit.py``). Everything
-else raises ``NotImplementedError`` naming the ROADMAP item that ports it.
-Entry points run on the CUDA card unless the caller asks for the CPU.
+``csrc/mega_segment.cu``) and the composed differentiable path
+(``ops/intersect.py``, ``ops/shade.py``, ``ops/render.py`` around the
+BVH walks of ``csrc/traverse.cu`` and the brute-force nearest triangle of
+``csrc/nearest_tri.cu``) — with the host BVH build and packers, the scene
+containers, presets, camera and image assembly around them; training by
+record-replay (``ops/replay.py``) and on the composed path; the fitting
+loop (``fit.py``). What is left raises ``NotImplementedError`` naming the
+ROADMAP item that ports it. Entry points run on the CUDA card unless the
+caller asks for the CPU.
 
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
     python -m unity_raytracer_tpu_torch fit --preset mesh100k --replay
+    python -m unity_raytracer_tpu_torch fit            # composed, three_spheres
 """
 
 __version__ = "0.1.0"

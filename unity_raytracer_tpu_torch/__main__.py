@@ -4,15 +4,25 @@ Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``) and
 ``cmd_fit`` (``:63-134``, arguments ``:171-185``). Usage::
 
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
+    python -m unity_raytracer_tpu_torch render --preset mesh100k \
+        --kernel mega --out f.png
     python -m unity_raytracer_tpu_torch fit --preset mesh10k --replay \\
         --size 64 --steps 50 --out-dir fit/
 
+    python -m unity_raytracer_tpu_torch fit --size 48 --steps 300
+
 Runs on the CUDA card (``--device`` picks another device; ``cpu`` runs the
 plain PyTorch versions). Without a card the command stops and says so; it
-never falls back to the CPU by itself. ``fit`` runs the record-replay
-path only (``--replay`` on ``mesh10k`` / ``mesh100k``); the composed
-gradient path and the ``three_spheres`` toy are ROADMAP Queue A #10. The
-twin's ``bench`` and ``dryrun`` subcommands are Queue A #14.
+never falls back to the CPU by itself. ``render`` takes every preset
+without a dielectric (``cornell_box`` is the tree, ROADMAP Queue A #8);
+``--bvh`` builds the BVH the configured kernel walks, as the twin does.
+A preset renders on the composed path (``kernel='auto'``, as in the twin);
+``--kernel mega`` picks the fused segment kernel for a BVH preset.
+``fit`` runs, as in the twin, the ``three_spheres`` toy on the composed
+path by default; another preset fits on the composed path at depth 1 with
+chunked, rematerialized gradients, or with ``--replay`` on the
+record-replay path. The twin's ``bench`` and ``dryrun`` subcommands are
+Queue A #14.
 """
 
 from __future__ import annotations
@@ -51,9 +61,12 @@ def cmd_render(args):
         cfg = cfg.with_(max_bounces=args.depth)
     if args.bvh:
         cfg = cfg.with_(use_bvh=True)
+    if args.kernel:
+        cfg = cfg.with_(kernel=args.kernel)
     cfg = resolve_mode(scene, cfg)
     check_supported(cfg)
-    bvh = bvhmod.prepare_bvh(scene, cfg)
+    # the BVH the configured kernel walks (ops/bvh.prepare_bvh)
+    bvh = bvhmod.prepare_bvh(scene, cfg) if cfg.use_bvh else None
     t0 = time.perf_counter()
     img = render(scene, cam, cfg, bvh=bvh).cpu().numpy()
     dt = time.perf_counter() - t0
@@ -67,26 +80,62 @@ def cmd_render(args):
     print(out)
 
 
+def fit_setup(preset: str, width: int, height: int, replay: bool, device):
+    """The twin's ``cmd_fit`` set-up (``:73-104``, where width = height =
+    ``--size``): ``(scene, cam, cfg, bvh, target, replay)``.
+    ``three_spheres`` is the toy: brute force, depth 0, a close-up FOV
+    camera, the composed path (``replay`` is ignored). Another preset with
+    ``replay`` gets the fused kernel's BVH at full depth; without it,
+    depth 1 with chunked (pixels / 4 rays) and rematerialized composed
+    gradients. The target is the render at the true parameters (the
+    replay's with the fused kernel it records with; chunking changes no
+    pixel, so the composed one renders whole)."""
+    from unity_raytracer_tpu_torch.models.camera import Camera
+    from unity_raytracer_tpu_torch.models.presets import (
+        get_preset, three_spheres)
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.render import render, resolve_mode
+
+    if preset == "three_spheres":
+        if replay:
+            print("fit: --replay is ignored for the three_spheres toy "
+                  "config (brute force, no fused-kernel BVH) — using the "
+                  "composed gradient path", file=sys.stderr)
+        scene, _, cfg = three_spheres(width=width, height=height,
+                                      device=device)
+        cfg = resolve_mode(scene, cfg.with_(max_bounces=0))
+        cam = Camera.from_fov(position=(0, 5, 6), look_at=(0, 2.5, 26),
+                              fov_y_deg=40.0, width=width, height=height,
+                              device=device)
+        return scene, cam, cfg, None, render(scene, cam, cfg), False
+    scene, cam, cfg = get_preset(preset, width=width, height=height,
+                                 device=device)
+    if replay:
+        cfg = resolve_mode(scene, cfg.with_(use_bvh=True, kernel="mega"))
+        bvh = bvhmod.prepare_bvh(scene, cfg)
+        return scene, cam, cfg, bvh, render(scene, cam, cfg, bvh=bvh), True
+    cfg = resolve_mode(scene, cfg.with_(
+        max_bounces=min(cfg.max_bounces, 1),
+        ray_chunk=width * height // 4 or None, remat=True))
+    bvh = bvhmod.prepare_bvh(scene, cfg) if cfg.use_bvh else None
+    target = render(scene, cam, cfg.with_(ray_chunk=None), bvh=bvh)
+    return scene, cam, cfg, bvh, target, False
+
+
 def run_fit(preset: str, width: int, height: int, steps: int, lr: float,
-            seed: int, device, ckpt_every: int = 0, out_dir=None):
-    """``fit --replay`` on ``preset`` at width x height (the CLI passes
-    --size for both): build the scene, its BVH and the target image
-    rendered at the true parameters, perturb the sphere centers and
-    diffuse colours from ``seed`` (the twin's cmd_fit), fit, and return
-    ``(result, true_params, (scene, cam, cfg, bvh, target))``."""
+            seed: int, device, ckpt_every: int = 0, out_dir=None,
+            replay: bool = True):
+    """``fit`` on ``preset``: ``fit_setup``, the sphere centers and
+    diffuse colours perturbed from ``seed`` (the twin's ``cmd_fit``),
+    then the fit. Returns ``(result, true_params, (scene, cam, cfg, bvh,
+    target))``."""
     import numpy as np
     import torch
 
     from unity_raytracer_tpu_torch.fit import FitConfig, fit, get_params
-    from unity_raytracer_tpu_torch.models.presets import get_preset
-    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
-    from unity_raytracer_tpu_torch.ops.render import render, resolve_mode
 
-    scene, cam, cfg = get_preset(preset, width=width, height=height,
-                                 device=device)
-    cfg = resolve_mode(scene, cfg.with_(use_bvh=True))
-    bvh = bvhmod.prepare_bvh(scene, cfg.with_(kernel="mega"))
-    target = render(scene, cam, cfg, bvh=bvh)
+    scene, cam, cfg, bvh, target, replay = fit_setup(preset, width, height,
+                                                     replay, device)
     names = ("sphere_centers", "sphere_diffuse")
     true_p = get_params(scene, names)
     n_sph = true_p["sphere_centers"].shape[0]
@@ -102,7 +151,7 @@ def run_fit(preset: str, width: int, height: int, steps: int, lr: float,
                      checkpoint_every=ckpt_every,
                      checkpoint_path=(f"{out_dir}/fit.npz" if out_dir
                                       else None),
-                     use_replay=True)
+                     use_replay=replay)
     res = fit(scene, cam, cfg, target, fcfg, init_params=init, bvh=bvh)
     return res, true_p, (scene, cam, cfg, bvh, target)
 
@@ -111,29 +160,26 @@ def cmd_fit(args):
     from unity_raytracer_tpu_torch.ops.render import render
     from unity_raytracer_tpu_torch.utils import image as imgutil
 
-    if args.preset == "three_spheres" or not args.replay:
-        raise NotImplementedError(
-            "not ported to unity_raytracer_tpu_torch yet: the composed "
-            "gradient path (fit without --replay, and the three_spheres "
-            "toy) is #10 in ROADMAP.md Queue A; use --replay on mesh10k or "
-            "mesh100k")
     device = _device(args)
     res, true_p, (_, cam, cfg, bvh, target) = run_fit(
         args.preset, args.size, args.size, args.steps, args.lr, args.seed,
-        device, args.ckpt_every, args.out_dir)
+        device, args.ckpt_every, args.out_dir, replay=args.replay)
     err = (res.params["sphere_centers"]
            - true_p["sphere_centers"]).abs().max()
     print(json.dumps({"final_loss": float(res.losses[-1]),
                       "loss_ratio": float(res.losses[-1] / res.losses[0]),
                       "center_err": float(err)}))
     if args.out_dir:
-        final = render(res.scene, cam, cfg, bvh=bvh).cpu().numpy()
+        final = render(res.scene, cam, cfg.with_(ray_chunk=None),
+                       bvh=bvh).cpu().numpy()
         imgutil.write_png(f"{args.out_dir}/recovered.png", final)
         imgutil.write_png(f"{args.out_dir}/target.png",
                           target.cpu().numpy())
 
 
 def main():
+    from unity_raytracer_tpu_torch.ops.render import KERNELS
+
     ap = argparse.ArgumentParser(prog="unity_raytracer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     dev_help = ("torch device (default: cuda; cpu runs the plain PyTorch "
@@ -144,13 +190,18 @@ def main():
     r.add_argument("--height", type=int)
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--bvh", action="store_true")
+    r.add_argument("--kernel", default=None, choices=KERNELS,
+                   help="route (default: the preset's, 'auto': the "
+                        "composed path); 'mega' renders a BVH preset on "
+                        "the fused segment kernel")
     r.add_argument("--device", default="cuda", help=dev_help)
     r.add_argument("--out", default=None)
     r.set_defaults(fn=cmd_render)
 
     f = sub.add_parser("fit", help="inverse-rendering demo (config 4)")
     f.add_argument("--preset", default="three_spheres",
-                   help="scene preset; mesh10k / mesh100k with --replay")
+                   help="scene preset; non-toy presets fit with BVH + "
+                        "chunked/remat gradients at depth 1")
     f.add_argument("--size", type=int, default=48)
     f.add_argument("--steps", type=int, default=300)
     f.add_argument("--lr", type=float, default=0.02)
@@ -159,8 +210,7 @@ def main():
     f.add_argument("--out-dir", default=None)
     f.add_argument("--replay", action="store_true",
                    help="soft record-replay gradient step (fused kernel "
-                        "records + differentiable replay); the only "
-                        "ported path")
+                        "records + differentiable replay) at full depth")
     f.add_argument("--device", default="cuda", help=dev_help)
     f.set_defaults(fn=cmd_fit)
     args = ap.parse_args()

@@ -1,0 +1,416 @@
+// Mesh BVH traversal kernels for Hopper (sm_90a): one thread per ray.
+//
+// Replaces three TPU kernels of the JAX package, which share their
+// outputs and their epilogue (ops/kernels/traverse_mk3.py):
+//   MK3      traverse_packet3 (ops/pallas/traverse_mk3.py, pallas_call at
+//            :354): binary walk in threaded order, leftmost-DFS descent to
+//            node + 1 on a box hit, else the node's miss link;
+//   MK4      traverse_packet4 (ops/pallas/traverse_mk4.py:225): binary
+//            walk, near child first by entry distance, the far child
+//            pushed with its entry distance;
+//   WIDE4/8  traverse_wide (ops/pallas/traverse_wide.py:473): BVH4/8 rows,
+//            hit children sorted by entry distance and pushed far to
+//            near.
+// Each walks in NEAREST mode (the smallest t below tmax) or ANY mode (the
+// first occluder below tmax; the lane is parked at t = -1). Per lane it
+// writes t (tmax where nothing is closer; -1 on an ANY hit), the winning
+// slot in its 14-slot leaf row and that row; slot = row = -1 on a miss.
+// A lane with tmax < 0 is culled before the root and keeps its tmax.
+//
+// Design: every thread walks its own ray with a private stack (96 entries
+// for the binary walk, 256 for the wide one) and prunes pops by its own
+// best t. The TPU kernels walk one cursor per tile of 1024 rays with a
+// scalar stack in SMEM and prune against the tile's largest best t; those
+// are Mosaic constraints (docs/KERNELS.md), not semantics, and are not
+// copied. What they leave: mk3 keeps its threaded order (it needs no
+// stack), mk4 its near-child-first order, wide its far-to-near pushes.
+// A per-thread walk meets hits in another order than the tile's, so of two
+// triangles at exactly equal t (a shared edge) it may keep the other one;
+// t itself is the same.
+//
+// Leaf tests are Möller–Trumbore on the host-packed `tris` rows (14
+// triangles of 9 floats per 128-float row, leaf_rows rows per leaf). The
+// binary walks stop at the node's triangle count; the wide walk tests
+// every slot of the leaf, whose unused slots are all-zero triangles that
+// fail the determinant test (traverse_wide.py:391). The box test is the
+// kernels' slab test: 1/d clamped to +-1e-30, entry distance clamped at 0,
+// hit when tn <= tf and tn <= the running best t.
+//
+// Numerics: IEEE division, no fast-math, no FMA contraction (built with
+// -fmad=false, ops/kernels/_lib.py), so each product and sum rounds where
+// the plain PyTorch version (traverse_mk3.traverse_plain) rounds it.
+//
+// A push that would overflow the stack is dropped and counted in
+// *overflow; the wrapper raises when the count is not zero. A counting
+// instance (template flag C, launched only by chip_smoke.py to measure the
+// work) adds each lane's slab tests and Möller–Trumbore tests to two
+// device counters and sets a byte for every table row and every leaf slot
+// it reads, so the bytes the launch must move count each row it needs
+// once.
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int kRow = 128;         // row stride of tris
+constexpr int kLeafSlots = 14;    // PALLAS_LEAF: triangles per tris row
+constexpr int kNodeRow = 16;      // floats per binary node row
+constexpr int kStackBinary = 96;  // ops/pallas/traverse_mk4.STACK
+constexpr int kStackWide = 256;   // ops/pallas/traverse_wide.STACK
+constexpr int kBlock = 128;
+constexpr float kEps = 1e-5f;
+constexpr float kTiny = 1e-30f;
+
+enum Layout { kMk3 = 0, kMk4 = 1, kWide4 = 2, kWide8 = 3 };
+
+struct Args {
+  const float* o;      // [n, 3]
+  const float* d;      // [n, 3]
+  const float* tmax;   // [n]
+  const float* table;  // nodes [Nn, 16] (MK3, MK4) or wide [Nw, 8*arity]
+  const float* tris;   // [rows, 128]
+  float* t_out;        // [n]
+  int* slot_out;       // [n]
+  int* leaf_out;       // [n]
+  int* overflow;
+  unsigned long long* counts;  // C: slab tests, MT tests
+  unsigned char* seen_rows;    // C: [table rows] set where a row is read
+  unsigned char* seen_slots;   // C: [tris rows * 14] set where a slot is
+                               //    tested
+  int n;
+  int leaf_rows;
+};
+
+struct Ray {
+  float ox, oy, oz;
+  float dx, dy, dz;
+  float ix, iy, iz;
+};
+
+// the lane's result and, in the counting instance, its tallies
+struct Lane {
+  float best_t;
+  int slot;
+  int leaf;
+  unsigned long long slab;
+  unsigned long long mt;
+};
+
+__device__ __forceinline__ float fix_dir(float v) {
+  return fabsf(v) < kTiny ? (v < 0.f ? -kTiny : kTiny) : v;
+}
+
+// Slab test of box lo/hi over [0, best]; tn = the entry distance.
+__device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
+                                     float hy, float hz, const Ray& r,
+                                     float best, float& tn_out) {
+  float t1 = (lx - r.ox) * r.ix;
+  float t2 = (hx - r.ox) * r.ix;
+  float tn = fminf(t1, t2);
+  float tf = fmaxf(t1, t2);
+  t1 = (ly - r.oy) * r.iy;
+  t2 = (hy - r.oy) * r.iy;
+  tn = fmaxf(tn, fminf(t1, t2));
+  tf = fminf(tf, fmaxf(t1, t2));
+  t1 = (lz - r.oz) * r.iz;
+  t2 = (hz - r.oz) * r.iz;
+  tn = fmaxf(tn, fminf(t1, t2));
+  tf = fminf(tf, fmaxf(t1, t2));
+  tn = fmaxf(tn, 0.f);
+  tn_out = tn;
+  return tn <= tf && tn <= best;
+}
+
+// Möller–Trumbore against one triangle (9 floats v0 v1 v2), in the TPU
+// kernels' operation order.
+__device__ __forceinline__ bool mt_hit(const float* v, const Ray& r,
+                                       float& t) {
+  const float v0x = __ldg(v), v0y = __ldg(v + 1), v0z = __ldg(v + 2);
+  const float e1x = __ldg(v + 3) - v0x, e1y = __ldg(v + 4) - v0y,
+              e1z = __ldg(v + 5) - v0z;
+  const float e2x = __ldg(v + 6) - v0x, e2y = __ldg(v + 7) - v0y,
+              e2z = __ldg(v + 8) - v0z;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool par = fabsf(det) < kEps;
+  const float f = 1.0f / (par ? 1.0f : det);
+  const float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
+  const float u = f * (sx * px + sy * py + sz * pz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float w = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  t = f * (e2x * qx + e2y * qy + e2z * qz);
+  return !par && u >= 0.f && u <= 1.f && w >= 0.f && u + w <= 1.f &&
+         t > kEps;
+}
+
+// The triangles of the leaf whose first row is leaf_row, in slot order;
+// count < 0 tests every slot of every row. Strict <: of equal t the first
+// one met is kept. Returns true when an ANY walk found its occluder.
+template <bool ANY, bool C>
+__device__ __forceinline__ bool leaf_tests(const Args& a, int leaf_row,
+                                           int count, const Ray& r,
+                                           Lane& l) {
+  for (int rr = 0; rr < a.leaf_rows; ++rr) {
+    const float* row = a.tris + (size_t)(leaf_row + rr) * kRow;
+    for (int k = 0; k < kLeafSlots; ++k) {
+      if (count >= 0 && rr * kLeafSlots + k >= count) return false;
+      if constexpr (C) {
+        ++l.mt;
+        a.seen_slots[(size_t)(leaf_row + rr) * kLeafSlots + k] = 1;
+      }
+      float t;
+      if (mt_hit(row + 9 * k, r, t) && t < l.best_t) {
+        l.slot = k;
+        l.leaf = leaf_row + rr;
+        if constexpr (ANY) {
+          l.best_t = -1.f;  // parked: no later box or leaf test passes
+          return true;
+        }
+        l.best_t = t;
+      }
+    }
+  }
+  return false;
+}
+
+// Binary node row: lo(0:3) hi(3:6) leaf row(6) count(7) miss(8) right(9).
+struct Node {
+  float4 a;  // lx ly lz hx
+  float4 b;  // hy hz leaf_row count
+  float4 c;  // miss right - -
+};
+
+template <bool C>
+__device__ __forceinline__ Node load_node(const Args& a, int i) {
+  if constexpr (C) a.seen_rows[i] = 1;
+  const float4* p =
+      reinterpret_cast<const float4*>(a.table + (size_t)i * kNodeRow);
+  return Node{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+
+template <bool C>
+__device__ __forceinline__ bool node_slab(const Node& nd, const Ray& r,
+                                          Lane& l, float& tn) {
+  if constexpr (C) ++l.slab;
+  return slab(nd.a.x, nd.a.y, nd.a.z, nd.a.w, nd.b.x, nd.b.y, r, l.best_t,
+              tn);
+}
+
+// MK3: threaded order, no stack.
+template <bool ANY, bool C>
+__device__ void walk_mk3(const Args& a, const Ray& r, Lane& l) {
+  int cursor = 0;
+  while (cursor >= 0) {
+    const Node nd = load_node<C>(a, cursor);
+    float tn;
+    const bool hit = node_slab<C>(nd, r, l, tn);
+    const int count = static_cast<int>(nd.b.w);
+    if (hit && count > 0 &&
+        leaf_tests<ANY, C>(a, static_cast<int>(nd.b.z), count, r, l))
+      return;
+    cursor = (hit && count <= 0) ? cursor + 1 : static_cast<int>(nd.c.x);
+  }
+}
+
+// MK4: near child first; the far child waits on the stack with its entry
+// distance, and is dropped on pop when that exceeds the lane's best t.
+template <bool ANY, bool C>
+__device__ void walk_mk4(const Args& a, const Ray& r, Lane& l) {
+  int node[kStackBinary];
+  float key[kStackBinary];
+  int sp = 0;
+  int cursor = 0;
+  float tn;
+  if (!node_slab<C>(load_node<C>(a, 0), r, l, tn)) return;
+  while (true) {
+    const Node nd = load_node<C>(a, cursor);
+    const int count = static_cast<int>(nd.b.w);
+    if (count > 0) {
+      if (leaf_tests<ANY, C>(a, static_cast<int>(nd.b.z), count, r, l))
+        return;
+    } else {
+      const int left = cursor + 1;
+      const int right = static_cast<int>(nd.c.y);
+      float tl, tr = 0.f;
+      const bool hl = node_slab<C>(load_node<C>(a, left), r, l, tl);
+      const bool hr =
+          right >= 0 && node_slab<C>(load_node<C>(a, right), r, l, tr);
+      if (hl && hr) {
+        const bool l_first = tl <= tr;
+        if (sp < kStackBinary) {
+          node[sp] = l_first ? right : left;
+          key[sp] = l_first ? tr : tl;
+          ++sp;
+        } else {
+          atomicAdd(a.overflow, 1);
+        }
+        cursor = l_first ? left : right;
+        continue;
+      }
+      if (hl || hr) {
+        cursor = hl ? left : right;
+        continue;
+      }
+    }
+    bool popped = false;
+    while (sp > 0) {
+      --sp;
+      if (key[sp] <= l.best_t) {
+        cursor = node[sp];
+        popped = true;
+        break;
+      }
+    }
+    if (!popped) return;
+  }
+}
+
+// WIDE: slab-test the ARITY children of wide row `cursor`, sort the hits
+// by entry distance and push them far to near. Stack codes: a wide row
+// (>= 0), or -(leaf row + 2) for a leaf child.
+template <int ARITY, bool ANY, bool C>
+__device__ void walk_wide(const Args& a, const Ray& r, Lane& l) {
+  int code[kStackWide];
+  float key[kStackWide];
+  int sp = 0;
+  int cursor = 0;  // wide row 0 holds the root's children
+  while (true) {
+    if (cursor >= 0) {
+      if constexpr (C) a.seen_rows[cursor] = 1;
+      const float4* row = reinterpret_cast<const float4*>(
+          a.table + (size_t)cursor * 8 * ARITY);
+      float k[ARITY];
+      int c[ARITY];
+#pragma unroll
+      for (int s = 0; s < ARITY; ++s) {
+        const float4 lo = __ldg(row + 2 * s);      // lx ly lz hx
+        const float4 hi = __ldg(row + 2 * s + 1);  // hy hz meta count
+        if constexpr (C) l.slab += hi.w >= 0.f;
+        float tn;
+        const bool hit = hi.w >= 0.f && slab(lo.x, lo.y, lo.z, lo.w, hi.x,
+                                             hi.y, r, l.best_t, tn);
+        k[s] = hit ? tn : INFINITY;
+        const int meta = static_cast<int>(hi.z);
+        c[s] = hi.w > 0.f ? -(meta + 2) : meta;
+      }
+#pragma unroll
+      for (int i = 1; i < ARITY; ++i) {
+#pragma unroll
+        for (int j = i; j > 0; --j) {
+          if (k[j - 1] > k[j]) {
+            const float kk = k[j - 1];
+            k[j - 1] = k[j];
+            k[j] = kk;
+            const int cc = c[j - 1];
+            c[j - 1] = c[j];
+            c[j] = cc;
+          }
+        }
+      }
+#pragma unroll
+      for (int s = ARITY - 1; s >= 0; --s) {
+        if (k[s] < INFINITY) {
+          if (sp < kStackWide) {
+            code[sp] = c[s];
+            key[sp] = k[s];
+            ++sp;
+          } else {
+            atomicAdd(a.overflow, 1);
+          }
+        }
+      }
+    } else if (leaf_tests<ANY, C>(a, -cursor - 2, -1, r, l)) {
+      return;
+    }
+    bool popped = false;
+    while (sp > 0) {
+      --sp;
+      if (key[sp] <= l.best_t) {
+        cursor = code[sp];
+        popped = true;
+        break;
+      }
+    }
+    if (!popped) return;
+  }
+}
+
+template <int LAYOUT, bool ANY, bool C>
+__global__ void __launch_bounds__(kBlock) traverse_kernel(const Args a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  Lane l{a.tmax[i], -1, -1, 0ull, 0ull};
+  if (l.best_t >= 0.f) {  // tmax < 0 culls the lane before the root
+    const float dx = a.d[3 * i], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
+    const Ray r{a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2], dx, dy, dz,
+                1.0f / fix_dir(dx), 1.0f / fix_dir(dy), 1.0f / fix_dir(dz)};
+    if constexpr (LAYOUT == kMk3) {
+      walk_mk3<ANY, C>(a, r, l);
+    } else if constexpr (LAYOUT == kMk4) {
+      walk_mk4<ANY, C>(a, r, l);
+    } else {
+      walk_wide<LAYOUT == kWide4 ? 4 : 8, ANY, C>(a, r, l);
+    }
+  }
+  a.t_out[i] = l.best_t;
+  a.slot_out[i] = l.slot;
+  a.leaf_out[i] = l.leaf;
+  if constexpr (C) {
+    atomicAdd(a.counts, l.slab);
+    atomicAdd(a.counts + 1, l.mt);
+  }
+}
+
+template <int LAYOUT>
+cudaError_t launch(const Args& a, bool any_hit, bool count, cudaStream_t s) {
+  const dim3 grid((a.n + kBlock - 1) / kBlock);
+  switch ((any_hit ? 2 : 0) + (count ? 1 : 0)) {
+    case 0: traverse_kernel<LAYOUT, false, false><<<grid, kBlock, 0, s>>>(a);
+      break;
+    case 1: traverse_kernel<LAYOUT, false, true><<<grid, kBlock, 0, s>>>(a);
+      break;
+    case 2: traverse_kernel<LAYOUT, true, false><<<grid, kBlock, 0, s>>>(a);
+      break;
+    default: traverse_kernel<LAYOUT, true, true><<<grid, kBlock, 0, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// One walk over n rays on `stream`. layout: 0 MK3, 1 MK4 (table = nodes
+// [Nn,16]), 2 WIDE with arity 4, 3 WIDE with arity 8 (table = wide
+// [Nw, 8*arity]). A non-null `counts` (2 x u64) selects the counting
+// instance, which also needs `seen_rows` (one byte per table row) and
+// `seen_slots` (one byte per leaf slot, rows of tris x 14). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unknown layout).
+int urt_traverse(const float* o, const float* d, const float* tmax, int n,
+                 int layout, int any_hit, const float* table,
+                 const float* tris, int leaf_rows, float* t_out,
+                 int* slot_out, int* leaf_out, int* overflow,
+                 unsigned long long* counts, unsigned char* seen_rows,
+                 unsigned char* seen_slots, void* stream) {
+  const Args a{o, d, tmax, table, tris, t_out, slot_out, leaf_out,
+               overflow, counts, seen_rows, seen_slots, n, leaf_rows};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool any = any_hit != 0, count = counts != nullptr;
+  switch (layout) {
+    case kMk3: return static_cast<int>(launch<kMk3>(a, any, count, s));
+    case kMk4: return static_cast<int>(launch<kMk4>(a, any, count, s));
+    case kWide4: return static_cast<int>(launch<kWide4>(a, any, count, s));
+    case kWide8: return static_cast<int>(launch<kWide8>(a, any, count, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

@@ -1,8 +1,9 @@
 """Pinhole camera + block-ordered primary-ray generation.
 
-Twin: ``unity_raytracer_tpu/models/camera.py:20-127`` (``Camera``,
-``generate_rays_blocks``). The reference model is an explicit image plane
-(Data/Camera/ImagePlane.cs:11-45); primary rays go through pixel centers,
+Twin: ``unity_raytracer_tpu/models/camera.py:20-127`` (``Camera`` with
+``make`` and ``from_fov``, ``generate_rays_blocks``). The reference model
+is an explicit image plane (Data/Camera/ImagePlane.cs:11-45); primary
+rays go through pixel centers,
 ``topLeft + (x+0.5)*hLen/resX * right - (y+0.5)*vLen/resY * up``
 (Demo-RayTracing/RayTracingSetup.cs:291-298), pixel (0,0) top-left.
 
@@ -58,6 +59,21 @@ class Camera:
         return Camera(position=t(position), forward=t(f), right=t(r),
                       up=t(u), dist=t(dist), half_h=t(half_h),
                       half_v=t(half_v), width=int(width), height=int(height))
+
+    @staticmethod
+    def from_fov(position, look_at, up=(0.0, 1.0, 0.0),
+                 fov_y_deg: float = 45.0, dist: float = 1.0,
+                 width: int = 512, height: int = 512,
+                 device="cuda") -> "Camera":
+        """By vertical field of view (the twin's ``from_fov``, ``:60-69``;
+        the reference has no FOV camera)."""
+        p = np.asarray(position, np.float32)
+        f = np.asarray(look_at, np.float32) - p
+        half_v = dist * np.tan(np.deg2rad(fov_y_deg) * 0.5)
+        half_h = half_v * (width / height)
+        return Camera.make(position=p, forward=f, up=up, dist=dist,
+                           half_h=float(half_h), half_v=float(half_v),
+                           width=width, height=height, device=device)
 
 
 def generate_rays_blocks(cam: Camera, bs: int

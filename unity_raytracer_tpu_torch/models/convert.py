@@ -1,4 +1,4 @@
-"""Carry state across from the JAX package: scene, BVH and fit state to tensors.
+"""Carry state across from the JAX package: scene, BVHs and fit state to tensors.
 
 No single JAX twin: this is the renderer's "weights" converter. A scene
 and its packed BVH are the state a render runs on, and these functions
@@ -62,24 +62,28 @@ def scene_from_arrays(obj, device="cuda") -> Scene:
         aabb_max=_t(obj.aabb_max, device))
 
 
-def mesh_bvh_from_arrays(obj) -> MeshBVH:
-    """A port ``MeshBVH`` (host numpy) from an object with the JAX
-    ``MeshBVH`` attributes."""
+def mesh_bvh_from_arrays(obj, device=None) -> MeshBVH:
+    """A port ``MeshBVH`` from an object with the JAX ``MeshBVH``
+    attributes — the plain tree ``kernel='xla'`` walks: host numpy, or
+    tensors on ``device`` when one is given."""
     a = lambda k: np.array(getattr(obj, k))
     flip = getattr(obj, "flip", None)
-    return MeshBVH(node_min=a("node_min"), node_max=a("node_max"),
-                   first=a("first"), count=a("count"),
-                   miss_next=a("miss_next"), tri_verts=a("tri_verts"),
-                   prim_index=a("prim_index"),
-                   leaf_size=int(getattr(obj, "leaf_size")),
-                   canonical=bool(getattr(obj, "canonical", False)),
-                   flip=None if flip is None else np.array(flip))
+    bvh = MeshBVH(node_min=a("node_min"), node_max=a("node_max"),
+                  first=a("first"), count=a("count"),
+                  miss_next=a("miss_next"), tri_verts=a("tri_verts"),
+                  prim_index=a("prim_index"),
+                  leaf_size=int(getattr(obj, "leaf_size")),
+                  canonical=bool(getattr(obj, "canonical", False)),
+                  flip=None if flip is None else np.array(flip))
+    return bvh if device is None else bvh.to(device)
 
 
 def packed_from_arrays(obj, device="cuda") -> PackedBVH:
     """A port ``PackedBVH`` from an object with the JAX ``PackedBVH``
-    attributes. The rows-per-leaf counts come from the shape tags
-    (``leaf_tag``, ``bw_tag``) the JAX layout carries them in."""
+    attributes, its ``MeshBVH`` too (the traversal epilogue reads its
+    ``tri_verts`` and ``prim_index`` on the device). The rows-per-leaf
+    counts come from the shape tags (``leaf_tag``, ``bw_tag``) the JAX
+    layout carries them in."""
     opt = lambda k: (None if getattr(obj, k, None) is None
                      else _t(getattr(obj, k), device))
     leaf_tag = getattr(obj, "leaf_tag", None)
@@ -87,7 +91,7 @@ def packed_from_arrays(obj, device="cuda") -> PackedBVH:
     return PackedBVH(
         nodes=_t(obj.nodes, device), tris=_t(obj.tris, device),
         leaf_prim=_t(obj.leaf_prim, device),
-        bvh=mesh_bvh_from_arrays(obj.bvh),
+        bvh=mesh_bvh_from_arrays(obj.bvh, device),
         leafmeta=opt("leafmeta"), wide=opt("wide"),
         rows_per_leaf=1 if leaf_tag is None else int(np.shape(leaf_tag)[0]),
         tris_bw=opt("tris_bw"),

@@ -4,10 +4,9 @@ Twin: ``unity_raytracer_tpu/models/presets.py`` — all five constructors,
 ``PRESETS`` and ``get_preset``, building equal scenes, cameras and configs
 (``tests/test_torch_scene.py``), on the ``device`` each takes: the CUDA
 card unless the caller asks for another (``device="cpu"``). The presets
-only build scenes; the forward render ported so far takes ``mesh10k`` and
-``mesh100k`` (mirror chain on the BVH), while ``render`` raises for the
-others (``cornell_box`` is a dielectric tree; ``reference_demo`` and
-``three_spheres`` have no BVH).
+only build scenes; ``render`` takes every one but ``cornell_box``, a
+dielectric tree (ROADMAP Queue A #8): ``reference_demo`` and
+``three_spheres`` render by brute force on the composed path.
 
 Each preset returns ``(scene, camera, render_config)``. The reference's
 "config system" is its serialized demo scene

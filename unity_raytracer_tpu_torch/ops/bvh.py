@@ -1,33 +1,40 @@
-"""BVH host side: the native SAH build, canonical winding and ``prepare_bvh``.
+"""BVH: the native SAH build, canonical winding, ``prepare_bvh`` and the walks.
 
-Twin: ``unity_raytracer_tpu/ops/bvh.py`` — ``MeshBVH`` (here a dataclass
-of numpy arrays: the tree is host data), ``build`` on its native path only
-(``:274-327``), ``_mt_one`` (``:522-538``, the differentiable per-ray
-Möller–Trumbore the record replay uses), ``canonical_winding``
-(``:632-644``) and the ``mega`` branch of ``prepare_bvh``
-(``:680-726``). The C++ builder is compiled
-from ``native/bvh_builder.cc`` into ``build/`` (``ops/kernels/_lib.py``);
-the tracked ``native/libbvh.so`` is never loaded. Equal inputs give arrays
+Twin: ``unity_raytracer_tpu/ops/bvh.py`` — ``MeshBVH``, ``build`` on its
+native path (``:274-327``, with the single empty leaf of a meshless
+scene), ``_slab_enter`` and ``_safe_inv`` (``:498-519``), ``_mt_one``
+(``:522-538``), ``shading_normal`` (``:541-549``), ``traverse``
+(``:552-629``, the plain per-lane threaded walk: the twin's
+``kernel='xla'`` route), ``canonical_winding`` (``:632-644``),
+``bind_verts`` (``:647-677``), ``prepare_bvh`` (``:680-731``, the packed
+branch for the kernels and the plain ``MeshBVH`` for ``kernel='xla'``)
+and ``traverse_any`` (``:734-778``). The C++ builder is compiled from
+``native/bvh_builder.cc`` into ``build/`` (``ops/kernels/_lib.py``); the
+tracked ``native/libbvh.so`` is never loaded. Equal inputs give arrays
 equal to the JAX package's (``tests/test_torch_bvh.py``).
 
+A ``MeshBVH`` holds numpy arrays while the host builds and packs it;
+``MeshBVH.to(device)`` (and ``PackedBVH.to``, which moves its ``bvh``)
+turns them into tensors on the device, where the walks and the traversal
+epilogue read ``tri_verts``, ``prim_index`` and ``flip``.
+
 Not ported here: the numpy reference builder and SBVH ``presplit_refs``
-(ROADMAP Queue A #14), the device traversals ``traverse`` /
-``traverse_any`` (Queue A #10 and #12) and ``bind_verts`` (Queue A #10).
+(ROADMAP Queue A #14).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from unity_raytracer_tpu_torch.ops.intersect import dot3
+from unity_raytracer_tpu_torch.ops.intersect import EPS, dot3
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    EPS, PALLAS_LEAF, PackedBVH, pack_bw, pack_rows)
+    PALLAS_LEAF, PackedBVH, pack_bw, pack_rows)
 from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import widen
 
 LEAF_SIZE = 4
@@ -36,9 +43,10 @@ SAH_BINS = 16
 
 @dataclass(frozen=True)
 class MeshBVH:
-    """Flat threaded BVH over the scene's concatenated mesh triangles
-    (host numpy). ``tri_verts`` are the triangles in leaf order;
-    ``prim_index`` maps leaf-order rows back to ``MeshSet`` rows."""
+    """Flat threaded BVH over the scene's concatenated mesh triangles:
+    numpy arrays on the host, tensors after ``to(device)``. ``tri_verts``
+    are the triangles in leaf order; ``prim_index`` maps leaf-order rows
+    back to ``MeshSet`` rows."""
 
     node_min: np.ndarray    # [Nn,3] f32
     node_max: np.ndarray    # [Nn,3] f32
@@ -53,6 +61,20 @@ class MeshBVH:
     canonical: bool = False
     flip: Optional[np.ndarray] = None  # [M_total] bool rows swapped v1<->v2
 
+    @property
+    def n_nodes(self) -> int:
+        return self.first.shape[0]
+
+    def to(self, device) -> "MeshBVH":
+        """The same tree with every array a tensor on ``device``."""
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (np.ndarray, torch.Tensor)):
+                v = torch.as_tensor(v, device=device)
+            kw[f.name] = v
+        return MeshBVH(**kw)
+
 
 def build(verts: np.ndarray, valid: np.ndarray | None = None,
           leaf_size: int = LEAF_SIZE, use_sah: bool = True,
@@ -65,10 +87,14 @@ def build(verts: np.ndarray, valid: np.ndarray | None = None,
     orig_idx = np.nonzero(np.asarray(valid))[0].astype(np.int32)
     tris = verts[orig_idx]
     m = tris.shape[0]
-    if m == 0:
-        raise NotImplementedError(
-            "a scene without mesh triangles has no BVH; its brute-force "
-            "path is ROADMAP Queue A #10")
+    if m == 0:  # a single empty leaf, as the twin builds it
+        return MeshBVH(
+            node_min=np.full((1, 3), np.inf, np.float32),
+            node_max=np.full((1, 3), -np.inf, np.float32),
+            first=np.zeros((1,), np.int32), count=np.zeros((1,), np.int32),
+            miss_next=np.full((1,), -1, np.int32),
+            tri_verts=np.zeros((1, 3, 3), np.float32),
+            prim_index=np.zeros((1,), np.int32), leaf_size=leaf_size)
 
     tris_f = np.ascontiguousarray(tris.reshape(m, 9), np.float32)
     max_nodes = 2 * m - 1
@@ -94,10 +120,30 @@ def build(verts: np.ndarray, valid: np.ndarray | None = None,
                    leaf_size=leaf_size)
 
 
+def _slab_enter(o, d_inv, lo, hi, tmax):
+    """Slab test over [0, tmax] -> (hit, t_enter); ``d_inv`` finite (see
+    ``_safe_inv``)."""
+    t1 = (lo - o) * d_inv
+    t2 = (hi - o) * d_inv
+    tn = torch.minimum(t1, t2)
+    tf = torch.maximum(t1, t2)
+    t_enter = torch.clamp_min(tn.amax(dim=-1), 0.0)
+    t_exit = torch.minimum(tf.amin(dim=-1), tmax)
+    return t_enter <= t_exit, t_enter
+
+
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """1/d with components below 1e-30 clamped to +-1e-30, so slab
+    products stay NaN-free (0 * 1e30 = 0, never 0 * inf)."""
+    tiny = 1e-30
+    fix = torch.where(d < 0, -tiny, tiny).to(d.dtype)
+    return 1.0 / torch.where(d.abs() < tiny, fix, d)
+
+
 def _mt_one(o, d, v0, v1, v2):
     """Möller–Trumbore for one triangle per ray (``[N,3]`` each), +inf on
     a miss; differentiable in every input where it hits. Same rejects and
-    epsilon as the fused segment's test."""
+    epsilon as ``ops/intersect.ray_triangles``."""
     e1 = v1 - v0
     e2 = v2 - v0
     h = torch.linalg.cross(d, e2, dim=-1)
@@ -114,6 +160,92 @@ def _mt_one(o, d, v0, v1, v2):
     return torch.where(miss, torch.inf, t)
 
 
+def shading_normal(tri: torch.Tensor) -> torch.Tensor:
+    """The reference's mesh-bake shading normal from gathered triangles
+    ``[N,3,3]``: ``-normalize(cross(v2-v0, v1-v0))`` (SceneMesh.cs:43;
+    winding canonicalized by ``prepare_bvh``). Junk on miss lanes."""
+    e1 = tri[:, 2] - tri[:, 0]
+    e2 = tri[:, 1] - tri[:, 0]
+    nml = -torch.linalg.cross(e1, e2, dim=-1)
+    # the twin clamps with max(x, 1e-60), which is max(x, 0) in float32
+    n2 = dot3(nml, nml)[:, None]
+    return nml * (1.0 / torch.sqrt(torch.maximum(n2, n2.new_zeros(()))))
+
+
+def traverse(bvh: MeshBVH, o: torch.Tensor, d: torch.Tensor,
+             t_max: torch.Tensor | None = None, any_hit: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nearest mesh-triangle hit by the plain per-lane threaded walk.
+
+    Returns ``(t [N], original prim index [N], shading normal [N,3])``,
+    +inf / -1 / junk on a miss. Every lane steps through its own node
+    sequence (descend to ``cursor + 1`` on a box hit, else the miss link)
+    with ``bvh.leaf_size`` triangle tests per leaf; the loop ends when no
+    lane is left (one host sync per step). ``t_max`` seeds the cull
+    distance, and a negative one culls the lane; ``any_hit`` stops a lane
+    at its first occluder closer than ``t_max``. The walk is index logic
+    on detached rays; ``t`` is re-derived differentiably from the winner
+    (``tri_verts``, which ``bind_verts`` may make a function of the
+    scene)."""
+    n = o.shape[0]
+    od, dd = o.detach(), d.detach()
+    d_inv = _safe_inv(dd)
+    tv = bvh.tri_verts.detach()
+    best_t = (torch.full((n,), torch.inf, dtype=torch.float32,
+                         device=o.device) if t_max is None
+              else t_max.detach().to(torch.float32).clone())
+    cursor = torch.where(best_t < 0.0, -1, 0).to(torch.int64)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    m = tv.shape[0]
+    while True:
+        lanes = torch.nonzero(cursor >= 0).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        node = cursor[lanes]
+        ol, dl, bt = od[lanes], dd[lanes], best_t[lanes]
+        bi = best_i[lanes]
+        box_hit, _ = _slab_enter(ol, d_inv[lanes], bvh.node_min[node],
+                                 bvh.node_max[node], bt)
+        count = bvh.count[node].long()
+        first = bvh.first[node].long()
+        is_leaf = count > 0
+        # the leaf's slots at once; the first of equal t wins, as the
+        # twin's unrolled strict < over the slots keeps it
+        at = torch.nonzero(box_hit & is_leaf).squeeze(1)
+        if at.numel():
+            ks = torch.arange(bvh.leaf_size, device=o.device)
+            pi = (first[at, None] + ks).clamp(0, m - 1)       # [nl, K]
+            tri = tv[pi]
+            t = _mt_one(ol[at, None], dl[at, None], tri[..., 0, :],
+                        tri[..., 1, :], tri[..., 2, :])
+            cand = (ks < count[at, None]) & (t < bt[at, None])
+            if any_hit:
+                k0 = cand.to(torch.uint8).argmax(dim=1)
+                new_t = torch.full_like(t[:, 0], -1.0)
+            else:
+                new_t, k0 = torch.where(cand, t, torch.inf).min(dim=1)
+            upd = cand.any(dim=1)
+            bt[at] = torch.where(upd, new_t, bt[at])
+            bi[at] = torch.where(upd, pi.gather(1, k0[:, None])[:, 0],
+                                 bi[at])
+        # (the meshless tree's one empty node has no child to descend to)
+        nxt = torch.where(box_hit & ~is_leaf & (node + 1 < bvh.n_nodes),
+                          node + 1, bvh.miss_next[node].long())
+        if any_hit:  # occluded lanes retire at once
+            nxt = torch.where(bt < 0.0, -1, nxt)
+        cursor[lanes] = nxt
+        best_t[lanes] = bt
+        best_i[lanes] = bi
+    hit = best_i >= 0
+    safe = best_i.clamp_min(0)
+    orig = torch.where(hit, bvh.prim_index[safe].long(), -1)
+    tri = bvh.tri_verts[safe]
+    t_diff = _mt_one(o, d, tri[:, 0], tri[:, 1], tri[:, 2])
+    t_out = torch.where(hit, torch.where(torch.isfinite(t_diff), t_diff,
+                                         best_t), torch.inf)
+    return t_out, orig.to(torch.int32), shading_normal(tri)
+
+
 def canonical_winding(verts: np.ndarray, normals: np.ndarray,
                       return_flip: bool = False):
     """Swap v1/v2 of triangles whose derived normal
@@ -127,26 +259,81 @@ def canonical_winding(verts: np.ndarray, normals: np.ndarray,
     return (v, flip) if return_flip else v
 
 
-def prepare_bvh(scene, cfg, device=None) -> PackedBVH:
-    """Build the fused segment kernel's BVH for ``scene`` on the host and
-    move it to ``device`` (default: the scene's device): native SAH build
-    with ``cfg.bvh_leaf``-triangle
-    leaves and ``cfg.bvh_bins`` bins, ``pack_rows``, ``widen`` to
-    ``cfg.bvh_arity``, ``pack_bw``, and the per-leaf-slot combined
-    material ids (``leafmeta``, table order spheres ++ loose triangles ++
-    meshes, as ``ops/kernels/mega.build_aux`` lays it out)."""
+def bind_verts(bvh, scene):
+    """Re-derive the traversal epilogue's triangle table from the scene's
+    current mesh verts, differentiably — the ``mesh_verts`` gradient hook
+    (``fit.PARAM_PATHS``). The walk keeps its baked boxes and rows; the
+    epilogue's ``t`` and shading normal then read this table, so the
+    radiance's gradient reaches the mesh verts as on the brute-force
+    path. Contract (the twin's): the walk picks winners on the baked
+    rows, so build the BVH with ``cfg.bvh_pad`` >= the largest vertex
+    displacement, and keep the verts near their build positions."""
+    if scene.meshes.count == 0:
+        return bvh
+    packed = isinstance(bvh, PackedBVH)
+    inner = bvh.bvh if packed else bvh
+    v = scene.meshes.verts
+    if inner.flip is not None:
+        flip = torch.as_tensor(inner.flip, device=v.device)
+        v = torch.where(flip[:, None, None], v[:, (0, 2, 1), :], v)
+    idx = torch.as_tensor(inner.prim_index, device=v.device).long()
+    new_inner = dataclasses.replace(inner, tri_verts=v[idx.clamp_min(0)])
+    return bvh.replace(bvh=new_inner) if packed else new_inner
+
+
+def _meshless_packed(arity: int) -> PackedBVH:
+    """A one-row ``PackedBVH`` for a scene without mesh triangles (the
+    twin's ``render._dummy_packed``): the binary root is a leaf holding
+    one all-zero triangle, which no ray hits, and every wide slot is
+    absent, so every walk ends at the root."""
+    arity = max(arity, 2)
+    nodes = np.zeros((1, 16), np.float32)
+    nodes[0, 7] = 1.0                      # a leaf of one (zero) triangle
+    nodes[0, 8], nodes[0, 9] = -1.0, -1.0  # no miss link, no right child
+    wide = np.zeros((1, 8 * arity), np.float32)
+    wide[:, 7::8] = -1.0
+    return PackedBVH(
+        nodes=torch.from_numpy(nodes), tris=torch.zeros((1, 128)),
+        leaf_prim=torch.full((1, PALLAS_LEAF), -1, dtype=torch.int32),
+        bvh=build(np.zeros((0, 3, 3), np.float32)),
+        leafmeta=torch.zeros((1, 16)), wide=torch.from_numpy(wide),
+        tris_bw=torch.zeros((1, 128)), bw_rows_per_leaf=1)
+
+
+def prepare_bvh(scene, cfg, device=None):
+    """Build the BVH ``cfg.kernel`` walks, on the host, and move it to
+    ``device`` (default: the scene's device).
+
+    Every kernel but 'xla' gets a ``PackedBVH``: native SAH build with
+    ``cfg.bvh_leaf``-triangle leaves and ``cfg.bvh_bins`` bins,
+    ``pack_rows``, ``widen`` to ``cfg.bvh_arity``, ``pack_bw`` and the
+    per-leaf-slot combined material ids (``leafmeta``, table order
+    spheres ++ loose triangles ++ meshes, as ``ops/kernels/mega.build_aux``
+    lays it out). ``kernel='xla'`` gets a plain ``MeshBVH`` with
+    ``LEAF_SIZE`` leaves. Unlike the twin, 'auto' gets the packed rows on
+    every device (the twin builds a plain tree on its CPU backend): they
+    serve every route, and off the card 'auto' walks their ``bvh`` with
+    the plain per-lane walk. Winding is canonicalized against the stored
+    normals so the epilogue re-derives them."""
     if getattr(cfg, "bvh_presplit", 0.0):
         raise NotImplementedError(
-            "bvh_presplit (SBVH presplitting and the numpy builder) is "
-            "ROADMAP Queue A #14")
+            "not ported to unity_raytracer_tpu_torch yet: bvh_presplit "
+            "(SBVH presplitting and the numpy builder) is #14 in ROADMAP.md "
+            "Queue A")
+    device = scene.aabb_min.device if device is None else device
     verts, flip = canonical_winding(scene.meshes.verts.cpu().numpy(),
                                     scene.meshes.normals.cpu().numpy(),
                                     return_flip=True)
-    leaf = getattr(cfg, "bvh_leaf", PALLAS_LEAF) or PALLAS_LEAF
+    valid = scene.meshes.valid.cpu().numpy()
     bins = getattr(cfg, "bvh_bins", SAH_BINS) or SAH_BINS
     pad = getattr(cfg, "bvh_pad", 0.0) or 0.0
-    b = build(verts, scene.meshes.valid.cpu().numpy(), leaf_size=leaf,
-              sah_bins=bins, aabb_pad=pad)
+    if getattr(cfg, "kernel", "auto") == "xla":
+        b = build(verts, valid, sah_bins=bins, aabb_pad=pad)
+        return dataclasses.replace(b, canonical=True, flip=flip).to(device)
+    if not valid.any():
+        return _meshless_packed(getattr(cfg, "bvh_arity", 4)).to(device)
+    leaf = getattr(cfg, "bvh_leaf", PALLAS_LEAF) or PALLAS_LEAF
+    b = build(verts, valid, leaf_size=leaf, sah_bins=bins, aabb_pad=pad)
     b = dataclasses.replace(b, canonical=True, flip=flip)
     packed = pack_bw(widen(pack_rows(b, leaf_slots=leaf),
                            arity=getattr(cfg, "bvh_arity", 4)))
@@ -157,5 +344,49 @@ def prepare_bvh(scene, cfg, device=None) -> PackedBVH:
     mwidth = max(16, -(-lp.shape[1] // 8) * 8)
     leafmeta = np.zeros((lp.shape[0], mwidth), np.float32)
     leafmeta[:, : lp.shape[1]] = matid.astype(np.float32)
-    return packed.replace(leafmeta=torch.from_numpy(leafmeta)).to(
-        scene.aabb_min.device if device is None else device)
+    return packed.replace(leafmeta=torch.from_numpy(leafmeta)).to(device)
+
+
+def traverse_any(bvh, o: torch.Tensor, d: torch.Tensor,
+                 t_max: torch.Tensor | None = None, kernel: str = "auto",
+                 any_hit: bool = False,
+                 overflow: torch.Tensor | None = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dispatching traversal -> ``(t, prim index, shading normal)``.
+
+    ``kernel``: 'xla' (the plain per-lane walk ``traverse``), 'pallas'
+    (ordered binary walk, ``ops/kernels/traverse_mk4``), 'pallas3'
+    (threaded binary walk, ``traverse_mk3``), 'wide' (BVH4/8 walk,
+    ``traverse_wide``), 'mega' (= 'pallas'), 'auto' ('pallas' on the
+    card, 'xla' elsewhere). The kernels need a ``PackedBVH``; a bare
+    ``MeshBVH`` always takes the plain walk. On a CUDA tensor a kernel
+    route launches its CUDA kernel; on a CPU tensor it runs the kernel's
+    plain version. ``any_hit``: lanes finish at the first occluder
+    closer than ``t_max``; a negative ``t_max`` culls a lane.
+    ``overflow``: the kernels' shared stack-overflow counter
+    (``traverse_mk3.walk_raw``), which the caller checks; without one
+    each launch checks its own."""
+    from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
+        traverse_packet3)
+    from unity_raytracer_tpu_torch.ops.kernels.traverse_mk4 import (
+        traverse_packet4)
+    from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import (
+        traverse_wide)
+    if kernel == "auto":
+        kernel = "pallas" if o.device.type == "cuda" else "xla"
+    if kernel == "mega":
+        kernel = "pallas"
+    if not isinstance(bvh, PackedBVH):
+        return traverse(bvh, o, d, t_max=t_max, any_hit=any_hit)
+    if kernel == "xla":
+        return traverse(bvh.bvh, o, d, t_max=t_max, any_hit=any_hit)
+    if kernel == "pallas3":
+        return traverse_packet3(bvh, o, d, t_max=t_max, any_hit=any_hit,
+                                overflow=overflow)
+    if kernel == "wide" and bvh.wide is not None:
+        return traverse_wide(bvh, o, d, t_max=t_max, any_hit=any_hit,
+                             overflow=overflow)
+    if kernel not in ("pallas", "wide"):
+        raise ValueError(f"unknown traversal kernel {kernel!r}")
+    return traverse_packet4(bvh, o, d, t_max=t_max, any_hit=any_hit,
+                            overflow=overflow)

@@ -11,19 +11,23 @@ rewrites that file. At first use it compiles, into ``build/torch_kernels/``
   the SAH cost sums contract to FMAs exactly as in the tracked library and
   the port builds the same trees as the JAX package (no ``-march=native``:
   the library must load on any host of its architecture);
-* ``libmega-<key>.so`` from ``csrc/mega_segment.cu`` with
-  ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-  -fmad=false -shared -Xcompiler -fPIC`` (plain C entry point, bound with
-  ctypes). ``-fmad=false`` keeps every multiply and add separately
-  rounded, as the plain PyTorch version rounds them: with contraction on,
-  grazing hits on the mirror sphere moved by up to 1e-2 on the 0-255 scale
-  (7 of 65,536 lanes of a mesh10k frame, just over the 0.01% the smoke
-  run allows); with it off the kernel matched the plain version exactly
-  on every lane checked (PERF.md).
+* ``libmega-<key>.so`` from ``csrc/mega_segment.cu`` (the fused segment
+  kernel), ``libtraverse-<key>.so`` from ``csrc/traverse.cu`` (the BVH
+  walks) and ``libnearest_tri-<key>.so`` from ``csrc/nearest_tri.cu``
+  (the brute-force nearest triangle), each with ``nvcc -gencode
+  arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false -shared
+  -Xcompiler -fPIC`` (plain C entry points, bound with ctypes).
+  ``-fmad=false`` keeps every multiply and add separately rounded, as the
+  plain PyTorch versions round them: with contraction on, grazing hits on
+  the mirror sphere moved by up to 1e-2 on the 0-255 scale (7 of 65,536
+  lanes of a mesh10k frame, just over the 0.01% the smoke run allows);
+  with it off the kernel matched the plain version exactly on every lane
+  checked (PERF.md).
 
 ``<key>`` hashes the source and the command line, so an edited source
 builds anew and concurrent builders never share a half-written file. A
-failed build or load raises; nothing falls back.
+failed build or load raises; nothing falls back. ``build_all`` builds
+every library at once, one compiler process per source.
 """
 
 from __future__ import annotations
@@ -41,10 +45,14 @@ import time
 REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO / "build" / "torch_kernels"
 BVH_SRC = REPO / "native" / "bvh_builder.cc"
-MEGA_SRC = REPO / "unity_raytracer_tpu_torch" / "csrc" / "mega_segment.cu"
+CSRC = REPO / "unity_raytracer_tpu_torch" / "csrc"
+MEGA_SRC = CSRC / "mega_segment.cu"
+TRAVERSE_SRC = CSRC / "traverse.cu"
+NEAREST_TRI_SRC = CSRC / "nearest_tri.cu"
 
 _libs: dict = {}  # the loaded library handles
-_lock = threading.Lock()
+_locks = {name: threading.Lock()
+          for name in ("bvh", "mega", "traverse", "nearest_tri")}
 
 
 def _build(name: str, src: pathlib.Path, cmd_for) -> ctypes.CDLL:
@@ -84,7 +92,7 @@ def _which(tool: str, *fallbacks: str) -> str:
 
 def bvh_lib() -> ctypes.CDLL:
     """The SAH BVH builder (``urt_build_bvh_ex``)."""
-    with _lock:
+    with _locks["bvh"]:
         if "bvh" not in _libs:
             cxx = _which("g++")
             arch = ["-mfma"] if platform.machine() in ("x86_64", "AMD64") \
@@ -101,7 +109,7 @@ def bvh_lib() -> ctypes.CDLL:
 
 
 def nvcc_cmd(src: pathlib.Path, out: pathlib.Path) -> list:
-    """The command that builds the fused segment kernel's library."""
+    """The command that builds a CUDA source's library."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = _which("nvcc", os.path.join(cuda_home, "bin", "nvcc"))
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -111,7 +119,7 @@ def nvcc_cmd(src: pathlib.Path, out: pathlib.Path) -> list:
 
 def mega_lib() -> ctypes.CDLL:
     """The fused segment kernel (``urt_mega_segment``, every mode)."""
-    with _lock:
+    with _locks["mega"]:
         if "mega" not in _libs:
             lib = _build("mega", MEGA_SRC,
                          lambda out: nvcc_cmd(MEGA_SRC, out))
@@ -131,3 +139,48 @@ def mega_lib() -> ctypes.CDLL:
                 p, p]                      # counts stream
             _libs["mega"] = lib
         return _libs["mega"]
+
+
+def traverse_lib() -> ctypes.CDLL:
+    """The BVH walks (``urt_traverse``: mk3, mk4, wide 4/8; nearest and
+    any-hit)."""
+    with _locks["traverse"]:
+        if "traverse" not in _libs:
+            lib = _build("traverse", TRAVERSE_SRC,
+                         lambda out: nvcc_cmd(TRAVERSE_SRC, out))
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            lib.urt_traverse.restype = i
+            lib.urt_traverse.argtypes = [
+                p, p, p, i,                # o d tmax n
+                i, i, p, p, i,             # layout any_hit table tris rows
+                p, p, p, p, p,             # t slot leaf overflow counts
+                p, p, p]                   # seen_rows seen_slots stream
+            _libs["traverse"] = lib
+        return _libs["traverse"]
+
+
+def nearest_tri_lib() -> ctypes.CDLL:
+    """The brute-force nearest triangle (``urt_nearest_tri``)."""
+    with _locks["nearest_tri"]:
+        if "nearest_tri" not in _libs:
+            lib = _build("nearest_tri", NEAREST_TRI_SRC,
+                         lambda out: nvcc_cmd(NEAREST_TRI_SRC, out))
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            lib.urt_nearest_tri.restype = i
+            lib.urt_nearest_tri.argtypes = [p, p, p, p, i, i, p, p, p]
+            _libs["nearest_tri"] = lib
+        return _libs["nearest_tri"]
+
+
+def build_all() -> dict:
+    """Build (or load) every library at once, one compiler process per
+    source started together; returns {name: handle}. Raises the first
+    failure after all have finished."""
+    from concurrent.futures import ThreadPoolExecutor
+    fns = {"bvh": bvh_lib, "mega": mega_lib, "traverse": traverse_lib,
+           "nearest_tri": nearest_tri_lib}
+    with ThreadPoolExecutor(len(fns)) as ex:
+        futs = {name: ex.submit(fn) for name, fn in fns.items()}
+    return {name: f.result() for name, f in futs.items()}

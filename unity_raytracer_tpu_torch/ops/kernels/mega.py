@@ -51,7 +51,7 @@ import torch
 
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    _BIG, BW_PER_ROW, EPS, PALLAS_LEAF, PackedBVH)
+    _BIG, BW_PER_ROW, EPS, PALLAS_LEAF, PackedBVH, check_overflow)
 from unity_raytracer_tpu_torch.ops.shade import SHADOW_EPS
 
 _TINY = 1e-30
@@ -446,14 +446,6 @@ def _check_packed(packed: PackedBVH):
             or packed.tris_bw is None:
         raise ValueError("the fused segment needs PackedBVH.leafmeta, "
                          ".wide and .tris_bw — build it with prepare_bvh")
-
-
-def check_overflow(overflow: torch.Tensor) -> None:
-    """Raise if the kernel counted stack pushes it had to drop."""
-    n = int(overflow.item())
-    if n:
-        raise RuntimeError(f"fused segment kernel dropped {n} stack pushes "
-                           f"(stack overflow); the result is not exact")
 
 
 def _record_buffers(out, n, n_lights, soft, device):

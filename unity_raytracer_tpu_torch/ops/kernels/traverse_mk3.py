@@ -1,11 +1,13 @@
-"""Packed-row BVH layout and its host packers.
+"""Packed-row BVH layout, its host packers, and the threaded-order walk.
 
-Twin: ``unity_raytracer_tpu/ops/pallas/traverse_mk3.py:34-193`` — the
-constants, ``PackedBVH``, ``pack_rows`` and ``pack_bw``. The numpy code is
-copied because the JAX module imports Pallas at the top. The packed
-arrays are the exact arrays the JAX package builds
-(``tests/test_torch_bvh.py``), so the fused segment kernel reads the same
-layout on either device:
+Twin: ``unity_raytracer_tpu/ops/pallas/traverse_mk3.py`` — the constants,
+``PackedBVH``, ``pack_rows`` and ``pack_bw`` (``:34-193``) and the
+``traverse_packet3`` wrapper (``:310-389``), whose Pallas kernel
+(``_kernel``, ``:196-307``, ``pallas_call`` at ``:354``) is replaced by
+the ``MK3`` instances of ``csrc/traverse.cu``. The numpy code is copied
+because the JAX module imports Pallas at the top. The packed arrays are
+the exact arrays the JAX package builds (``tests/test_torch_bvh.py``), so
+the CUDA kernels read the same layout on either device:
 
 * ``nodes [Nn, 16] f32`` — box min/max in lanes 0-5, then leaf row /
   count / miss link / right child as exact small-integer floats;
@@ -17,8 +19,16 @@ layout on either device:
 The host stage works on CPU tensors (zero-copy numpy views);
 ``PackedBVH.to(device)`` moves the finished arrays.
 
-The traversal kernel of the JAX module (``traverse_packet3``) is not part
-of this slice (ROADMAP Queue A #12).
+What the three traversal wrappers share lives here too (the twin's
+``traverse_mk4`` and ``traverse_wide`` import it from this module as
+well): ``walk_raw`` launches the CUDA kernel of a layout on CUDA tensors
+and runs ``traverse_plain`` on CPU tensors, nothing else; ``epilogue``
+turns the raw ``(t, slot, leaf row)`` into ``(t, MeshSet row, shading
+normal)``. The plain version finds hits by brute force over every leaf
+slot of ``tris`` (ignoring the nodes), so a wrong walk or packer shows;
+it shares no walk code with the kernels. No gradient reaches the kernels:
+they read detached rays, and ``t`` is re-derived differentiably from the
+winning triangle (``ops/bvh._mt_one``).
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from unity_raytracer_tpu_torch.ops.kernels import _lib
 
 EPS = 1e-5
 _BIG = 3.0e38
@@ -42,7 +54,7 @@ class PackedBVH:
     nodes: torch.Tensor       # [Nn, 16] f32
     tris: torch.Tensor        # [n_leaves*rpl, 128] f32
     leaf_prim: torch.Tensor   # [n_leaves*rpl, 14] i32 row slot -> tri row
-    bvh: object               # ops.bvh.MeshBVH (host numpy)
+    bvh: object               # ops.bvh.MeshBVH (tri_verts, prim_index)
     # [n_leaves*rpl, >=16] f32 combined-material-table id per row slot
     leafmeta: Optional[torch.Tensor] = None
     # [Nw, 8*arity] f32 wide interior rows (traverse_wide.widen)
@@ -56,9 +68,12 @@ class PackedBVH:
         return dataclasses.replace(self, **kw)
 
     def to(self, device) -> "PackedBVH":
+        """Every tensor, and the ``bvh``'s arrays, on ``device``."""
         kw = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
         for k, v in kw.items():
             if isinstance(v, torch.Tensor):
+                kw[k] = v.to(device)
+            elif k == "bvh" and hasattr(v, "to"):
                 kw[k] = v.to(device)
         return PackedBVH(**kw)
 
@@ -162,3 +177,212 @@ def pack_bw(packed: PackedBVH) -> PackedBVH:
         out[rr::bw_rpl][:n_leaves, 12 * kk: 12 * kk + 12] = rec[:, j]
     return packed.replace(tris_bw=torch.from_numpy(out),
                           bw_rows_per_leaf=bw_rpl)
+
+
+# ---------------------------------------------------------------------------
+# the walks: raw kernel outputs, plain version, epilogue
+# ---------------------------------------------------------------------------
+
+# kernel launches per layout since the counts were last reset (set them to
+# 0 to start a count); only walk_raw's CUDA branch adds to them
+LAYOUTS = ("mk3", "mk4", "wide4", "wide8")
+launches = dict.fromkeys(LAYOUTS, 0)
+# plain version: ray x leaf-slot pairs per brute-force chunk
+_CHUNK_ELEMS = 1 << 22
+
+
+def _slots(packed: PackedBVH):
+    """Every non-empty leaf slot of ``tris`` as (triangle [K,9], global
+    slot index row * 14 + slot [K]), in (row, slot) order."""
+    v = packed.tris[:, :9 * PALLAS_LEAF].reshape(-1, 9)
+    keep = torch.nonzero((v != 0.0).any(dim=1)).squeeze(1)
+    return v[keep], keep
+
+
+def traverse_plain(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
+                   tmax: torch.Tensor, any_hit: bool = False):
+    """Plain version of the walks' raw outputs ``(t [N], slot [N], leaf
+    row [N])`` by brute force over every leaf slot, in chunks: nearest
+    mode keeps the smallest ``t < tmax`` (of equal t the first slot in
+    (row, slot) order), any-hit mode reports -1 and the first slot with
+    ``t < tmax``; ``t`` stays ``tmax`` and slot = row = -1 where nothing
+    is closer, and a lane with ``tmax < 0`` is culled."""
+    from unity_raytracer_tpu_torch.ops.kernels.mega import _mt
+    n = o.shape[0]
+    best_t = tmax.clone()
+    best_g = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    lanes = torch.nonzero(tmax >= 0.0).squeeze(1)
+    tri, gidx = _slots(packed)
+    if lanes.numel() and tri.shape[0]:
+        o3 = tuple(c[lanes][:, None] for c in o.unbind(-1))
+        d3 = tuple(c[lanes][:, None] for c in d.unbind(-1))
+        bt, bg = best_t[lanes], best_g[lanes]
+        chunk = max(1, _CHUNK_ELEMS // lanes.numel())
+        for s0 in range(0, tri.shape[0], chunk):
+            ok, t = _mt(o3, d3, tri[s0:s0 + chunk].T[:, None, :])
+            if any_hit:
+                occ = ok & (t < bt[:, None])
+                first = occ.to(torch.int8).argmax(dim=1)
+                upd = occ.any(dim=1) & (bg < 0)
+                bg = torch.where(upd, first + s0, bg)
+            else:
+                tmin, j = torch.where(ok, t, torch.inf).min(dim=1)
+                upd = tmin < bt
+                bt = torch.where(upd, tmin, bt)
+                bg = torch.where(upd, j + s0, bg)
+        if any_hit:
+            bt = torch.where(bg >= 0, -1.0, bt)
+        best_t[lanes], best_g[lanes] = bt, bg
+    hit = best_g >= 0
+    g = gidx[best_g.clamp_min(0)] if gidx.numel() else best_g
+    slot = torch.where(hit, g % PALLAS_LEAF, -1).to(torch.int32)
+    leaf = torch.where(hit, g // PALLAS_LEAF, -1).to(torch.int32)
+    return best_t, slot, leaf
+
+
+def _layout_table(packed: PackedBVH, layout: str) -> torch.Tensor:
+    if layout in ("mk3", "mk4"):
+        return packed.nodes
+    if packed.wide is None:
+        raise ValueError("PackedBVH.wide missing — call widen() first")
+    return packed.wide
+
+
+def check_overflow(overflow: torch.Tensor,
+                   what: str = "fused segment") -> None:
+    """Raise if a kernel counted stack pushes it had to drop."""
+    dropped = int(overflow.item())
+    if dropped:
+        raise RuntimeError(f"{what} kernel dropped {dropped} stack pushes "
+                           f"(stack overflow); the result is not exact")
+
+
+def walk_raw(layout: str, packed: PackedBVH, o: torch.Tensor,
+             d: torch.Tensor, tmax: torch.Tensor, any_hit: bool = False,
+             counts: torch.Tensor | None = None,
+             overflow: torch.Tensor | None = None,
+             seen: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Raw walk outputs ``(t, slot, leaf row)`` of ``layout`` ('mk3',
+    'mk4', 'wide4', 'wide8') for rays ``o, d [N,3]`` and ``tmax [N]``:
+    the CUDA kernel for CUDA tensors, ``traverse_plain`` for CPU tensors.
+    ``overflow``: an int32 [1] device counter of dropped stack pushes
+    shared by several launches, which the caller checks
+    (``check_overflow``) once they are done; without one the wrapper
+    makes its own and checks it after this launch (one host sync).
+    ``counts`` (CUDA only, for measurement): an int64 [2] device tensor;
+    the launch then runs the kernel's counting instance, which adds its
+    slab tests and Möller–Trumbore tests, and sets to 1 the bytes of
+    ``seen = (rows, slots)`` (uint8, one per row of the layout's table and
+    one per leaf slot of ``tris``: ``tris`` rows x 14) that it reads."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; have {LAYOUTS}")
+    table = _layout_table(packed, layout)
+    if layout.startswith("wide") and table.shape[1] != 8 * int(layout[4:]):
+        raise ValueError(f"layout {layout} needs a wide BVH of arity "
+                         f"{layout[4:]}, got {table.shape[1] // 8}")
+    if o.device.type == "cpu":
+        if counts is not None or seen is not None:
+            raise ValueError("walk_raw: counts needs the CUDA kernel")
+        return traverse_plain(packed, o, d, tmax, any_hit)
+    if o.device.type != "cuda":
+        raise ValueError(f"walk_raw: unsupported device {o.device}")
+    n = o.shape[0]
+    for name, t in dict(o=o, d=d, tmax=tmax, table=table,
+                        tris=packed.tris).items():
+        if t.device != o.device or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"walk_raw: {name} must be a contiguous, "
+                             f"16-byte aligned float32 tensor on {o.device}")
+    if o.shape != (n, 3) or d.shape != (n, 3) or tmax.shape != (n,) \
+            or packed.tris.shape[1] != 128:
+        raise ValueError("walk_raw: bad ray or table shapes")
+    if (counts is None) != (seen is None):
+        raise ValueError("walk_raw: counts and seen go together")
+    if counts is not None and (
+            counts.shape != (2,) or counts.dtype != torch.int64
+            or counts.device != o.device
+            or [s.shape for s in seen] != [(table.shape[0],), (
+                packed.tris.shape[0] * PALLAS_LEAF,)]
+            or any(s.dtype != torch.uint8 or s.device != o.device
+                   or not s.is_contiguous() for s in seen)):
+        raise ValueError(f"walk_raw: counts must be an int64 [2] tensor and "
+                         f"seen two contiguous uint8 tensors (table rows, "
+                         f"tris rows x {PALLAS_LEAF}) on {o.device}")
+    t_out = torch.empty_like(tmax)
+    slot = torch.empty((n,), dtype=torch.int32, device=o.device)
+    leaf = torch.empty((n,), dtype=torch.int32, device=o.device)
+    own_counter = overflow is None
+    if own_counter:
+        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+    if n:
+        err = _lib.traverse_lib().urt_traverse(
+            o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n,
+            LAYOUTS.index(layout), int(any_hit), table.data_ptr(),
+            packed.tris.data_ptr(), packed.rows_per_leaf, t_out.data_ptr(),
+            slot.data_ptr(), leaf.data_ptr(), overflow.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            None if seen is None else seen[0].data_ptr(),
+            None if seen is None else seen[1].data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"urt_traverse launch failed: CUDA error "
+                               f"{err}")
+        launches[layout] += 1
+    if own_counter:
+        check_overflow(overflow, f"traversal {layout}")
+    return t_out, slot, leaf
+
+
+def epilogue(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
+             t_raw: torch.Tensor, slot: torch.Tensor, leaf: torch.Tensor):
+    """The twin's shared epilogue: leaf slot -> leaf-order row
+    (``leaf_prim``) -> MeshSet row (``prim_index``); ``t`` re-derived
+    differentiably by ``_mt_one`` on ``bvh.tri_verts``, falling back to
+    the kernel's value where the re-derivation misses on rounding; the
+    shading normal of the winner. +inf / -1 / junk on a miss."""
+    from unity_raytracer_tpu_torch.ops.bvh import _mt_one, shading_normal
+    bvh = packed.bvh
+    hit = slot >= 0
+    row = torch.where(hit, packed.leaf_prim[leaf.clamp_min(0).long(),
+                                            slot.clamp_min(0).long()], -1)
+    safe = row.clamp_min(0).long()
+    orig = torch.where(hit, bvh.prim_index[safe], -1)
+    tri = bvh.tri_verts[safe]
+    t_diff = _mt_one(o, d, tri[:, 0], tri[:, 1], tri[:, 2])
+    t_final = torch.where(hit, torch.where(torch.isfinite(t_diff), t_diff,
+                                           t_raw), torch.inf)
+    return t_final, orig.to(torch.int32), shading_normal(tri)
+
+
+def walk(layout: str, packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
+         t_max: torch.Tensor | None = None, any_hit: bool = False,
+         overflow: torch.Tensor | None = None):
+    """One traversal wrapper: ``t_max`` (default: none) turned into the
+    kernel's seed and lane cull, the walk on detached rays, then the
+    epilogue on the rays as given. Unlike the TPU wrappers it pads
+    nothing: the CUDA kernels run one thread per ray. ``overflow``: as in
+    ``walk_raw``."""
+    od = o.detach().to(torch.float32).contiguous()
+    dd = d.detach().to(torch.float32).contiguous()
+    if t_max is None:
+        tmax = torch.full((o.shape[0],), _BIG, dtype=torch.float32,
+                          device=o.device)
+    else:
+        tmax = torch.clamp_max(t_max.detach().to(torch.float32),
+                               _BIG).contiguous()
+    raw = walk_raw(layout, packed, od, dd, tmax, any_hit,
+                   overflow=overflow)
+    return epilogue(packed, o, d, *raw)
+
+
+def traverse_packet3(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
+                     t_max: torch.Tensor | None = None,
+                     any_hit: bool = False,
+                     overflow: torch.Tensor | None = None):
+    """Nearest (or any) mesh hit by the threaded-order binary walk
+    (``csrc/traverse.cu``, layout MK3) -> ``(t [N], MeshSet row [N],
+    shading normal [N,3])``, +inf / -1 / junk on a miss. ``t_max < 0``
+    culls a lane. With ``any_hit`` the first occluder closer than
+    ``t_max`` finishes the lane: ``t`` is that occluder's distance, for
+    the occlusion predicate only. ``overflow``: as in ``walk_raw``."""
+    return walk("mk3", packed, o, d, t_max, any_hit, overflow)

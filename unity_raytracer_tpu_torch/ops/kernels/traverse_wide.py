@@ -1,20 +1,23 @@
-"""Wide (BVH4/8) node rows: the host collapse ``widen`` and the stack bound.
+"""Wide (BVH4/8) node rows: the host collapse ``widen``, the stack bound, the walk.
 
-Twin: ``unity_raytracer_tpu/ops/pallas/traverse_wide.py:54,245-331``
-(``STACK`` and ``widen``; numpy code copied, since the JAX module imports
-Pallas at the top). Layout — ``wide [Nw, 8*arity] f32``, one row per wide
-node; child slot c occupies lanes [8c, 8c+8):
+Twin: ``unity_raytracer_tpu/ops/pallas/traverse_wide.py`` — ``STACK`` and
+``widen`` (``:54,245-331``; numpy code copied, since the JAX module
+imports Pallas at the top) and the ``traverse_wide`` wrapper
+(``:437-510``), whose Pallas kernel (``_kernel``, ``:334-434``,
+``pallas_call`` at ``:473``) is replaced by the ``WIDE4`` / ``WIDE8``
+instances of ``csrc/traverse.cu``; the wrapper's ``unroll`` is a Mosaic
+knob and is not ported. Layout — ``wide [Nw, 8*arity] f32``, one row per
+wide node; child slot c occupies lanes [8c, 8c+8):
 
   +0..2 box min   +3..5 box max
   +6    meta: interior -> wide row of the child; leaf -> tris row
   +7    count: 0 interior, >0 leaf triangle count, -1 absent slot
 
-The fused segment kernel (``csrc/mega_segment.cu``) walks these rows with a
-private ``STACK``-entry stack per ray; ``widen`` refuses, on the host, a
-tree deep enough to overflow it, and the kernel counts any overflow that
-would still happen so the wrapper can raise. The TPU traversal kernel of
-the JAX module (``traverse_wide``) is not part of this slice (ROADMAP
-Queue A #12).
+The fused segment kernel (``csrc/mega_segment.cu``) and the wide walk
+(``csrc/traverse.cu``) walk these rows with a private ``STACK``-entry
+stack per ray; ``widen`` refuses, on the host, a tree deep enough to
+overflow it, and the kernels count any overflow that would still happen
+so the wrappers raise.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import sys
 import numpy as np
 import torch
 
-from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import PackedBVH
+from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
+    PackedBVH, walk)
 
 # up to (arity-1) residual pushes per tree level plus arity at the
 # deepest expansion; the wide-tree depth stays far below this
@@ -114,3 +118,19 @@ def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
                 out[r, b0 + 6] = float(widx[k])
                 out[r, b0 + 7] = 0.0
     return packed.replace(wide=torch.from_numpy(out))
+
+
+def traverse_wide(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
+                  t_max: torch.Tensor | None = None, any_hit: bool = False,
+                  overflow: torch.Tensor | None = None):
+    """Wide-row twin of ``traverse_packet3`` (needs ``packed.wide``, arity
+    4 or 8): children slab-tested per wide row, hits pushed far to near.
+    Same outputs, ``t_max`` cull, ``any_hit`` mode and ``overflow``."""
+    if packed.wide is None:
+        raise ValueError("PackedBVH.wide missing — call widen() first")
+    arity = packed.wide.shape[1] // 8
+    if arity not in (4, 8):
+        raise NotImplementedError(
+            f"the CUDA wide walk has instances for arity 4 and 8, not "
+            f"{arity}")
+    return walk(f"wide{arity}", packed, o, d, t_max, any_hit, overflow)

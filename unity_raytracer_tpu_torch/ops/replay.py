@@ -49,7 +49,7 @@ from unity_raytracer_tpu_torch.ops.kernels import mega
 from unity_raytracer_tpu_torch.ops.render import (
     check_supported, resolve_mode)
 from unity_raytracer_tpu_torch.ops.shade import (
-    SHADOW_EPS, _soft_or_hard_vis, reflect_dir)
+    SHADOW_EPS, _rows, _soft_or_hard_vis, reflect_dir)
 from unity_raytracer_tpu_torch.utils.config import DiffConfig, RenderConfig
 
 # records tuple, each stacked over segments (leading dim B):
@@ -75,16 +75,6 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
 
 def _sel3(m, a, b):
     return torch.where(m[:, None], a, b)
-
-
-def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` for a small table and one index per lane. Its
-    gradient is a scatter-add either way; ``index_select``'s backward is
-    ``index_add_`` (atomics on the card), where the backward of ``table
-    [idx]`` sorts the indices and sums each table row's millions of
-    duplicates in one warp — 1.6 s for the flagship replay on an H100,
-    against milliseconds (PERF.md)."""
-    return torch.index_select(table, 0, idx)
 
 
 def _take(mats: Materials, idx: torch.Tensor) -> Materials:
@@ -118,10 +108,10 @@ def trace_records(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     ``soft=True``: shadow walks run in min mode and the records gain
     ``st [B, N, L]``, the per-light nearest occluder distance.
     """
-    # the records pass reads only the walk's configuration: the soft
-    # temperatures and chunking belong to the replay
+    # the records pass runs the fused kernel whatever cfg.kernel says; the
+    # soft temperatures and chunking belong to the replay
     cfg = resolve_mode(scene, cfg)
-    check_supported(cfg.with_(diff=DiffConfig(), ray_chunk=None), bvh)
+    check_supported(cfg.with_(diff=DiffConfig(), kernel="mega"), bvh)
     n, dev = o.shape[0], o.device
     L = scene.lights.positions.shape[0]
     B = cfg.max_bounces + 1
