@@ -8,12 +8,14 @@ From the root of a checkout, on a machine with a CUDA card, it
 1. prints the card (``nvidia-smi`` name and power limit), the PyTorch and
    CUDA versions and the ``nvcc`` path;
 2. builds the port's native libraries from the checkout's sources, one
-   compiler process per source started together (the BVH builder, the
-   fused segment kernel in every mode, the BVH walks, the brute-force
-   nearest triangle) and times the build; prints ptxas' registers, stack
-   and spill per kernel instance and fails if a fused forward instance
-   needs more than the forward-only kernel did (arity 4: 64 registers,
-   2,104-byte stack, 48 bytes of spill; arity 8: 72, 2,088, 32);
+   compiler process per library started together (the BVH builder, the
+   fused segment kernel's three libraries — BVH4 rows, BVH8 rows, binary
+   rows and the meshless fork — the BVH walks, the brute-force nearest
+   triangle) and times the build; prints ptxas' registers, stack and
+   spill per kernel instance and fails if a fused Baldwin–Weber forward
+   instance needs more than the forward-only kernel did (arity 4: 64
+   registers, 2,104-byte stack, 48 bytes of spill; arity 8: 72, 2,088,
+   32);
 3. holds the fused segment kernel against its plain PyTorch version on
    the same inputs, in its three modes — forward (a), record (b) and
    record_soft (d): every segment of the ``mesh10k`` chain at 256x256,
@@ -71,13 +73,38 @@ From the root of a checkout, on a machine with a CUDA card, it
 12. fits on the composed path (``fit`` without ``--replay``) on the card
     and on the CPU from the same start, losses and parameters at rtol
     1e-3: the ``three_spheres`` toy (48x48, 5 steps, whole image) and
-    ``mesh10k`` (32x32, 2 steps, depth 1, chunked with remat).
+    ``mesh10k`` (32x32, 2 steps, depth 1, chunked with remat);
+13. holds the fused kernel's fork mode (c) without a mesh against its
+    plain version on every level's lanes of the ``cornell_box`` 512x512
+    fused tree (delta, both children's weights and liveness on every live
+    lane, origin and direction where the child is live; at most 0.01% of
+    lanes outside rtol = atol = 5e-4), each level's launch timed alone;
+14. the fork with a mesh walk: a mesh + glass scene (tests/torch_parity's
+    small scene with cornell's glass sphere) at 256x256, depth 4, on the
+    Baldwin–Weber BVH4 route and the Möller–Trumbore BVH4 and binary
+    routes: every level's launch against the plain version, the fused
+    tree frame against the composed tree (the twin's bounds below);
+15. renders the 512x512 ``cornell_box`` frame on the fused tree
+    (``kernel='mega'``: 5 fork launches) and the composed tree: the
+    twin's bounds between them (tests/test_tree_mega.py: 99th percentile
+    of the per-pixel error < 0.02 on the 0-255 scale, and max < 1.0 on
+    all but 0.05% of the pixels: TREE_* below), 0 truncated lanes on both
+    (``trace_radiance_tree_stats``), finite and not flat; 1 warm-up + 3
+    frames each, live lanes per level, one profile each;
+16. the fused kernel's mode (e): the Möller–Trumbore instances on BVH4,
+    BVH8 and the binary layout in the three modes against the plain
+    version on phase 3's flagship slices, then the flagship 1920x1080
+    fused frame on each against the Baldwin–Weber frame (at most 0.01% of
+    pixels outside 5e-4), timed, each launch alone, its bound from the
+    counting instance.
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
 raises and the exit code is not 0. The last two lines are the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device":
-{...}}``; the line before them is the JSON record of every kernel. Without
+{...}}``; the line before them is the JSON record of every kernel (the
+fused kernel's rows: modes (a), (b), (d) on Baldwin–Weber BVH4, the fork
+(c) meshless and on BVH4, and the forward (e) instances). Without
 a CUDA card, or without the package beside this file, it exits non-zero
 and prints no result.
 """
@@ -97,6 +124,13 @@ import numpy as np
 TOL = dict(rtol=5e-4, atol=5e-4)
 RAD_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_replay.py:75
 MAX_BAD_FRACTION = 1e-4   # lanes outside TOL: FMA contraction / visit order
+# fused vs composed tree frames (tests/test_tree_mega.py:29-33, 0-255
+# scale): the 99th percentile of the per-pixel error below TREE_P99, and
+# at most TREE_OVER_FRACTION of the pixels above TREE_MAX. The twin's test
+# holds every pixel of its 24x24 frame below TREE_MAX; at 512x512 its own
+# two routes differ by up to 4.4 on deep glass paths, where a 1e-5 change
+# of a sphere normal sends a later bounce to another surface (PERF.md)
+TREE_P99, TREE_MAX, TREE_OVER_FRACTION = 0.02, 1.0, 5e-4
 SLICE = 16384
 BIG = 3.0e38
 KERNEL_SRC = "unity_raytracer_tpu_torch/csrc/mega_segment.cu"
@@ -119,6 +153,7 @@ NEAREST_REPLACES = "unity_raytracer_tpu/ops/pallas/intersect_mk.py:145"
 # tests/test_replay.py:106-108: gradient rtol, atol x max |g|
 GRAD_RTOL, GRAD_ATOL = 5e-3, 5e-4
 MODES = ("forward", "record", "record_soft")
+ALL_MODES = MODES + ("fork",)
 # ptxas' line for the forward kernel before the record modes sat beside it,
 # per BVH arity: that source built with the same command (nvcc 12.9 for
 # sm_90a), as ``python -m unity_raytracer_tpu_torch.ops.kernels.ptxas
@@ -204,15 +239,18 @@ def compare_records(got, want, torch):
 
 
 def ptxas_table(log_text):
-    """{(arity, mode, counting): {registers, stack, spill}} from nvcc's
-    -Xptxas -v output (instances named mega_segment_kernelILi<A>ELi<M>ELb<C>)."""
+    """{(layout, leaf test, mode, counting): {registers, stack, spill}}
+    from nvcc's -Xptxas -v output (instances named
+    mega_segment_kernelILi<LAYOUT>ELb<MT>ELi<MODE>ELb<C>; layout 4 or 8
+    wide rows, 1 binary, 0 meshless)."""
     from unity_raytracer_tpu_torch.ops.kernels.ptxas import entries
     out = {}
     for name, v in entries(log_text).items():
-        m = re.search(r"mega_segment_kernelILi(\d)ELi(\d)ELb(\d)E", name)
+        m = re.search(r"mega_segment_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)E",
+                      name)
         if m:
-            out[int(m.group(1)), MODES[int(m.group(2))],
-                bool(int(m.group(3)))] = v
+            out[int(m.group(1)), "mt" if m.group(2) == "1" else "bw",
+                ALL_MODES[int(m.group(3))], bool(int(m.group(4)))] = v
     return out
 
 
@@ -346,8 +384,8 @@ def check_walk(layout, packed, ins, plain, torch):
     return int(bad.sum()), int(tie.sum()), err
 
 
-def composed_phases(dev, card, failures, scene, cam, cfg, packed, fused_img,
-                    fused_live, issued, names):
+def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
+                    fused_img, fused_live, issued, names):
     """Phases 8-12 (module docstring); returns the kernels-line rows of
     the four walks and the nearest-triangle kernel."""
     import torch
@@ -363,8 +401,7 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, fused_img,
     from unity_raytracer_tpu_torch.ops.render import (
         render, render_frame, trace_radiance, trace_radiance_stats)
 
-    bvhs = {4: packed,
-            8: bvhmod.prepare_bvh(scene, cfg.with_(bvh_arity=8), dev)}
+    bvhs = {4: packed, 8: packed8}
     o, d = generate_rays_blocks(cam, cfg.block_size)
     rows = {}
 
@@ -610,6 +647,383 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, fused_img,
     return [rows[k] for k in ("mk4", "wide4", "wide8", "mk3", "nearest")]
 
 
+def capture_segments(fn):
+    """Run ``fn`` with every fused-segment launch's inputs recorded: a
+    list of (depth, (o, d, thr, tmax)) in launch order. The launches run
+    (and count) as usual."""
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    seen, seg = [], mega.trace_segment
+
+    def spy(packed, aux, depth, o, d, thr, tmax, **kw):
+        seen.append((depth, (o, d, thr, tmax)))
+        return seg(packed, aux, depth, o, d, thr, tmax, **kw)
+
+    mega.trace_segment = spy
+    try:
+        fn()
+    finally:
+        mega.trace_segment = seg
+    return seen
+
+
+def reset_mega_counts():
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    for k in mega.launches:
+        mega.launches[k] = 0
+    for k in mega.route_launches:
+        mega.route_launches[k] = 0
+
+
+def compare_fork(got, want, live, torch):
+    """(bad lanes, live lanes, max abs err) between two fork outputs on the
+    live input lanes: delta, each child's liveness and weight, and its
+    origin and direction where the plain version's child is live."""
+    close = lambda a, b: torch.isclose(a, b, **TOL).all(-1)
+    # the largest |difference| over the lanes of a mask
+    top = lambda a, b, m: float((a - b)[m].abs().max()) if bool(m.any()) \
+        else 0.0
+    bad = ~close(got[0], want[0])
+    err = top(got[0], want[0], live)
+    for base in (1, 5):
+        alive = want[base + 3] >= 0
+        bad |= ((got[base + 3] >= 0) != alive) | ~close(got[base + 2],
+                                                          want[base + 2])
+        err = max(err, top(got[base + 2], want[base + 2], live))
+        for k in (0, 1):
+            bad |= alive & ~close(got[base + k], want[base + k])
+            err = max(err, top(got[base + k], want[base + k], alive & live))
+    bad &= live
+    for i in torch.nonzero(bad).squeeze(1)[:3].tolist():
+        log(f"  fork lane {i}: " + "; ".join(
+            f"{k} {g[i].tolist()} vs {w[i].tolist()}" for k, g, w in zip(
+                ("delta", "ro", "rd", "w_refl", "tm_refl", "to", "td",
+                 "w_refr", "tm_refr"), got, want)))
+    return int(bad.sum()), int(live.sum()), float(err)
+
+
+def segment_work(packed, aux, route_kw, segs, out_bytes, route):
+    """(bytes, FP32 operations) of one launch per (depth, inputs) in
+    ``segs`` on a route: 40 B of inputs and ``out_bytes`` of outputs per
+    lane, the route's tables (node rows, leaf rows, leafmeta) and the aux
+    block once per launch with a live lane; operations from the route's
+    counting instance (its tests x OPS_PER_TEST)."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    tables = aux.numel() * 4
+    if route != "meshless":
+        table, leaf = mega._tables(packed, route)
+        tables += sum(t.numel() * 4 for t in (table, leaf, packed.leafmeta))
+    counts = torch.zeros(4, dtype=torch.int64, device=aux.device)
+    lanes = live_launches = 0
+    for depth, ins in segs:
+        mega.trace_segment(packed, aux, depth, *ins, counts=counts,
+                           **route_kw)
+        lanes += ins[0].shape[0]
+        live_launches += bool((ins[3] >= 0).any())
+    ops = sum(n * k for n, k in zip(counts.tolist(), OPS_PER_TEST))
+    return lanes * (40 + out_bytes) + tables * live_launches, ops
+
+
+def glass_mesh_scene(dev, width, height):
+    """tests/torch_parity.small_scene plus cornell_box's glass sphere
+    (ior 1.5, transparency 0.95), through its camera: a mesh + dielectric
+    scene, whose fused tree walks the mesh in every level."""
+    from unity_raytracer_tpu_torch.models import meshgen
+    from unity_raytracer_tpu_torch.models.camera import Camera
+    from unity_raytracer_tpu_torch.models.scene import (
+        SceneBuilder, make_material as mm)
+    from unity_raytracer_tpu_torch.utils.config import RenderConfig
+    b = SceneBuilder()
+    v, f = meshgen.icosphere(subdivisions=2, radius=2.0, center=(0, 2, 8))
+    b.add_mesh(v, f, mm(diffuse=(0.7, 0.5, 0.2), ambient=(0.7, 0.5, 0.2),
+                        specular=(0.6, 0.6, 0.6), phong=40.0))
+    b.add_sphere((-3, 1.5, 6), 1.5, mm(
+        diffuse=(0.1, 0.1, 0.1), ambient=(0.1, 0.1, 0.1),
+        specular=(1, 1, 1), phong=200.0, mirror=(0.9, 0.9, 0.9),
+        is_mirror=True))
+    b.add_sphere((4.5, 3.0, 9.0), 3.0, mm(
+        specular=(0.6, 0.6, 0.6), phong=300.0,
+        transparency=(0.95, 0.95, 0.95), ior=1.5, is_dielectric=True))
+    g = 30.0
+    gmat = mm(diffuse=(0.5, 0.5, 0.55), ambient=(0.5, 0.5, 0.55), phong=1.0)
+    b.add_triangle((-g, 0, -g), (g, 0, -g), (g, 0, g), gmat)
+    b.add_triangle((-g, 0, -g), (g, 0, g), (-g, 0, g), gmat)
+    b.add_point_light((5, 8, 0), 800.0)
+    b.add_point_light((-6, 7, 10), 500.0)
+    b.set_ambient((8, 8, 8))
+    cam = Camera.make(position=(0, 3, -4), forward=(0, -0.15, 1), dist=1.0,
+                      half_h=0.8, half_v=0.8, width=width, height=height,
+                      device=dev)
+    cfg = RenderConfig(max_bounces=4, background=(0.04, 0.05, 0.07),
+                       use_bvh=True, bvh_leaf=14, mode="tree", tree_cap=2)
+    return b.build(device=dev), cam, cfg
+
+
+def tree_bounds(a, b):
+    """tests/test_tree_mega.py:29-33 on two [..., 3] radiance arrays on the
+    0-255 scale: (99th percentile, max, lanes above TREE_MAX, lanes) of
+    the per-lane max error, and whether they are within TREE_P99 and
+    TREE_OVER_FRACTION."""
+    import torch
+    diff = (a - b).abs().amax(-1).flatten()
+    p99 = float(torch.quantile(diff.float(), 0.99))
+    over = int((diff > TREE_MAX).sum())
+    ok = p99 < TREE_P99 and over <= TREE_OVER_FRACTION * diff.numel()
+    return p99, float(diff.max()), over, diff.numel(), ok
+
+
+def tree_phases(dev, card, failures):
+    """Phases 13-15 (module docstring): the fork kernel against its plain
+    version on the cornell_box tree (meshless) and on a mesh + glass tree
+    (Baldwin–Weber BVH4, Möller–Trumbore BVH4 and binary), the 512x512
+    cornell frames on both tree routes. Returns the kernels-line rows of
+    the meshless and the mesh fork."""
+    import torch
+    from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.render import (
+        render, render_frame, resolve_mode, trace_radiance,
+        trace_radiance_tree_stats)
+
+    rows = {}
+    scene, cam, cfg = get_preset("cornell_box", device=dev)
+    cfg = resolve_mode(scene, cfg)
+    cfg_m = cfg.with_(kernel="mega")
+    o, d = generate_rays_blocks(cam, cfg.block_size)
+    aux = mega.build_aux(scene, cfg.background)
+    kw = dict(n_lights=scene.lights.positions.shape[0],
+              n_spheres=scene.spheres.count, n_tris=scene.triangles.count,
+              max_bounces=cfg.max_bounces, fork=True, has_mesh=False,
+              tri_isect="mt")
+
+    # ---- 13. the meshless fork against its plain version, every level
+    levels = capture_segments(lambda: trace_radiance(scene, o, d, cfg_m))
+    bad_all = lanes_all = 0
+    err = k_ms = p_ms = 0.0
+    level_ms = []
+    for depth, ins in levels:
+        got = mega.trace_segment(None, aux, depth, *ins, **kw)
+        want = mega.trace_segment_plain(None, aux, depth, *ins, **kw)
+        bad, lanes, e = compare_fork(got, want, ins[3] >= 0, torch)
+        kt = events_ms(lambda: mega.trace_segment(None, aux, depth, *ins,
+                                                  **kw), 3)
+        pt = events_ms(lambda: mega.trace_segment_plain(None, aux, depth,
+                                                        *ins, **kw), 1)
+        level_ms.append(kt)
+        bad_all, lanes_all, err = bad_all + bad, lanes_all + lanes, max(err, e)
+        k_ms, p_ms = k_ms + kt, p_ms + pt
+        log(f"cornell 512x512 fork level {depth}: {lanes} live of "
+            f"{ins[0].shape[0]}, {bad} lanes outside rtol=atol=5e-4, max "
+            f"abs err {e:.3g}; kernel {kt:.4f} ms, plain {pt:.4f} ms {card}")
+    if bad_all > MAX_BAD_FRACTION * lanes_all:
+        failures.append(f"meshless fork: {bad_all} of {lanes_all} live lanes "
+                        f"disagree with the plain version")
+    nb, ops = segment_work(None, aux, kw, levels, 92, "meshless")
+    b, by = bound(nb, ops)
+    log(f"meshless fork, {len(levels)} levels: {bad_all} of {lanes_all} "
+        f"live lanes off, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{b:.4f} ms ({by}: {nb} bytes, {ops:.6g} FP32 operations) {card}")
+    rows["meshless"] = dict(
+        name="mega_segment/fork/meshless", mode="fork", route="cuda",
+        source=KERNEL_SRC, replaces=REPLACES, max_abs_err=err, ms=k_ms,
+        plain_ms=p_ms, bound_ms=b, bound_by=by, library_ms=None,
+        level_ms=level_ms)
+
+    # ---- 15. the 512x512 cornell frame on the fused and the composed tree
+    reset_mega_counts()
+    img_f = render(scene, cam, cfg_m)
+    torch.cuda.synchronize()
+    rows["meshless"]["launches"] = mega.route_launches["fork", "meshless"]
+    if rows["meshless"]["launches"] != cfg.max_bounces + 1 or sum(
+            mega.launches.values()) != cfg.max_bounces + 1:
+        failures.append(f"fused cornell frame made {dict(mega.launches)} "
+                        f"launches")
+    img_c = render(scene, cam, cfg)
+    torch.cuda.synchronize()
+    p99, mx, over, n_px, within = tree_bounds(img_f * 255.0, img_c * 255.0)
+    trunc = [int(trace_radiance_tree_stats(scene, o, d, c)[1])
+             for c in (cfg_m, cfg)]
+    fin = bool(torch.isfinite(img_f).all() and torch.isfinite(img_c).all())
+    std = float(img_f.std())
+    f_ms = events_ms(lambda: render_frame(scene, cam, cfg_m), 3)
+    c_ms = events_ms(lambda: render_frame(scene, cam, cfg), 3)
+    live = [int((ins[3] >= 0).sum()) for _, ins in levels]
+    log(f"cornell 512x512 depth {cfg.max_bounces} tree: fused "
+        f"{f_ms:.3f} ms ({rows['meshless']['launches']} fork launches, "
+        f"{sum(level_ms):.3f} ms alone: "
+        f"{', '.join(f'{m:.3f}' for m in level_ms)}), composed {c_ms:.3f} "
+        f"ms; live lanes per level {live}; truncated lanes fused "
+        f"{trunc[0]}, composed {trunc[1]}; fused vs composed p99 {p99:.4g}, "
+        f"max {mx:.4g}, {over} of {n_px} pixels above {TREE_MAX} (0-255 "
+        f"scale); std {std:.4f} {card}")
+    if not fin or std <= 0.01 or not within or any(trunc):
+        failures.append(f"cornell frame: finite {fin}, std {std}, p99 "
+                        f"{p99}, max {mx}, {over} pixels above {TREE_MAX}, "
+                        f"truncated {trunc}")
+    rows["meshless"].update(frame_ms=f_ms, composed_frame_ms=c_ms,
+                            live_lanes=live)
+    profile_once(lambda: render_frame(scene, cam, cfg_m),
+                 "one fused cornell frame", f_ms, card)
+    profile_once(lambda: render_frame(scene, cam, cfg),
+                 "one composed cornell frame", c_ms, card)
+
+    # ---- 14. the fork with a mesh walk: a mesh + glass tree at 256x256
+    ms, mc, mcfg = glass_mesh_scene(dev, 256, 256)
+    mo, md = generate_rays_blocks(mc, mcfg.block_size)
+    maux = mega.build_aux(ms, mcfg.background)
+    ref = trace_radiance(ms, mo, md, mcfg.with_(kernel="pallas"),
+                         bvh=bvhmod.prepare_bvh(ms, mcfg.with_(
+                             kernel="pallas"), dev))
+    for route, (isect, arity) in (("bw/wide4", ("bw", 4)),
+                                  ("mt/wide4", ("mt", 4)),
+                                  ("mt/binary", ("mt", 0))):
+        c = mcfg.with_(kernel="mega", tri_isect=isect, bvh_arity=arity)
+        pk = bvhmod.prepare_bvh(ms, c, dev)
+        mkw = dict(n_lights=2, n_spheres=2, n_tris=2,
+                   max_bounces=c.max_bounces, fork=True, tri_isect=isect,
+                   use_wide=arity != 0)
+        reset_mega_counts()
+        mlevels = capture_segments(lambda: trace_radiance(ms, mo, md, c,
+                                                          bvh=pk))
+        n_launch = mega.route_launches["fork", route]
+        bad_all = lanes_all = 0
+        err = k_ms = p_ms = 0.0
+        for depth, ins in mlevels:
+            got = mega.trace_segment(pk, maux, depth, *ins, **mkw)
+            want = mega.trace_segment_plain(pk, maux, depth, *ins, **mkw)
+            bad, lanes, e = compare_fork(got, want, ins[3] >= 0, torch)
+            bad_all, lanes_all, err = bad_all + bad, lanes_all + lanes, \
+                max(err, e)
+            k_ms += events_ms(lambda: mega.trace_segment(
+                pk, maux, depth, *ins, **mkw), 3)
+            p_ms += events_ms(lambda: mega.trace_segment_plain(
+                pk, maux, depth, *ins, **mkw), 1)
+        fused = trace_radiance(ms, mo, md, c, bvh=pk)
+        p99, mx, over, _, within = tree_bounds(fused, ref)
+        log(f"mesh + glass 256x256 tree, fork on {route}: {n_launch} "
+            f"launches, {bad_all} of {lanes_all} live lanes off the plain "
+            f"version, max abs err {err:.3g}; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms; frame vs the composed tree p99 {p99:.4g}, max "
+            f"{mx:.4g}, {over} lanes above {TREE_MAX} {card}")
+        if bad_all > MAX_BAD_FRACTION * lanes_all or n_launch == 0 \
+                or not within:
+            failures.append(f"mesh fork on {route}: {bad_all} lanes off, "
+                            f"{n_launch} launches, p99 {p99}, max {mx}")
+        if route == "bw/wide4":
+            nb, ops = segment_work(pk, maux, mkw, mlevels, 92, route)
+            b, by = bound(nb, ops)
+            rows["mesh"] = dict(
+                name="mega_segment/fork/bw/wide4", mode="fork", route="cuda",
+                source=KERNEL_SRC, replaces=REPLACES, launches=n_launch,
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b,
+                bound_by=by, library_ms=None)
+            log(f"  bound {b:.4f} ms ({by}: {nb} bytes, {ops:.6g} FP32 "
+                f"operations) [H100 SXM peaks]")
+    return [rows["meshless"], rows["mesh"]]
+
+
+def mode_e_phases(dev, card, failures, scene, cam, cfg, packed4, packed8,
+                  slice_segs, fused_img, fused_ms):
+    """Phase 16 (module docstring): the Möller–Trumbore instances on BVH4,
+    BVH8 and the binary layout against the plain version on the flagship
+    slices in the three modes, then the flagship fused frame on each,
+    against the Baldwin–Weber frame. Returns their kernels-line rows."""
+    import torch
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.render import render, render_frame
+
+    packs = {"mt/wide4": (packed4, 4), "mt/wide8": (packed8, 8),
+             "mt/binary": (bvhmod.prepare_bvh(scene, cfg.with_(bvh_arity=0),
+                                              dev), 0)}
+    aux = mega.build_aux(scene, cfg.background)
+    kw = dict(n_lights=scene.lights.positions.shape[0],
+              n_spheres=scene.spheres.count, n_tris=scene.triangles.count,
+              max_bounces=cfg.max_bounces, light_cull=cfg.light_cull,
+              tri_isect="mt")
+    mode_kw = {"forward": {}, "record": dict(record=True),
+               "record_soft": dict(record_soft=True)}
+    st = {r: dict(bad=0, lanes=0, err=0.0, ms={m: 0.0 for m in MODES})
+          for r in packs}
+    plain_ms = {m: 0.0 for m in MODES}
+    for mode in MODES:
+        for depth, sl in slice_segs:
+            want = mega.trace_segment_plain(packed4, aux, depth, *sl,
+                                            **mode_kw[mode], **kw)
+            plain_ms[mode] += events_ms(lambda: mega.trace_segment_plain(
+                packed4, aux, depth, *sl, **mode_kw[mode], **kw), 1)
+            for route, (pk, _) in packs.items():
+                got = mega.trace_segment(pk, aux, depth, *sl, **mode_kw[mode],
+                                         **kw)
+                bad, lanes, e = compare(got[:5], want[:5], torch)
+                if mode != "forward":
+                    rb, re_ = compare_records(got[5], want[5], torch)
+                    bad, e = bad + rb, max(e, re_)
+                s_ = st[route]
+                s_["bad"] += bad
+                s_["lanes"] += lanes
+                s_["err"] = max(s_["err"], e)
+                s_["ms"][mode] += events_ms(lambda: mega.trace_segment(
+                    pk, aux, depth, *sl, **mode_kw[mode], **kw), 3)
+    rows = []
+    for route, (pk, arity) in packs.items():
+        s_ = st[route]
+        rkw = dict(kw, use_wide=arity != 0)
+        nb, ops = segment_work(pk, aux, rkw, slice_segs, 52, route)
+        b, by = bound(nb, ops)
+        log(f"{route} vs plain on the flagship slices: {s_['bad']} of "
+            f"{s_['lanes']} lanes off (forward, record, record_soft), max "
+            f"abs err {s_['err']:.3g}; kernel "
+            + ", ".join(f"{m} {v:.4f} ms" for m, v in s_["ms"].items())
+            + f"; plain " + ", ".join(f"{m} {v:.3f} ms"
+                                      for m, v in plain_ms.items())
+            + f"; forward bound {b:.4f} ms ({by}: {nb} bytes, {ops:.6g} FP32 "
+            f"operations) {card}")
+        if s_["bad"] > MAX_BAD_FRACTION * s_["lanes"]:
+            failures.append(f"{route}: {s_['bad']} of {s_['lanes']} slice "
+                            f"lanes disagree with the plain version")
+        # the flagship frame on this route: the main path of the row
+        fcfg = cfg.with_(kernel="mega", tri_isect="mt", bvh_arity=arity)
+        reset_mega_counts()
+        img = render(scene, cam, fcfg, bvh=pk)
+        torch.cuda.synchronize()
+        n_launch = mega.route_launches["forward", route]
+        segs = capture_segments(lambda: render(scene, cam, fcfg, bvh=pk))
+        bad_px = int((~torch.isclose(img, fused_img, **TOL).all(-1)).sum())
+        f_ms = events_ms(lambda: render_frame(scene, cam, fcfg, pk), 3)
+        ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+        seg_ms = [events_ms(lambda: mega.trace_segment(
+            pk, aux, depth, *ins, overflow=ovf, **rkw), 3)
+            for depth, ins in segs]
+        mega.check_overflow(ovf)
+        fnb, fops = segment_work(pk, aux, rkw, segs, 52, route)
+        fb, fby = bound(fnb, fops)
+        log(f"mesh100k 1920x1080 fused frame on {route}: {n_launch} "
+            f"launches, {f_ms:.3f} ms (the Baldwin-Weber frame "
+            f"{fused_ms:.3f} ms); its launches alone "
+            f"{', '.join(f'{m:.3f}' for m in seg_ms)} ms, bound "
+            f"{fb:.4f} ms ({fby}); vs the Baldwin-Weber frame {bad_px} of "
+            f"{img.shape[0] * img.shape[1]} pixels outside rtol=atol=5e-4, "
+            f"max abs err {float((img - fused_img).abs().max()):.3g} {card}")
+        if n_launch != cfg.max_bounces + 1 or not bool(
+                torch.isfinite(img).all()) or bad_px > MAX_BAD_FRACTION * \
+                img.shape[0] * img.shape[1]:
+            failures.append(f"{route} flagship frame: {n_launch} launches, "
+                            f"{bad_px} pixels off the Baldwin-Weber frame")
+        rows.append(dict(
+            name=f"mega_segment/forward/{route}", mode="forward",
+            route="cuda", source=KERNEL_SRC, replaces=REPLACES,
+            launches=n_launch, max_abs_err=s_["err"],
+            ms=s_["ms"]["forward"], plain_ms=plain_ms["forward"],
+            bound_ms=b, bound_by=by, library_ms=None,
+            record_ms=s_["ms"]["record"],
+            record_soft_ms=s_["ms"]["record_soft"], frame_ms=sum(seg_ms),
+            frame_bound_ms=fb, frame_bound_by=fby, fused_frame_ms=f_ms))
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -636,9 +1050,10 @@ def main():
 
     # ---- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _lib.build_all()   # one compiler process per source, together
+    libs = _lib.build_all()   # one compiler process per library, together
     build_s = time.perf_counter() - t0
-    lib_mega = libs["mega"]
+    mega_log = "".join(libs[f"mega_{g}"].build["log"]
+                       for g in _lib.MEGA_GROUPS)
     log(f"build: {build_s:.3f} s wall, all at once ("
         + ", ".join(f"{k} {v.build['seconds']:.3f} s"
                     for k, v in libs.items()) + f") {card}")
@@ -653,13 +1068,15 @@ def main():
             log(f"  ptxas: {what}: {v.get('registers')} registers, "
                 f"{v.get('stack')} bytes stack, {v.get('spill')} bytes "
                 f"spill")
-    ptx = ptxas_table(lib_mega.build["log"])
-    for (arity, mode, counting), v in sorted(ptx.items()):
-        log(f"  ptxas: arity {arity} {mode}{' counting' if counting else ''}"
-            f": {v.get('registers')} registers, {v.get('stack')} bytes "
-            f"stack, {v.get('spill')} bytes spill")
-    fwd = {a: ptx.get((a, "forward", False), {}) for a in FORWARD_PTXAS}
-    ptxas_worse = bool(lib_mega.build["log"]) and any(
+    ptx = ptxas_table(mega_log)
+    layouts = {0: "meshless", 1: "binary", 4: "wide4", 8: "wide8"}
+    for (layout, isect, mode, counting), v in sorted(ptx.items()):
+        log(f"  ptxas: {isect}/{layouts[layout]} {mode}"
+            f"{' counting' if counting else ''}: {v.get('registers')} "
+            f"registers, {v.get('stack')} bytes stack, {v.get('spill')} "
+            f"bytes spill")
+    fwd = {a: ptx.get((a, "bw", "forward", False), {}) for a in FORWARD_PTXAS}
+    ptxas_worse = bool(mega_log) and any(
         fwd[a].get(k, 1 << 30) > v for a, line in FORWARD_PTXAS.items()
         for k, v in line.items())
 
@@ -1053,8 +1470,13 @@ def main():
         failures.append("mesh10k fwd+bwd on the card disagrees with the CPU")
     # ---- the composed path: phases 8-12 --------------------------------------
     fused_live = [int((ins[3] >= 0).sum()) for _, ins in frame_segs]
+    packed8 = bvhmod.prepare_bvh(scene, cfg.with_(bvh_arity=8), dev)
     walk_rows = composed_phases(dev, card, failures, scene, cam, cfg, packed,
-                                fused_img, fused_live, issued, names)
+                                packed8, fused_img, fused_live, issued, names)
+    # ---- the tree and mode (e): phases 13-16 ---------------------------------
+    new_rows = tree_phases(dev, card, failures)
+    new_rows += mode_e_phases(dev, card, failures, scene, cam, cfg, packed,
+                              packed8, slice_segs, fused_img, frame_ms)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -1074,7 +1496,7 @@ def main():
             "bound_by": by, "library_ms": None,
             "frame_ms": sum(seg_ms[mode]), "frame_bound_ms": fb,
             "frame_bound_by": fby})
-    print(json.dumps({"kernels": kernels + walk_rows}))
+    print(json.dumps({"kernels": kernels + walk_rows + new_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

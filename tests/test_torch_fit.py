@@ -142,23 +142,33 @@ def test_checkpoint_resume_equals_uninterrupted(port, tmp_path):
                                    rtol=0, atol=0)
 
 
-def test_composed_path_raises():
-    """The composed path runs now; what it still lacks raises, naming the
-    ROADMAP item: the dielectric tree (cornell_box), in both steps."""
+def test_composed_tree_fit_step():
+    """The composed path's two steps run the dielectric tree
+    (cornell_box): the whole-image loss and the chunked step give the
+    same finite loss and gradients (the same sum, chunked)."""
     from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
     from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.utils.swizzle import swizzle_image
     scene, cam, cfg = get_preset("cornell_box", width=8, height=8,
                                  device="cpu")
-    params = t_fit.get_params(scene, NAMES)
-    loss_fn = t_fit.make_loss_fn(scene, cam, cfg,
-                                 torch.zeros((8, 8, 3)))
-    with pytest.raises(NotImplementedError, match="#8 in ROADMAP"):
-        loss_fn(params)
+    target = torch.full((8, 8, 3), 0.2)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in t_fit.get_params(scene, NAMES).items()}
+    loss = t_fit.make_loss_fn(scene, cam, cfg, target)(leaves)
+    loss.backward()
     o, d = generate_rays_blocks(cam, cfg.block_size)
-    vg = t_fit.make_chunked_value_and_grad(scene, cfg, o, d,
-                                           torch.zeros_like(o), chunk=32)
-    with pytest.raises(NotImplementedError, match="#8 in ROADMAP"):
-        vg(params)
+    tgt = swizzle_image(target, cfg.block_size) * 255.0
+    w = swizzle_image(torch.ones((8, 8, 1)), cfg.block_size)[:, 0]
+    vg = t_fit.make_chunked_value_and_grad(scene, cfg, o, d, tgt, chunk=32,
+                                           weights=w)
+    l_c, g_c = vg(t_fit.get_params(scene, NAMES))
+    np.testing.assert_allclose(float(l_c) / 255.0 ** 2, float(loss.detach()),
+                               rtol=1e-5)
+    for k in NAMES:
+        g = leaves[k].grad
+        assert torch.isfinite(g).all() and g.abs().max() > 0, k
+        np.testing.assert_allclose(g_c[k].numpy() / 255.0 ** 2, g.numpy(),
+                                   rtol=1e-4, atol=1e-9, err_msg=k)
 
 
 def test_composed_fit_matches_jax():
@@ -233,10 +243,12 @@ def test_cli_fit_prints_json(tmp_path):
     _cli_fit(tmp_path, "--preset", "mesh10k", "--replay")
 
 
-@pytest.mark.parametrize("preset", ["three_spheres", "mesh10k"])
+@pytest.mark.parametrize("preset", ["three_spheres", "mesh10k",
+                                    "cornell_box"])
 def test_cli_fit_composed_prints_json(tmp_path, preset):
-    """Without --replay: the composed toy (the default preset) and the
-    composed chunked/remat fit of a BVH preset."""
+    """Without --replay: the composed toy (the default preset), the
+    composed chunked/remat fit of a BVH preset, and of the dielectric
+    tree."""
     _cli_fit(tmp_path, "--preset", preset)
 
 
@@ -252,15 +264,14 @@ def _cli_fit(tmp_path, *args):
 
 
 @pytest.mark.parametrize("args", [
-    ("--preset", "cornell_box", "--replay"),
-    ("--preset", "cornell_box")])
+    ("--preset", "cornell_box", "--replay")])
 def test_cli_fit_off_slice_raises(args):
-    """Off the ported routes (the dielectric tree) the CLI fails naming
-    the ROADMAP item, with or without --replay."""
+    """The record-replay fit needs the mirror chain: on the dielectric
+    tree the CLI fails with the twin's ValueError (fit.py:242-245)."""
     proc = _cli("fit", *args, "--size", "8", "--steps", "1", "--device",
                 "cpu")
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "#8" in proc.stderr
+    assert "ValueError" in proc.stderr and "mode='scan'" in proc.stderr
 
 
 def test_cli_without_card_refuses():

@@ -5,7 +5,10 @@ is held against the JAX ``trace_segment`` run in the Pallas interpreter
 on the same packed arrays, converted with ``packed_from_arrays``, on a
 seeded numpy ray batch with dead lanes — in the forward mode and in the
 record modes, whose hit records are compared with
-``torch_parity.record_bad_lanes`` (matid and occbits exactly). Tolerance
+``torch_parity.record_bad_lanes`` (matid and occbits exactly) — on the
+Baldwin–Weber BVH4 route and on the two routes of mode (e): the
+Möller–Trumbore leaf test on BVH4 rows and on the binary layout
+(``bvh_arity=0``). Tolerance
 rtol = atol = 5e-4 on the 0-255 outputs — the one tests/test_mega.py:211
 holds the JAX 'bw' kernel to. A continuing lane must continue on both sides; its ray state
 is compared where it continues. Where a lane does not continue, the two
@@ -16,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (BIG, cuda, record_bad_lanes, segment_rays,
-                          small_scene)
+from torch_parity import (BIG, LAYOUTS, cuda, record_bad_lanes,
+                          segment_rays, small_scene)
 from unity_raytracer_tpu_torch.models import meshgen as t_meshgen
 from unity_raytracer_tpu_torch.models import scene as t_scene
 from unity_raytracer_tpu_torch.models.convert import packed_from_arrays
@@ -49,6 +52,15 @@ def port_side():
         scene, CFG.background)
 
 
+@pytest.fixture(scope="module")
+def port_layouts(port_side):
+    """{layout: (scene, packed, aux, leaf-test and layout kwargs)}."""
+    scene, _, aux = port_side
+    return {k: (scene, t_bvh.prepare_bvh(scene, CFG.with_(bvh_arity=v[
+        "bvh_arity"])), aux, dict(tri_isect=v["tri_isect"]))
+        for k, v in LAYOUTS.items()}
+
+
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -66,31 +78,42 @@ def _check(got, want, note=""):
                                    **TOL)
 
 
-@pytest.mark.parametrize("depth,light_cull", [(0, 0.0),
-                                              (MAX_BOUNCES, 2.0)])
-def test_plain_matches_jax_segment(depth, light_cull):
+@pytest.mark.parametrize(
+    "depth,light_cull,layout",
+    [(0, 0.0, "bw4"), (MAX_BOUNCES, 2.0, "bw4"), (0, 0.0, "mt4"),
+     (MAX_BOUNCES, 2.0, "mt4"), (0, 0.0, "binary"),
+     (MAX_BOUNCES, 2.0, "binary")],
+    ids=["0-0.0", "2-2.0", "0-0.0-mt4", "2-2.0-mt4", "0-0.0-binary",
+         "2-2.0-binary"])
+def test_plain_matches_jax_segment(depth, light_cull, layout):
+    """Mode (a) on each route: the JAX kernel in the interpreter walks the
+    route's layout with its leaf test; the plain version tests every leaf
+    slot of ``tris_bw`` ('bw') or ``tris`` ('mt')."""
     import jax
     import jax.numpy as jnp
     from unity_raytracer_tpu.models import meshgen, scene as j_scene
     from unity_raytracer_tpu.ops import bvh as j_bvh
     from unity_raytracer_tpu.ops.pallas import mega as j_mega
 
+    lay = LAYOUTS[layout]
     js = small_scene(j_scene, meshgen)
-    jp = j_bvh.prepare_bvh(js, CFG.with_(kernel="mega"))
+    jp = j_bvh.prepare_bvh(js, CFG.with_(kernel="mega", **lay))
     jaux = j_mega.build_aux(js, CFG.background)
     o, d, thr, tmax = segment_rays(N_RAYS, seed=10 + depth)
     want = j_mega.trace_segment(
         jp, jaux, depth, jnp.asarray(o), jnp.asarray(d), jnp.asarray(thr),
-        jnp.asarray(tmax), interpret=True, tile_r=N_RAYS, use_wide=True,
-        fuse_shadows=False, tri_isect="bw", occ_mode="pack",
-        stale_prune=False, **_kw(js, light_cull))
+        jnp.asarray(tmax), interpret=True, tile_r=N_RAYS,
+        use_wide=lay["bvh_arity"] != 0, fuse_shadows=False,
+        tri_isect=lay["tri_isect"], occ_mode="pack", stale_prune=False,
+        **_kw(js, light_cull))
 
     packed = packed_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
+    assert (packed.wide is None) == (lay["bvh_arity"] == 0)
     aux = torch.from_numpy(np.array(jaux))
     got = mega.trace_segment_plain(
         packed, aux, depth, torch.from_numpy(o), torch.from_numpy(d),
         torch.from_numpy(thr), torch.from_numpy(tmax),
-        **_kw(js, light_cull))
+        tri_isect=lay["tri_isect"], **_kw(js, light_cull))
     _check(got, want)
     delta = got[0].numpy()
     # the batch must exercise hits, misses, shadows and dead lanes
@@ -127,18 +150,25 @@ def test_dead_lanes_pass_through(port_side):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth,light_cull", [(0, 0.0),
-                                              (MAX_BOUNCES, 2.0)])
-def test_kernel_matches_plain_on_card(cuda, port_side, depth, light_cull):
-    scene, packed, aux = port_side
+@pytest.mark.parametrize(
+    "depth,light_cull,layout",
+    [(0, 0.0, "bw4"), (MAX_BOUNCES, 2.0, "bw4"), (0, 0.0, "mt4"),
+     (MAX_BOUNCES, 2.0, "mt4"), (0, 0.0, "binary"),
+     (MAX_BOUNCES, 2.0, "binary")],
+    ids=["0-0.0", "2-2.0", "0-0.0-mt4", "2-2.0-mt4", "0-0.0-binary",
+         "2-2.0-binary"])
+def test_kernel_matches_plain_on_card(cuda, port_layouts, depth, light_cull,
+                                      layout):
+    scene, packed, aux, lay = port_layouts[layout]
     packed, aux = packed.to(cuda), aux.to(cuda)
     rays = [torch.from_numpy(x).to(cuda)
             for x in segment_rays(4096, 20 + depth)]
-    kw = _kw(scene, light_cull)
-    before = mega.launches["forward"]
+    kw = dict(_kw(scene, light_cull), **lay)
+    route = mega.segment_route(packed, lay["tri_isect"])
+    before = mega.route_launches["forward", route]
     got = mega.trace_segment(packed, aux, depth, *rays, **kw)
     torch.cuda.synchronize()
-    assert mega.launches["forward"] == before + 1
+    assert mega.route_launches["forward", route] == before + 1
     want = mega.trace_segment_plain(packed, aux, depth, *rays, **kw)
     # FMA contraction on the card can flip a silhouette-edge hit: allow
     # one lane of the 4096 (the chip smoke allows 0.01% of a frame)
@@ -150,37 +180,45 @@ def test_kernel_matches_plain_on_card(cuda, port_side, depth, light_cull):
     assert bad.sum() <= 1, np.nonzero(bad)
 
 
-def _jax_segment(depth, light_cull, soft, seed=None):
+def _jax_segment(depth, light_cull, soft, seed=None, layout="bw4"):
     import jax.numpy as jnp
     from unity_raytracer_tpu.models import meshgen, scene as j_scene
     from unity_raytracer_tpu.ops import bvh as j_bvh
     from unity_raytracer_tpu.ops.pallas import mega as j_mega
 
+    lay = LAYOUTS[layout]
     js = small_scene(j_scene, meshgen)
-    jp = j_bvh.prepare_bvh(js, CFG.with_(kernel="mega"))
+    jp = j_bvh.prepare_bvh(js, CFG.with_(kernel="mega", **lay))
     jaux = j_mega.build_aux(js, CFG.background)
     rays = segment_rays(N_RAYS, seed=10 + depth if seed is None else seed)
     want = j_mega.trace_segment(
         jp, jaux, depth, *(jnp.asarray(x) for x in rays), interpret=True,
-        tile_r=N_RAYS, use_wide=True, fuse_shadows=False, tri_isect="bw",
-        occ_mode="pack", stale_prune=False, record=True, record_soft=soft,
-        **_kw(js, light_cull))
+        tile_r=N_RAYS, use_wide=lay["bvh_arity"] != 0, fuse_shadows=False,
+        tri_isect=lay["tri_isect"], occ_mode="pack", stale_prune=False,
+        record=True, record_soft=soft, **_kw(js, light_cull))
     return rays, want
 
 
-@pytest.mark.parametrize("soft", [False, True])
-@pytest.mark.parametrize("depth,light_cull", [(0, 0.0),
-                                              (MAX_BOUNCES, 2.0)])
-def test_plain_records_match_jax_segment(port_side, depth, light_cull,
-                                         soft):
+@pytest.mark.parametrize(
+    "depth,light_cull,soft,layout",
+    [(0, 0.0, False, "bw4"), (0, 0.0, True, "bw4"),
+     (MAX_BOUNCES, 2.0, False, "bw4"), (MAX_BOUNCES, 2.0, True, "bw4"),
+     (0, 0.0, False, "mt4"), (MAX_BOUNCES, 2.0, True, "mt4"),
+     (MAX_BOUNCES, 2.0, False, "binary"), (0, 0.0, True, "binary")],
+    ids=["0-0.0-False", "0-0.0-True", "2-2.0-False", "2-2.0-True",
+         "0-0.0-False-mt4", "2-2.0-True-mt4", "2-2.0-False-binary",
+         "0-0.0-True-binary"])
+def test_plain_records_match_jax_segment(port_layouts, depth, light_cull,
+                                         soft, layout):
     """Modes (b) record and (d) record_soft: the plain version's base
     outputs and hit records against the JAX kernel in the interpreter,
-    on a batch with dead lanes, with and without the light_cull gate."""
-    rays, want = _jax_segment(depth, light_cull, soft)
-    scene, packed, aux = port_side
+    on a batch with dead lanes, with and without the light_cull gate, on
+    the Baldwin–Weber BVH4 route and the two routes of mode (e)."""
+    rays, want = _jax_segment(depth, light_cull, soft, layout=layout)
+    scene, packed, aux, lay = port_layouts[layout]
     got = mega.trace_segment_plain(
         packed, aux, depth, *(torch.from_numpy(x) for x in rays),
-        record=not soft, record_soft=soft, **_kw(scene, light_cull))
+        record=not soft, record_soft=soft, **lay, **_kw(scene, light_cull))
     _check(got[:5], want[:5])
     assert len(got[5]) == len(want[5]) == (5 if soft else 4)
     bad = record_bad_lanes(got[5], want[5])
@@ -332,15 +370,16 @@ def test_ptxas_entries_parse():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bw4", "mt4", "binary"])
 @pytest.mark.parametrize("soft", [False, True])
 @pytest.mark.parametrize("depth,light_cull", [(0, 0.0), (MAX_BOUNCES, 2.0)])
-def test_record_kernels_match_plain_on_card(cuda, port_side, depth,
-                                            light_cull, soft):
-    scene, packed, aux = port_side
+def test_record_kernels_match_plain_on_card(cuda, port_layouts, depth,
+                                            light_cull, soft, layout):
+    scene, packed, aux, lay = port_layouts[layout]
     packed, aux = packed.to(cuda), aux.to(cuda)
     rays = [torch.from_numpy(x).to(cuda)
             for x in segment_rays(4096, 50 + depth)]
-    kw = _kw(scene, light_cull)
+    kw = dict(_kw(scene, light_cull), **lay)
     mode = "record_soft" if soft else "record"
     before = mega.launches[mode]
     got = mega.trace_segment(packed, aux, depth, *rays, record=True,

@@ -84,21 +84,58 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(mode="tree"), "#8"),
-    (dict(kernel="mega", mode="tree"), "#8"),
     (dict(ray_chunk=64), "#14"),
     (dict(kernel="xla", ray_chunk=16), "#14"),
-    (dict(kernel="mega", bvh_presplit=0.3), "#14"),
-    (dict(kernel="mega", tri_isect="mt"), "#12"),
-    (dict(kernel="mega", bvh_arity=0), "#12")])
+    (dict(kernel="mega", bvh_presplit=0.3), "#14")],
+    ids=["change2-#14", "change3-#14", "change4-#14"])
 def test_off_slice_configs_raise(change, item):
-    """What is still not ported raises, naming its ROADMAP item: the
-    dielectric tree, chunked frames and SBVH presplitting, and the fused
-    kernel's Möller–Trumbore leaf test and binary layout (mode e)."""
+    """What is still not ported raises, naming its ROADMAP item: chunked
+    frames and SBVH presplitting."""
     ts = small_scene(t_scene, t_meshgen, device="cpu")
     tc = Camera.make(width=8, height=8, device="cpu", **CAMERA)
     with pytest.raises(NotImplementedError, match=f"{item} in ROADMAP"):
         render(ts, tc, CFG.with_(**change))
+
+
+@pytest.fixture(scope="module")
+def jax_composed_8x8():
+    from unity_raytracer_tpu.models import camera, meshgen, scene
+    from unity_raytracer_tpu.ops.render import render as j_render
+    return np.asarray(j_render(
+        small_scene(scene, meshgen),
+        camera.Camera.make(width=8, height=8, **CAMERA),
+        CFG.with_(kernel="xla", use_bvh=False)))
+
+
+@pytest.mark.parametrize("change,route", [
+    (dict(mode="tree"), "_trace_tree"),
+    (dict(kernel="mega", mode="tree"), "_trace_tree_mega"),
+    (dict(kernel="mega", tri_isect="mt"), "mt/wide4"),
+    (dict(kernel="mega", tri_isect="mt", bvh_arity=0), "mt/binary")])
+def test_tree_and_mode_e_configs_render(monkeypatch, jax_composed_8x8,
+                                        change, route):
+    """Configs that raised before the tree and the fused kernel's mode (e)
+    were ported render now, on their route, within the fused kernel's
+    tolerance of the JAX composed image: the tree (composed and fused) on
+    this mirror-only scene is the chain; Möller–Trumbore on BVH4 rows and
+    the binary layout (``bvh_arity=0``) on the fused kernel."""
+    from unity_raytracer_tpu_torch.ops import render as t_render
+    seen = []
+    if route.startswith("_"):
+        fn = getattr(t_render, route)
+        monkeypatch.setattr(t_render, route, lambda *a, **k: (
+            seen.append(route), fn(*a, **k))[1])
+    else:
+        plain = mega.trace_segment_plain
+        monkeypatch.setattr(mega, "trace_segment_plain", lambda *a, **k: (
+            seen.append(mega.segment_route(
+                a[0], k["tri_isect"], k["use_wide"], k["has_mesh"])),
+            plain(*a, **k))[1])
+    got = render(small_scene(t_scene, t_meshgen, device="cpu"),
+                 Camera.make(width=8, height=8, device="cpu", **CAMERA),
+                 CFG.with_(**change)).numpy()
+    assert seen and set(seen) == {route}
+    np.testing.assert_allclose(got, jax_composed_8x8, **TOL)
 
 
 @pytest.mark.parametrize("change", [
@@ -121,14 +158,28 @@ def test_composed_configs_render(change):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def test_bw_needs_the_wide_layout():
+    """Baldwin–Weber records ride the wide walks only: the fused kernel
+    on the binary layout refuses them, as the twin's trace_segment does
+    (mega.py:1384-1386)."""
+    with pytest.raises(ValueError, match="wide walks only"):
+        render(small_scene(t_scene, t_meshgen, device="cpu"),
+               Camera.make(width=8, height=8, device="cpu", **CAMERA),
+               CFG.with_(kernel="mega", bvh_arity=0))
+
+
 @pytest.mark.parametrize("name", ["cornell_box"])
-def test_off_slice_presets_raise(name):
-    """Of the presets only the dielectric cornell_box (the tree, #8) is
-    off the ported routes; the meshless ones render (test_torch_composed
-    holds them to the oracle goldens)."""
+def test_tree_preset_renders_like_jax(name):
+    """The dielectric cornell_box renders on the composed tree, as JAX's
+    (the other meshless presets: test_torch_composed's goldens), at the
+    fused kernel's tolerance."""
+    from unity_raytracer_tpu.models.presets import get_preset as j_preset
+    from unity_raytracer_tpu.ops.render import render as j_render
     scene, cam, cfg = get_preset(name, width=8, height=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="#8 in ROADMAP"):
-        render(scene, cam, cfg)
+    got = render(scene, cam, cfg).numpy()
+    want = np.asarray(j_render(*j_preset(name, width=8, height=8)))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert want.std() > 0.01
 
 
 def test_cli_render_writes_png(tmp_path):
@@ -161,6 +212,30 @@ def test_cli_render_kernel_route(tmp_path, monkeypatch, kernel, fused):
     assert len(calls) == int(fused)
     img = np.load(out)
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+
+
+@pytest.mark.parametrize("kernel,fused", [(None, False), ("mega", True)])
+def test_cli_render_cornell_routes(tmp_path, monkeypatch, kernel, fused):
+    """``render --preset cornell_box`` renders the dielectric tree: the
+    composed tree by default, the fused fork kernel with ``--kernel
+    mega``."""
+    from unity_raytracer_tpu_torch import __main__ as cli
+    from unity_raytracer_tpu_torch.ops import render as t_render
+    calls = []
+    fused_tree = t_render._trace_tree_mega
+    monkeypatch.setattr(t_render, "_trace_tree_mega", lambda *a, **k: (
+        calls.append(1), fused_tree(*a, **k))[1])
+    out = tmp_path / "c.npy"
+    argv = ["unity_raytracer_tpu_torch", "render", "--preset",
+            "cornell_box", "--width", "8", "--height", "8", "--device",
+            "cpu", "--out", str(out)]
+    monkeypatch.setattr(sys, "argv",
+                        argv + (["--kernel", kernel] if kernel else []))
+    cli.main()
+    assert len(calls) == int(fused)
+    img = np.load(out)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all() \
+        and img.std() > 0.01
 
 
 @pytest.mark.gpu

@@ -1,9 +1,10 @@
 """Frozen JAX references for the port's replay and fit parity tests.
 
-    python tests/torch_goldens.py [replay] [fit] [composed]
+    python tests/torch_goldens.py [replay] [fit] [composed] [tree]
 
-rewrites (all three, or the ones named) ``tests/goldens/torch/replay.npz``, ``fit.npz`` and
-``composed.npz`` from the JAX package. The first two are on
+rewrites (all four, or the ones named) ``tests/goldens/torch/replay.npz``,
+``fit.npz``, ``composed.npz`` and ``tree.npz`` from the JAX package. The
+first two are on
 tests/test_replay.py's scene (``torch_parity.replay_scene``) at 16x16
 through ``torch_parity.CAMERA``:
 
@@ -22,11 +23,18 @@ through ``torch_parity.CAMERA``:
   bounces, the specular probe, and test_grad_chunked.py's soft 24x24
   loss — and on test_mesh_grad.py's mesh-vertex scene (``bind_verts``);
   and a 3-step composed JAX ``fit`` of the CLI's ``three_spheres`` toy
-  from ``fit_toy_inputs``' seeded start.
+  from ``fit_toy_inputs``' seeded start;
+* ``tree.npz``: the dielectric tree on ``cornell_box`` — JAX ``render``
+  at 24x24 (the composed ``_trace_tree``) and its ``n_truncated``; the
+  twin's fused tree (``_trace_tree_mega``, Pallas interpreter) at 24x24
+  for depths 1, 2 and 4; ``trace_radiance_tree_stats`` on
+  ``truncating_tree`` (the count of live lanes ``tree_cap=1`` drops); and
+  eager ``jax.grad`` of the mean 12x12 image for ``TREE_NAMES``.
 
-Computing these live costs ~80 s (replay, fit) and ~95 s (composed) of
-CPU per test run, so tests/test_torch_replay.py, tests/test_torch_fit.py
-and tests/test_torch_grad.py load them. The constants below are those
+Computing these live costs ~80 s (replay, fit), ~95 s (composed) and
+~100 s (tree) of CPU per test run, so tests/test_torch_replay.py,
+tests/test_torch_fit.py, tests/test_torch_grad.py and
+tests/test_torch_tree.py load them. The constants below are those
 tests' recipe: change one, rerun the script. Nothing here imports JAX
 until the script runs.
 """
@@ -72,6 +80,14 @@ MESH_CFG = RenderConfig(max_bounces=1, background=(0.04, 0.05, 0.07),
                         use_bvh=True, mode="scan", kernel="xla",
                         block_size=8, bvh_pad=0.2)
 TOY_SIZE = 16
+# the tree (cornell_box): image size, the fused tree's depths, the
+# gradient's image size and classes, tests/test_tree_mega.py's lane order
+TREE_SIZE = 24
+TREE_DEPTHS = (1, 2, 4)
+TREE_GRAD_SIZE = 12
+TREE_NAMES = ("sphere_centers", "sphere_diffuse", "light_intensities")
+TREE_BLOCK = dict(block_size=8, tile_r=64)
+TRUNC_SIZE = 16
 TOY_FCFG = dict(param_names=FIT_NAMES, learning_rate=0.02,
                 soft_shadow_temp=1.0, soft_hit_temp=0.1, log_every=0)
 
@@ -157,6 +173,69 @@ def fit_toy_inputs(pkg: str = "torch"):
             "sphere_diffuse": np.clip(kd + rng.uniform(-0.2, 0.2, kd.shape)
                                       .astype(np.float32), 0.0, 1.0)}
     return scene, cam, cfg, target, init
+
+
+def truncating_tree(pkg: str):
+    """``(scene, cam, cfg)``: ``cornell_box`` at ``TRUNC_SIZE`` with its
+    glass sphere grown to fill most of the view, from package ``pkg``
+    ('jax' or 'torch', on the CPU): most primary rays fork into two live
+    children, more than ``tree_cap=1`` keeps (~360 live lanes for 256
+    rays)."""
+    import importlib
+    root = "unity_raytracer_tpu" if pkg == "jax" else \
+        "unity_raytracer_tpu_torch"
+    presets = importlib.import_module(f"{root}.models.presets")
+    fit = importlib.import_module(f"{root}.fit")
+    kw = {} if pkg == "jax" else dict(device="cpu")
+    scene, cam, cfg = presets.cornell_box(width=TRUNC_SIZE,
+                                          height=TRUNC_SIZE, **kw)
+    c = np.array([[-4.0, 4.0, 13.0], [0.0, 10.0, 6.0]], np.float32)
+    r2 = np.array([16.0, 49.0], np.float32)
+    conv = (lambda x: x) if pkg == "jax" else torch.from_numpy
+    scene = fit.set_params(scene, {"sphere_centers": conv(c),
+                                   "sphere_radius_sq": conv(r2)})
+    # one block per frame: no pad lanes, so the cap is 1 x the pixels
+    return scene, cam, cfg.with_(block_size=TRUNC_SIZE)
+
+
+def _tree_arrays() -> dict:
+    import jax
+    import jax.numpy as jnp
+    from unity_raytracer_tpu import fit as j_fit
+    from unity_raytracer_tpu.models.camera import generate_rays_blocks
+    from unity_raytracer_tpu.models.presets import cornell_box
+    from unity_raytracer_tpu.ops.render import (
+        render, trace_radiance, trace_radiance_tree_stats)
+
+    out = {}
+    scene, cam, cfg = cornell_box(width=TREE_SIZE, height=TREE_SIZE)
+    out["render"] = np.asarray(render(scene, cam, cfg))
+    tcfg = cfg.with_(mode="tree", **TREE_BLOCK)
+    o, d = generate_rays_blocks(cam, tcfg.block_size)
+    for depth in TREE_DEPTHS:
+        c = tcfg.with_(max_bounces=depth)
+        _, trunc = trace_radiance_tree_stats(scene, o, d, c)
+        out[f"composed_truncated/{depth}"] = np.asarray(trunc)
+        out[f"fused/{depth}"] = np.asarray(trace_radiance(
+            scene, o, d, c.with_(kernel="mega"), bvh=None))
+    ts, tc, tcfg = truncating_tree("jax")
+    to, td = generate_rays_blocks(tc, tcfg.block_size)
+    rad, trunc = trace_radiance_tree_stats(ts, to, td,
+                                           tcfg.with_(mode="tree"))
+    out["trunc/rad"] = np.asarray(rad)
+    out["trunc/count"] = np.asarray(trunc)
+    gs, gc, gcfg = cornell_box(width=TREE_GRAD_SIZE, height=TREE_GRAD_SIZE)
+
+    def loss(p):
+        return jnp.mean(render(j_fit.set_params(gs, p), gc, gcfg))
+
+    with jax.disable_jit():  # eager: the port follows its op order
+        val, grads = jax.value_and_grad(loss)(j_fit.get_params(gs,
+                                                               TREE_NAMES))
+    out["grad/loss"] = np.asarray(val)
+    for k, g in grads.items():
+        out[f"grad/{k}"] = np.asarray(g)
+    return out
 
 
 def _composed_arrays() -> dict:
@@ -310,9 +389,9 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
     GOLDEN_DIR.mkdir(parents=True, exist_ok=True)
-    which = sys.argv[1:] or ["replay", "fit", "composed"]
+    which = sys.argv[1:] or ["replay", "fit", "composed", "tree"]
     makers = {"replay": _replay_arrays, "fit": _fit_arrays,
-              "composed": _composed_arrays}
+              "composed": _composed_arrays, "tree": _tree_arrays}
     for name in which:
         np.savez_compressed(GOLDEN_DIR / f"{name}.npz", **makers[name]())
         print(GOLDEN_DIR / f"{name}.npz")

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 
-def small_scene(mod_scene, mod_meshgen, **build_kw):
+def small_scene(mod_scene, mod_meshgen, glass=False, **build_kw):
     """tests/test_mega.py's scene: two-light icosphere mesh, mirror
     sphere, two ground triangles — every feature of the fused segment
-    (BVH mesh, sphere, loose tris, shadows, mirror bounce, misses)."""
+    (BVH mesh, sphere, loose tris, shadows, mirror bounce, misses).
+    ``glass`` adds cornell_box's glass sphere (ior 1.5, transparency
+    0.95): a mesh scene for the dielectric tree."""
     b = mod_scene.SceneBuilder()
     mm = mod_scene.make_material
     v, f = mod_meshgen.icosphere(subdivisions=2, radius=2.0,
@@ -26,6 +28,10 @@ def small_scene(mod_scene, mod_meshgen, **build_kw):
         diffuse=(0.1, 0.1, 0.1), ambient=(0.1, 0.1, 0.1),
         specular=(1, 1, 1), phong=200.0, mirror=(0.9, 0.9, 0.9),
         is_mirror=True))
+    if glass:
+        b.add_sphere((4.5, 3.0, 9.0), 3.0, mm(
+            specular=(0.6, 0.6, 0.6), phong=300.0,
+            transparency=(0.95, 0.95, 0.95), ior=1.5, is_dielectric=True))
     g = 30.0
     gmat = mm(diffuse=(0.5, 0.5, 0.55), ambient=(0.5, 0.5, 0.55),
               phong=1.0)
@@ -126,6 +132,13 @@ def assert_same_arrays(a: dict, b: dict):
         assert a[k].dtype == b[k].dtype, k
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
+
+# the fused kernel's routes the parity tests run: the Baldwin–Weber BVH4
+# route and the two of mode (e), Möller–Trumbore on BVH4 rows and on the
+# binary layout
+LAYOUTS = {"bw4": dict(tri_isect="bw", bvh_arity=4),
+           "mt4": dict(tri_isect="mt", bvh_arity=4),
+           "binary": dict(tri_isect="mt", bvh_arity=0)}
 
 REC_TOL = dict(rtol=5e-4, atol=5e-4)
 BIG = 3.0e38

@@ -6,6 +6,8 @@ Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``) and
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
     python -m unity_raytracer_tpu_torch render --preset mesh100k \
         --kernel mega --out f.png
+    python -m unity_raytracer_tpu_torch render --preset cornell_box \
+        --kernel mega --out c.png
     python -m unity_raytracer_tpu_torch fit --preset mesh10k --replay \\
         --size 64 --steps 50 --out-dir fit/
 
@@ -13,16 +15,18 @@ Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``) and
 
 Runs on the CUDA card (``--device`` picks another device; ``cpu`` runs the
 plain PyTorch versions). Without a card the command stops and says so; it
-never falls back to the CPU by itself. ``render`` takes every preset
-without a dielectric (``cornell_box`` is the tree, ROADMAP Queue A #8);
+never falls back to the CPU by itself. ``render`` takes every preset;
 ``--bvh`` builds the BVH the configured kernel walks, as the twin does.
-A preset renders on the composed path (``kernel='auto'``, as in the twin);
-``--kernel mega`` picks the fused segment kernel for a BVH preset.
-``fit`` runs, as in the twin, the ``three_spheres`` toy on the composed
-path by default; another preset fits on the composed path at depth 1 with
-chunked, rematerialized gradients, or with ``--replay`` on the
-record-replay path. The twin's ``bench`` and ``dryrun`` subcommands are
-Queue A #14.
+A preset renders on the composed path (``kernel='auto'``, as in the twin:
+the mirror chain, or the dielectric tree for ``cornell_box``);
+``--kernel mega`` picks the fused segment kernel for a BVH preset and the
+fused fork kernel for the tree. ``fit`` runs, as in the twin, the
+``three_spheres`` toy on the composed path by default; another preset fits
+on the composed path at depth 1 with chunked, rematerialized gradients
+(``cornell_box`` through the composed tree), or with ``--replay`` on the
+record-replay path, which needs the mirror chain: on a tree scene it
+fails with the twin's ``ValueError``. The twin's ``bench`` and ``dryrun``
+subcommands are Queue A #14.
 """
 
 from __future__ import annotations
@@ -193,7 +197,8 @@ def main():
     r.add_argument("--kernel", default=None, choices=KERNELS,
                    help="route (default: the preset's, 'auto': the "
                         "composed path); 'mega' renders a BVH preset on "
-                        "the fused segment kernel")
+                        "the fused segment kernel, a tree preset on the "
+                        "fused fork kernel")
     r.add_argument("--device", default="cuda", help=dev_help)
     r.add_argument("--out", default=None)
     r.set_defaults(fn=cmd_render)

@@ -17,6 +17,10 @@
 // slot in its 14-slot leaf row and that row; slot = row = -1 on a miss.
 // A lane with tmax < 0 is culled before the root and keeps its tmax.
 //
+// The binary walks and the ray, slab and Möller–Trumbore tests are the
+// fused segment kernel's too (bvh_walk.cuh); this file gives them its leaf
+// test and its counting.
+//
 // Design: every thread walks its own ray with a private stack (96 entries
 // for the binary walk, 256 for the wide one) and prunes pops by its own
 // best t. The TPU kernels walk one cursor per tile of 1024 rays with a
@@ -53,16 +57,14 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bvh_walk.cuh"
+
 namespace {
 
-constexpr int kRow = 128;         // row stride of tris
-constexpr int kLeafSlots = 14;    // PALLAS_LEAF: triangles per tris row
-constexpr int kNodeRow = 16;      // floats per binary node row
-constexpr int kStackBinary = 96;  // ops/pallas/traverse_mk4.STACK
+using namespace urt;
+
 constexpr int kStackWide = 256;   // ops/pallas/traverse_wide.STACK
 constexpr int kBlock = 128;
-constexpr float kEps = 1e-5f;
-constexpr float kTiny = 1e-30f;
 
 enum Layout { kMk3 = 0, kMk4 = 1, kWide4 = 2, kWide8 = 3 };
 
@@ -84,12 +86,6 @@ struct Args {
   int leaf_rows;
 };
 
-struct Ray {
-  float ox, oy, oz;
-  float dx, dy, dz;
-  float ix, iy, iz;
-};
-
 // the lane's result and, in the counting instance, its tallies
 struct Lane {
   float best_t;
@@ -98,57 +94,6 @@ struct Lane {
   unsigned long long slab;
   unsigned long long mt;
 };
-
-__device__ __forceinline__ float fix_dir(float v) {
-  return fabsf(v) < kTiny ? (v < 0.f ? -kTiny : kTiny) : v;
-}
-
-// Slab test of box lo/hi over [0, best]; tn = the entry distance.
-__device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
-                                     float hy, float hz, const Ray& r,
-                                     float best, float& tn_out) {
-  float t1 = (lx - r.ox) * r.ix;
-  float t2 = (hx - r.ox) * r.ix;
-  float tn = fminf(t1, t2);
-  float tf = fmaxf(t1, t2);
-  t1 = (ly - r.oy) * r.iy;
-  t2 = (hy - r.oy) * r.iy;
-  tn = fmaxf(tn, fminf(t1, t2));
-  tf = fminf(tf, fmaxf(t1, t2));
-  t1 = (lz - r.oz) * r.iz;
-  t2 = (hz - r.oz) * r.iz;
-  tn = fmaxf(tn, fminf(t1, t2));
-  tf = fminf(tf, fmaxf(t1, t2));
-  tn = fmaxf(tn, 0.f);
-  tn_out = tn;
-  return tn <= tf && tn <= best;
-}
-
-// Möller–Trumbore against one triangle (9 floats v0 v1 v2), in the TPU
-// kernels' operation order.
-__device__ __forceinline__ bool mt_hit(const float* v, const Ray& r,
-                                       float& t) {
-  const float v0x = __ldg(v), v0y = __ldg(v + 1), v0z = __ldg(v + 2);
-  const float e1x = __ldg(v + 3) - v0x, e1y = __ldg(v + 4) - v0y,
-              e1z = __ldg(v + 5) - v0z;
-  const float e2x = __ldg(v + 6) - v0x, e2y = __ldg(v + 7) - v0y,
-              e2z = __ldg(v + 8) - v0z;
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool par = fabsf(det) < kEps;
-  const float f = 1.0f / (par ? 1.0f : det);
-  const float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-  const float u = f * (sx * px + sy * py + sz * pz);
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float w = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  t = f * (e2x * qx + e2y * qy + e2z * qz);
-  return !par && u >= 0.f && u <= 1.f && w >= 0.f && u + w <= 1.f &&
-         t > kEps;
-}
 
 // The triangles of the leaf whose first row is leaf_row, in slot order;
 // count < 0 tests every slot of every row. Strict <: of equal t the first
@@ -180,97 +125,27 @@ __device__ __forceinline__ bool leaf_tests(const Args& a, int leaf_row,
   return false;
 }
 
-// Binary node row: lo(0:3) hi(3:6) leaf row(6) count(7) miss(8) right(9).
-struct Node {
-  float4 a;  // lx ly lz hx
-  float4 b;  // hy hz leaf_row count
-  float4 c;  // miss right - -
+// The binary walks' visitor (bvh_walk.cuh): box tests against the lane's
+// best t, leaf_tests at the node's triangle count.
+template <bool ANY, bool C>
+struct BinaryLane {
+  const Args& a;
+  const Ray& r;
+  Lane& l;
+  __device__ Node node(int i) const {
+    if constexpr (C) a.seen_rows[i] = 1;
+    return load_node(a.table, i);
+  }
+  __device__ bool box(const Node& nd, float& tn) const {
+    if constexpr (C) ++l.slab;
+    return node_slab(nd, r, l.best_t, tn);
+  }
+  __device__ bool leaf(int row, int count) const {
+    return leaf_tests<ANY, C>(a, row, count, r, l);
+  }
+  __device__ float bound() const { return l.best_t; }
+  __device__ void overflow() const { atomicAdd(a.overflow, 1); }
 };
-
-template <bool C>
-__device__ __forceinline__ Node load_node(const Args& a, int i) {
-  if constexpr (C) a.seen_rows[i] = 1;
-  const float4* p =
-      reinterpret_cast<const float4*>(a.table + (size_t)i * kNodeRow);
-  return Node{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
-}
-
-template <bool C>
-__device__ __forceinline__ bool node_slab(const Node& nd, const Ray& r,
-                                          Lane& l, float& tn) {
-  if constexpr (C) ++l.slab;
-  return slab(nd.a.x, nd.a.y, nd.a.z, nd.a.w, nd.b.x, nd.b.y, r, l.best_t,
-              tn);
-}
-
-// MK3: threaded order, no stack.
-template <bool ANY, bool C>
-__device__ void walk_mk3(const Args& a, const Ray& r, Lane& l) {
-  int cursor = 0;
-  while (cursor >= 0) {
-    const Node nd = load_node<C>(a, cursor);
-    float tn;
-    const bool hit = node_slab<C>(nd, r, l, tn);
-    const int count = static_cast<int>(nd.b.w);
-    if (hit && count > 0 &&
-        leaf_tests<ANY, C>(a, static_cast<int>(nd.b.z), count, r, l))
-      return;
-    cursor = (hit && count <= 0) ? cursor + 1 : static_cast<int>(nd.c.x);
-  }
-}
-
-// MK4: near child first; the far child waits on the stack with its entry
-// distance, and is dropped on pop when that exceeds the lane's best t.
-template <bool ANY, bool C>
-__device__ void walk_mk4(const Args& a, const Ray& r, Lane& l) {
-  int node[kStackBinary];
-  float key[kStackBinary];
-  int sp = 0;
-  int cursor = 0;
-  float tn;
-  if (!node_slab<C>(load_node<C>(a, 0), r, l, tn)) return;
-  while (true) {
-    const Node nd = load_node<C>(a, cursor);
-    const int count = static_cast<int>(nd.b.w);
-    if (count > 0) {
-      if (leaf_tests<ANY, C>(a, static_cast<int>(nd.b.z), count, r, l))
-        return;
-    } else {
-      const int left = cursor + 1;
-      const int right = static_cast<int>(nd.c.y);
-      float tl, tr = 0.f;
-      const bool hl = node_slab<C>(load_node<C>(a, left), r, l, tl);
-      const bool hr =
-          right >= 0 && node_slab<C>(load_node<C>(a, right), r, l, tr);
-      if (hl && hr) {
-        const bool l_first = tl <= tr;
-        if (sp < kStackBinary) {
-          node[sp] = l_first ? right : left;
-          key[sp] = l_first ? tr : tl;
-          ++sp;
-        } else {
-          atomicAdd(a.overflow, 1);
-        }
-        cursor = l_first ? left : right;
-        continue;
-      }
-      if (hl || hr) {
-        cursor = hl ? left : right;
-        continue;
-      }
-    }
-    bool popped = false;
-    while (sp > 0) {
-      --sp;
-      if (key[sp] <= l.best_t) {
-        cursor = node[sp];
-        popped = true;
-        break;
-      }
-    }
-    if (!popped) return;
-  }
-}
 
 // WIDE: slab-test the ARITY children of wide row `cursor`, sort the hits
 // by entry distance and push them far to near. Stack codes: a wide row
@@ -352,9 +227,11 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(const Args a) {
     const Ray r{a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2], dx, dy, dz,
                 1.0f / fix_dir(dx), 1.0f / fix_dir(dy), 1.0f / fix_dir(dz)};
     if constexpr (LAYOUT == kMk3) {
-      walk_mk3<ANY, C>(a, r, l);
+      BinaryLane<ANY, C> v{a, r, l};
+      walk_threaded_binary(v);
     } else if constexpr (LAYOUT == kMk4) {
-      walk_mk4<ANY, C>(a, r, l);
+      BinaryLane<ANY, C> v{a, r, l};
+      walk_ordered_binary(v);
     } else {
       walk_wide<LAYOUT == kWide4 ? 4 : 8, ANY, C>(a, r, l);
     }

@@ -3,10 +3,11 @@
 Twin: ``unity_raytracer_tpu/models/presets.py`` — all five constructors,
 ``PRESETS`` and ``get_preset``, building equal scenes, cameras and configs
 (``tests/test_torch_scene.py``), on the ``device`` each takes: the CUDA
-card unless the caller asks for another (``device="cpu"``). The presets
-only build scenes; ``render`` takes every one but ``cornell_box``, a
-dielectric tree (ROADMAP Queue A #8): ``reference_demo`` and
-``three_spheres`` render by brute force on the composed path.
+card unless the caller asks for another (``device="cpu"``). ``render``
+takes every one: ``reference_demo`` and ``three_spheres`` by brute force
+on the composed chain, ``cornell_box`` (a dielectric) on the tree — the
+composed ``_trace_tree`` by default, the fused fork kernel with
+``kernel='mega'`` — and the mesh presets through their BVH.
 
 Each preset returns ``(scene, camera, render_config)``. The reference's
 "config system" is its serialized demo scene

@@ -11,12 +11,16 @@ rewrites that file. At first use it compiles, into ``build/torch_kernels/``
   the SAH cost sums contract to FMAs exactly as in the tracked library and
   the port builds the same trees as the JAX package (no ``-march=native``:
   the library must load on any host of its architecture);
-* ``libmega-<key>.so`` from ``csrc/mega_segment.cu`` (the fused segment
-  kernel), ``libtraverse-<key>.so`` from ``csrc/traverse.cu`` (the BVH
+* ``libmega_wide4-<key>.so``, ``libmega_wide8-<key>.so`` and
+  ``libmega_binary-<key>.so`` from ``csrc/mega_segment.cu`` (the fused
+  segment kernel; ``-DURT_MEGA_GROUP`` picks each library's instances:
+  the BVH4 rows, the BVH8 rows, or the binary nodes and the meshless
+  fork), ``libtraverse-<key>.so`` from ``csrc/traverse.cu`` (the BVH
   walks) and ``libnearest_tri-<key>.so`` from ``csrc/nearest_tri.cu``
   (the brute-force nearest triangle), each with ``nvcc -gencode
   arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false -shared
-  -Xcompiler -fPIC`` (plain C entry points, bound with ctypes).
+  -Xcompiler -fPIC`` (plain C entry points, bound with ctypes). The two
+  walk sources share ``csrc/bvh_walk.cuh``.
   ``-fmad=false`` keeps every multiply and add separately rounded, as the
   plain PyTorch versions round them: with contraction on, grazing hits on
   the mirror sphere moved by up to 1e-2 on the 0-255 scale (7 of 65,536
@@ -24,10 +28,10 @@ rewrites that file. At first use it compiles, into ``build/torch_kernels/``
   with it off the kernel matched the plain version exactly on every lane
   checked (PERF.md).
 
-``<key>`` hashes the source and the command line, so an edited source
-builds anew and concurrent builders never share a half-written file. A
+``<key>`` hashes the source, the shared headers and the command line,
+so an edited source builds anew and concurrent builders never share a half-written file. A
 failed build or load raises; nothing falls back. ``build_all`` builds
-every library at once, one compiler process per source.
+every library at once, one compiler process per library.
 """
 
 from __future__ import annotations
@@ -47,12 +51,15 @@ BUILD_DIR = REPO / "build" / "torch_kernels"
 BVH_SRC = REPO / "native" / "bvh_builder.cc"
 CSRC = REPO / "unity_raytracer_tpu_torch" / "csrc"
 MEGA_SRC = CSRC / "mega_segment.cu"
+# the fused kernel's libraries: -DURT_MEGA_GROUP of each
+MEGA_GROUPS = {"wide4": 4, "wide8": 8, "binary": 0}
 TRAVERSE_SRC = CSRC / "traverse.cu"
 NEAREST_TRI_SRC = CSRC / "nearest_tri.cu"
 
 _libs: dict = {}  # the loaded library handles
 _locks = {name: threading.Lock()
-          for name in ("bvh", "mega", "traverse", "nearest_tri")}
+          for name in ("bvh", "traverse", "nearest_tri",
+                       *(f"mega_{g}" for g in MEGA_GROUPS))}
 
 
 def _build(name: str, src: pathlib.Path, cmd_for) -> ctypes.CDLL:
@@ -61,7 +68,9 @@ def _build(name: str, src: pathlib.Path, cmd_for) -> ctypes.CDLL:
     the path, the compile seconds (0.0 when an earlier build was reused)
     and the compiler's output."""
     key_cmd = cmd_for(pathlib.Path("OUT"))
-    key = hashlib.sha256(src.read_bytes() + "\0".join(key_cmd).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
+                         + "\0".join(key_cmd).encode())
     out = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():
@@ -108,37 +117,43 @@ def bvh_lib() -> ctypes.CDLL:
         return _libs["bvh"]
 
 
-def nvcc_cmd(src: pathlib.Path, out: pathlib.Path) -> list:
-    """The command that builds a CUDA source's library."""
+def nvcc_cmd(src: pathlib.Path, out: pathlib.Path, *defines: str) -> list:
+    """The command that builds a CUDA source's library (``defines``:
+    extra ``-D`` flags)."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = _which("nvcc", os.path.join(cuda_home, "bin", "nvcc"))
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(out), str(src)]
+            "-Xptxas", "-v", *(f"-D{x}" for x in defines), "-o", str(out),
+            str(src)]
 
 
-def mega_lib() -> ctypes.CDLL:
-    """The fused segment kernel (``urt_mega_segment``, every mode)."""
-    with _locks["mega"]:
-        if "mega" not in _libs:
-            lib = _build("mega", MEGA_SRC,
-                         lambda out: nvcc_cmd(MEGA_SRC, out))
+def mega_lib(group: str) -> ctypes.CDLL:
+    """The fused segment kernel's library of one layout group (a key of
+    ``MEGA_GROUPS``): ``urt_mega_segment``, every mode of its instances."""
+    name = f"mega_{group}"
+    with _locks[name]:
+        if name not in _libs:
+            flag = f"URT_MEGA_GROUP={MEGA_GROUPS[group]}"
+            lib = _build(name, MEGA_SRC,
+                         lambda out: nvcc_cmd(MEGA_SRC, out, flag))
             p = ctypes.c_void_p
             i = ctypes.c_int
             f = ctypes.c_float
             lib.urt_mega_segment.restype = i
             lib.urt_mega_segment.argtypes = [
                 p, p, p, p, i, i,          # o d thr tmax n depth
-                p, i,                      # wide arity
-                p, i, i,                   # tris_bw leaf_rows bw_rows
+                p, i, i,                   # table layout mt
+                p, i, i,                   # leaf table leaf_rows bw_rows
                 p, i,                      # leafmeta meta_w
                 p, i, i, i, i, i, f,       # aux L S T M max_bounces cull
                 p, p, p, p, p,             # delta o2 d2 thr2 tmax2
                 p, i,                      # overflow mode
                 p, p, p, p, p,             # records: t n matid occbits st
+                p, p, p, p,                # refract child: o d w tmax
                 p, p]                      # counts stream
-            _libs["mega"] = lib
-        return _libs["mega"]
+            _libs[name] = lib
+        return _libs[name]
 
 
 def traverse_lib() -> ctypes.CDLL:
@@ -176,11 +191,12 @@ def nearest_tri_lib() -> ctypes.CDLL:
 
 def build_all() -> dict:
     """Build (or load) every library at once, one compiler process per
-    source started together; returns {name: handle}. Raises the first
+    library started together; returns {name: handle}. Raises the first
     failure after all have finished."""
     from concurrent.futures import ThreadPoolExecutor
-    fns = {"bvh": bvh_lib, "mega": mega_lib, "traverse": traverse_lib,
-           "nearest_tri": nearest_tri_lib}
+    fns = {"bvh": bvh_lib, "traverse": traverse_lib,
+           "nearest_tri": nearest_tri_lib,
+           **{f"mega_{g}": (lambda g=g: mega_lib(g)) for g in MEGA_GROUPS}}
     with ThreadPoolExecutor(len(fns)) as ex:
         futs = {name: ex.submit(fn) for name, fn in fns.items()}
     return {name: f.result() for name, f in futs.items()}

@@ -50,7 +50,7 @@ from unity_raytracer_tpu_torch.ops.render import (
     check_supported, resolve_mode)
 from unity_raytracer_tpu_torch.ops.shade import (
     SHADOW_EPS, _rows, _soft_or_hard_vis, reflect_dir)
-from unity_raytracer_tpu_torch.utils.config import DiffConfig, RenderConfig
+from unity_raytracer_tpu_torch.utils.config import RenderConfig
 
 # records tuple, each stacked over segments (leading dim B):
 #   hard: (t [B,N], n [B,N,3], matid [B,N], occbits [B,N])
@@ -96,7 +96,8 @@ def combined_materials(scene: Scene) -> Materials:
 def trace_records(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                   cfg: RenderConfig, bvh,
                   soft: bool = False) -> Tuple[torch.Tensor, Records]:
-    """Fused-kernel bounce chain with hit recording.
+    """Fused-kernel bounce chain with hit recording, on the config's leaf
+    test (``cfg.tri_isect``) and layout (``cfg.bvh_arity``).
 
     Returns ``(acc [N,3], records)`` with each record stacked over the
     ``max_bounces + 1`` segments (leading dim B). Every segment launches,
@@ -111,13 +112,15 @@ def trace_records(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     # the records pass runs the fused kernel whatever cfg.kernel says; the
     # soft temperatures and chunking belong to the replay
     cfg = resolve_mode(scene, cfg)
-    check_supported(cfg.with_(diff=DiffConfig(), kernel="mega"), bvh)
+    check_supported(cfg)
     n, dev = o.shape[0], o.device
     L = scene.lights.positions.shape[0]
     B = cfg.max_bounces + 1
+    # the config's leaf test and layout (twin :105-110)
     kw = dict(n_lights=L, n_spheres=scene.spheres.count,
               n_tris=scene.triangles.count, max_bounces=cfg.max_bounces,
-              light_cull=cfg.light_cull)
+              light_cull=cfg.light_cull, tri_isect=cfg.tri_isect,
+              use_wide=cfg.bvh_arity != 0)
     f32 = dict(dtype=torch.float32, device=dev)
     with torch.no_grad():
         aux = mega.build_aux(scene, cfg.background)

@@ -217,17 +217,34 @@ def refract_dir(d: torch.Tensor, n: torch.Tensor, eta: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Snell refraction (an extension; the reference has none). ``n``
     opposes ``d``. Returns (direction, total-internal-reflection mask);
-    the direction is junk on TIR lanes, which callers mask."""
+    the direction is junk on TIR lanes, which callers mask.
+
+    The root is ``sqrt(k)`` for ``k > 0`` and 0 otherwise, with a zero
+    gradient at ``k <= 0``. The twin takes ``sqrt(where(k < 0, 1, k))``,
+    whose gradient at ``k == 0`` is infinite: a grazing lane, such as every
+    soft-hit proxy (its normal is perpendicular to the ray), then turns
+    the whole gradient into NaN (ROADMAP Queue C #11). Both give the same
+    direction wherever it is used (``k >= 0``)."""
     cos_i = -dot3(d, n)[:, None]
-    k = 1.0 - eta[:, None] ** 2 * (1.0 - cos_i ** 2)
+    eta = eta[:, None]
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
     tir = (k < 0.0)[:, 0]
-    # double where: sqrt'(0) = inf must not reach masked lanes
-    k_safe = torch.where(k < 0.0, 1.0, k)
-    out = eta[:, None] * d + (eta[:, None] * cos_i - torch.sqrt(k_safe)) * n
+    # double where: sqrt'(0) = inf must not reach any lane
+    pos = k > 0.0
+    root = torch.where(pos, torch.sqrt(torch.where(pos, k, 1.0)), 0.0)
+    out = eta * d + (eta * cos_i - root) * n
     return out, tir
 
 
 def schlick_fresnel(cos_i: torch.Tensor, n1: torch.Tensor,
                     n2: torch.Tensor) -> torch.Tensor:
-    r0 = ((n1 - n2) / (n1 + n2)) ** 2
-    return r0 + (1.0 - r0) * (1.0 - cos_i) ** 5
+    """Schlick's reflectance ``r0 + (1 - r0) (1 - cos_i)^5``, ``r0 =
+    ((n1 - n2) / (n1 + n2))^2``. The powers are written as the products
+    XLA lowers the twin's ``** 2`` and ``** 5`` to (``x * x`` and ``x *
+    ((x * x) * (x * x))``); torch's ``**`` would call ``pow``, which
+    rounds differently."""
+    q = (n1 - n2) / (n1 + n2)
+    r0 = q * q
+    c = 1.0 - cos_i
+    c2 = c * c
+    return r0 + (1.0 - r0) * (c * (c2 * c2))
