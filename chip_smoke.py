@@ -13,9 +13,8 @@ From the root of a checkout, on a machine with a CUDA card, it
    rows and the meshless fork — the BVH walks, the brute-force nearest
    triangle) and times the build; prints ptxas' registers, stack and
    spill per kernel instance and fails if a fused Baldwin–Weber forward
-   instance needs more than the forward-only kernel did (arity 4: 64
-   registers, 2,104-byte stack, 48 bytes of spill; arity 8: 72, 2,088,
-   32);
+   instance needs more than its own redesigned build did (FORWARD_PTXAS
+   below), so that the other modes cannot cost the forward instances;
 3. holds the fused segment kernel against its plain PyTorch version on
    the same inputs, in its three modes — forward (a), record (b) and
    record_soft (d): every segment of the ``mesh10k`` chain at 256x256,
@@ -23,12 +22,17 @@ From the root of a checkout, on a machine with a CUDA card, it
    fails if more than 0.01% of lanes fall outside rtol = atol = 5e-4 (hit
    records: matid and occbits exactly, t sign exactly, st exactly _BIG
    where unoccluded) or if a record mode's base outputs differ at all
-   from the forward mode's; the counting instance gives each mode's bound;
+   from the forward mode's; the counting instance gives each mode's bound
+   and, on the flagship frame's segments 0 and 1, the work split by phase
+   (``counters`` lines: slab, leaf-group box and leaf-slot tests per live
+   lane in the nearest and the shadow walks, active lanes per leaf-slot
+   test, the deepest stack);
 4. renders the flagship frame (``mesh100k``, 1920x1080, 4 bounces) on the
    fused kernel (``kernel='mega'``), checks that the frame went through 5
    kernel launches with no stack overflow and is finite and not flat,
    then times 1 warm-up + 3 frames with CUDA events, times each of the 5
-   launches alone in each mode, and profiles one frame;
+   launches alone in each mode (the all-dead segments 2-4 beside their
+   bytes bound), and profiles one frame;
 5. renders a small ``mesh10k`` frame on the fused kernel on the card and
    with its plain version on the CPU and compares the two images;
 6. runs the flagship hard fwd+bwd step (``ops/replay.
@@ -52,7 +56,8 @@ From the root of a checkout, on a machine with a CUDA card, it
    t equal on every nearest lane, the MeshSet row equal on every lane
    whose t does not tie (tied lanes counted), the occlusion predicate
    equal on every any-hit lane, culled lanes a miss, no stack overflow;
-   the counting instance gives each kernel's bound;
+   the counting instance gives each kernel's bound and the work of each
+   of the composed frame's mk4 launches (``counters`` lines);
 9. renders the flagship composed frame with ``kernel='pallas'`` (the
    traversal ``'auto'`` takes on the card), then ``'wide'`` (arity 4 and
    8) and ``'pallas3'``: each within rtol = atol = 5e-4 of the fused frame
@@ -64,7 +69,8 @@ From the root of a checkout, on a machine with a CUDA card, it
     visibility, target = composed radiance x 0.9) and holds its loss and
     gradients against the replay's hard step on the same target (loss
     rtol 1e-4, gradients rtol 5e-3, atol 5e-4 x the largest |g|), then
-    times 1 warm-up + 3 steps and reads the peak memory;
+    times 1 warm-up + 3 steps, each of the step's 48 ``traverse_packet4``
+    launches alone against their bound, and reads the peak memory;
 11. holds the brute-force nearest-triangle kernel against its plain
     version on 65,536 ``mesh10k`` primary rays ((t, index) on every
     lane), times it on the whole 1024x1024 batch, and renders a small
@@ -154,13 +160,14 @@ NEAREST_REPLACES = "unity_raytracer_tpu/ops/pallas/intersect_mk.py:145"
 GRAD_RTOL, GRAD_ATOL = 5e-3, 5e-4
 MODES = ("forward", "record", "record_soft")
 ALL_MODES = MODES + ("fork",)
-# ptxas' line for the forward kernel before the record modes sat beside it,
-# per BVH arity: that source built with the same command (nvcc 12.9 for
-# sm_90a), as ``python -m unity_raytracer_tpu_torch.ops.kernels.ptxas
-# OLD.cu`` prints it. The modes added to the source must not cost the
-# forward instances registers, stack or spill
-FORWARD_PTXAS = {4: dict(registers=64, stack=2104, spill=48),
-             8: dict(registers=72, stack=2088, spill=32)}
+# ptxas' line for the Baldwin–Weber forward instances of the redesigned
+# kernel (culled leaf groups, warp-pooled shadow queries), per BVH arity,
+# built with the same command (nvcc 12.9 for sm_90a), as ``python -m
+# unity_raytracer_tpu_torch.ops.kernels.ptxas`` prints it. Later modes
+# added to the source must not cost the forward instances registers,
+# stack or spill
+FORWARD_PTXAS = {4: dict(registers=64, stack=2120, spill=104),
+                 8: dict(registers=72, stack=2120, spill=116)}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 operations/s
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # FP32 operations per test, read off csrc/mega_segment.cu (a divide or a
@@ -275,6 +282,51 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def log_segment_counts(what, packed, aux, depth, ins, kw):
+    """One counting launch of the fused kernel on a segment's inputs; logs
+    its split by phase (the nearest walk, the shadow walks): slab tests,
+    leaf-group box tests and leaf-slot tests per live lane, the mean
+    active lanes per leaf-slot test, the deepest stack."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    counts = torch.zeros(len(mega.COUNTS), dtype=torch.int64,
+                         device=aux.device)
+    mega.trace_segment(packed, aux, depth, *ins, counts=counts, **kw)
+    c = dict(zip(mega.COUNTS, counts.tolist()))
+    live = max(c["live"], 1)
+    for ph in ("nearest", "shadow"):
+        slots = c[f"{ph}_slots"]
+        log(f"counters {what}, {ph} phase: {c[f'{ph}_slab'] / live:.3f} "
+            f"slab tests, {c[f'{ph}_groups'] / live:.3f} leaf-group box "
+            f"tests, {slots / live:.3f} leaf-slot tests per live lane; "
+            f"{slots / max(c[f'{ph}_issues'], 1):.2f} active lanes per "
+            f"leaf-slot test; deepest stack {c[f'{ph}_depth']}")
+    log(f"counters {what}: {c['live']} live lanes, {c['queries']} shadow "
+        f"queries ({c['queries'] / live:.3f} per live lane)")
+
+
+def log_walk_counts(what, layout, packed, ins):
+    """One counting launch of a walk; logs slab tests, leaf-group box
+    tests and MT tests per live lane, the mean active lanes per MT test and
+    the deepest stack."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    table = packed.nodes if layout in ("mk3", "mk4") else packed.wide
+    counts = torch.zeros(len(m3.COUNTS), dtype=torch.int64,
+                         device=table.device)
+    seen = tuple(torch.zeros(k, dtype=torch.uint8, device=table.device)
+                 for k in (table.shape[0],
+                           packed.tris.shape[0] * m3.PALLAS_LEAF))
+    m3.walk_raw(layout, packed, *ins, counts=counts, seen=seen)
+    c = dict(zip(m3.COUNTS, counts.tolist()))
+    live = max(c["live"], 1)
+    log(f"counters {what}: {c['live']} live lanes; {c['slab'] / live:.3f} "
+        f"slab tests, {c['groups'] / live:.3f} leaf-group box tests, "
+        f"{c['mt'] / live:.3f} MT tests per live lane; "
+        f"{c['mt'] / max(c['issues'], 1):.2f} active lanes per MT test; "
+        f"deepest stack {c['depth']}")
+
+
 def profile_once(fn, what, timed_ms, card):
     """Where one call's device time goes (torch.profiler's CUDA trace):
     busy share of the timed call, top kernels."""
@@ -334,7 +386,8 @@ def walk_work(layout, packed, launches):
     table = packed.nodes if layout in ("mk3", "mk4") else packed.wide
     row_bytes = NODE_ROW_BYTES if layout in ("mk3", "mk4") else \
         table.shape[1] * 4
-    counts = torch.zeros(2, dtype=torch.int64, device=table.device)
+    counts = torch.zeros(len(m3.COUNTS), dtype=torch.int64,
+                         device=table.device)
     nbytes = 0
     for o, d, tmax, any_hit in launches:
         seen = tuple(torch.zeros(k, dtype=torch.uint8, device=table.device)
@@ -461,6 +514,12 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b:.4f} ms "
             f"({by}: {nb} bytes, {ops:.6g} FP32 operations) {card}")
 
+    # step-0 counters of the composed frame's mk4 launches
+    for k, x in enumerate(frame_walks["mk4"]):
+        log_walk_counts(f"composed frame mk4 launch {k} "
+                        f"({'any-hit' if x[4] else 'nearest'}, "
+                        f"{x[1].shape[0]} lanes)", "mk4", packed, x[1:])
+
     # ---- 9. the composed frames: main path of each walk
     for layout, (name, kernel, arity, _) in WALKS.items():
         fcfg = cfg.with_(kernel=kernel)
@@ -557,6 +616,23 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
         failures.append(f"composed fwd+bwd loss {float(loss)} vs replay "
                         f"{float(r_loss)}")
     step_ms = events_ms(lambda: vg(params), 3)
+    # the step's mk4 launches, each timed alone, and their bound
+    step_walks = capture_walks(lambda: vg(params))
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    per = [events_ms(lambda: m3.walk_raw("mk4", packed, *x[1:],
+                                         overflow=ovf), 3)
+           for x in step_walks]
+    m3.check_overflow(ovf, "traverse_packet4")
+    snb, sops = walk_work("mk4", packed, [x[1:] for x in step_walks])
+    sb, sby = bound(snb, sops)
+    rows["mk4"].update(step_launch_ms=sum(per), step_bound_ms=sb,
+                       step_launches=len(step_walks))
+    log(f"composed fwd+bwd step's {len(step_walks)} traverse_packet4 "
+        f"launches: {sum(per):.3f} ms alone (each "
+        f"{', '.join(f'{m:.3f}' for m in per)} ms; lanes "
+        f"{sorted(set(x[1].shape[0] for x in step_walks))}); bound "
+        f"{sb:.4f} ms ({sby}: {snb} bytes, {sops:.6g} FP32 operations); "
+        f"loss {sum(per) - sb:.3f} ms per step {card}")
     log(f"composed fwd+bwd (8 chunks of 2^18, remat, hard): loss "
         f"{float(loss):.6g} vs replay {float(r_loss):.6g}; "
         + "; ".join(notes)
@@ -704,7 +780,8 @@ def compare_fork(got, want, live, torch):
 def segment_work(packed, aux, route_kw, segs, out_bytes, route):
     """(bytes, FP32 operations) of one launch per (depth, inputs) in
     ``segs`` on a route: 40 B of inputs and ``out_bytes`` of outputs per
-    lane, the route's tables (node rows, leaf rows, leafmeta) and the aux
+    lane, the route's tables (node rows, leaf rows, leafmeta, leaf-group
+    boxes) and the aux
     block once per launch with a live lane; operations from the route's
     counting instance (its tests x OPS_PER_TEST)."""
     import torch
@@ -712,8 +789,10 @@ def segment_work(packed, aux, route_kw, segs, out_bytes, route):
     tables = aux.numel() * 4
     if route != "meshless":
         table, leaf = mega._tables(packed, route)
-        tables += sum(t.numel() * 4 for t in (table, leaf, packed.leafmeta))
-    counts = torch.zeros(4, dtype=torch.int64, device=aux.device)
+        tables += sum(t.numel() * 4 for t in (table, leaf, packed.leafmeta,
+                                              packed.leafbox))
+    counts = torch.zeros(len(mega.COUNTS), dtype=torch.int64,
+                         device=aux.device)
     lanes = live_launches = 0
     for depth, ins in segs:
         mega.trace_segment(packed, aux, depth, *ins, counts=counts,
@@ -1111,12 +1190,14 @@ def main():
         lanes are all dead reads none of them); operations from the
         counting instance."""
         tables = sum(t.numel() * 4 for t in (packed.wide, packed.tris_bw,
-                                             packed.leafmeta, aux))
+                                             packed.leafmeta, packed.leafbox,
+                                             aux))
         lanes = sum(ins[0].shape[0] for _, ins in segs)
         live_launches = sum(bool((ins[3] >= 0).any()) for _, ins in segs)
         ops = {}
         for counted in ("forward", "record_soft"):
-            counts = torch.zeros(4, dtype=torch.int64, device=dev)
+            counts = torch.zeros(len(mega.COUNTS), dtype=torch.int64,
+                                 device=dev)
             for depth, ins in segs:
                 mega.trace_segment(packed, aux, depth, *ins, counts=counts,
                                    **mode_kw[counted], **kw)
@@ -1133,8 +1214,8 @@ def main():
              for m in MODES}
     failures = []  # checks that failed; raised after every phase has run
     if ptxas_worse:
-        failures.append(f"forward instances need more than the "
-                        f"forward-only kernel's {FORWARD_PTXAS}: {fwd}")
+        failures.append(f"forward instances need more than their own "
+                        f"build's {FORWARD_PTXAS}: {fwd}")
 
     def check_modes(packed, aux, depth, ins, kw, name, plain_soft=None,
                     timed=False):
@@ -1264,6 +1345,13 @@ def main():
             log(f"bound {mode} {what}: {nb} bytes, {ops:.6g} FP32 "
                 f"operations -> {b:.4f} ms ({by}) [H100 SXM peaks]")
 
+    # step-0 counters: the flagship frame's segments 0 and 1
+    for depth in (0, 1):
+        for mode in ("forward", "record_soft"):
+            log_segment_counts(f"mesh100k segment {depth} {mode}", packed,
+                               aux, depth, frame_segs[depth][1],
+                               dict(kw, **mode_kw[mode]))
+
     # ---- the fused path: the flagship frame on the fused kernel --------------
     cfg_m = cfg.with_(kernel="mega")
     for m in mega.launches:
@@ -1289,12 +1377,16 @@ def main():
 
     fused_img = img
     frame_ms = events_ms(lambda: render_frame(scene, cam, cfg_m, packed), 3)
-    # the five launches of one frame alone, in each mode
+    # the five launches of one frame alone, in each mode, on one shared
+    # overflow counter (no host sync between the timed launches)
     seg_ms = {m: [] for m in MODES}
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
     for depth, ins in frame_segs:
         for mode in MODES:
             seg_ms[mode].append(events_ms(lambda: mega.trace_segment(
-                packed, aux, depth, *ins, **mode_kw[mode], **kw), 3))
+                packed, aux, depth, *ins, overflow=ovf, **mode_kw[mode],
+                **kw), 3))
+    mega.check_overflow(ovf)
     n_lights = int(scene.lights.valid.sum())
     issued = cam.width * cam.height * n_segments * (1 + n_lights)
     log(f"mesh100k frame: {frame_ms:.3f} ms, {issued / frame_ms * 1e3:.4g} "
@@ -1309,6 +1401,14 @@ def main():
         log(f"fused kernel per frame, mode {mode}: {sum(seg_ms[mode]):.3f} "
             f"ms (segments {', '.join(f'{m:.3f}' for m in seg_ms[mode])} "
             f"ms); bound {b:.4f} ms ({by}) {card}")
+    dead = [k for k, (_, ins) in enumerate(frame_segs)
+            if not bool((ins[3] >= 0).any())]
+    n_lanes = frame_segs[0][1][0].shape[0]
+    db, _ = bound(n_lanes * (40 + 52), 0)
+    log(f"all-dead segments {dead} of the fused frame: forward "
+        + ", ".join(f"{seg_ms['forward'][k]:.4f}" for k in dead)
+        + f" ms alone; bound {db:.4f} ms each (bytes: {n_lanes} lanes x 92 "
+        f"B in and out) {card}")
     profile_once(lambda: render_frame(scene, cam, cfg_m, packed),
                  "one fused frame", frame_ms, card)
     log(f"clocks/power after timing: "

@@ -1,0 +1,311 @@
+"""PyTorch port: the host pieces the redesigned walks rest on.
+
+The fused segment kernel (``csrc/mega_segment.cu``) and the ordered
+binary walk (``csrc/traverse.cu`` MK4) size their stacks from the tree's
+worst push depth and skip a leaf-slot group whose box the ray does not
+enter; both come from the host (``ops/kernels/traverse_mk3``). Held here
+against the port's plain code on seeded numpy inputs:
+
+* each group box holds all 9 coordinates of each of its live slots, is
+  widened outward by GROUP_MARGIN of its largest coordinate and one ulp,
+  and dead slots do not widen it;
+* culling drops no hit: every leaf-slot hit (Möller–Trumbore on ``tris``,
+  Baldwin–Weber on ``tris_bw``) of seeded rays, half of them aimed near
+  triangle corners and edges, lies in a group whose box passes the plain
+  ``mega._slab`` at the hit's own t;
+* the stored depths equal a recursive walk of the rows (19 BVH4 and 12
+  binary entries on ``mesh100k``);
+* ``check_stack`` raises for a tree deeper than a kernel's stack.
+
+The ``gpu`` cases run the kernels on the card: a too-deep tree raises
+before any launch, and launches that share one overflow counter give the
+bits of launches alone.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import cuda, small_scene  # noqa: F401  (fixture)
+from unity_raytracer_tpu_torch.models import meshgen as t_meshgen
+from unity_raytracer_tpu_torch.models import scene as t_scene
+from unity_raytracer_tpu_torch.models.presets import get_preset
+from unity_raytracer_tpu_torch.ops import bvh as t_bvh
+from unity_raytracer_tpu_torch.ops.kernels import mega
+from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as t_mk3
+from unity_raytracer_tpu_torch.ops.kernels import traverse_wide
+from unity_raytracer_tpu_torch.utils.config import RenderConfig
+
+torch.set_num_threads(1)
+
+CFG = RenderConfig(max_bounces=2, background=(0.04, 0.05, 0.07),
+                   use_bvh=True, mode="scan", tri_isect="bw")
+# (scene, leaf size, arity)
+TREES = {"small-14": ("small", 14, 4), "small-28-bvh8": ("small", 28, 8),
+         "mesh10k-98": ("mesh10k", 98, 4)}
+
+
+def _tree(name, leaf, arity):
+    if name == "small":
+        scene = small_scene(t_scene, t_meshgen, device="cpu")
+    else:
+        scene = get_preset(name, width=8, height=8, device="cpu")[0]
+    return t_bvh.prepare_bvh(scene, CFG.with_(bvh_leaf=leaf,
+                                              bvh_arity=arity), "cpu")
+
+
+@pytest.fixture(scope="module", params=list(TREES))
+def packed(request):
+    return _tree(*TREES[request.param])
+
+
+def _groups(packed):
+    """(vertices [R,2,7,9], live [R,2,7], boxes [R,2,8]) per tris row."""
+    rows = packed.tris.shape[0]
+    v = packed.tris.numpy()[:, :9 * t_mk3.PALLAS_LEAF].reshape(
+        rows, 2, t_mk3.GROUP, 9)
+    live = (packed.leaf_prim.numpy() >= 0).reshape(rows, 2, t_mk3.GROUP)
+    return v, live, packed.leafbox.numpy().reshape(rows, 2, 8)
+
+
+def test_group_boxes_hold_live_slots_rounded_outward(packed):
+    v, live, box = _groups(packed)
+    pts = v.reshape(*v.shape[:3], 3, 3)
+    lo, hi = box[..., None, None, 0:3], box[..., None, None, 3:6]
+    inside = (pts >= lo) & (pts <= hi)
+    assert inside.all(axis=(-1, -2))[live].all()
+    # the extreme live coordinates, widened by the margin and one ulp
+    inf = np.float32(np.inf)
+    want_lo = np.where(live[..., None, None], pts, inf).min(axis=(2, 3))
+    want_hi = np.where(live[..., None, None], pts, -inf).max(axis=(2, 3))
+    used = live.any(axis=2)
+    lo, hi = want_lo[used], want_hi[used]
+    pad = np.float32(t_mk3.GROUP_MARGIN) * np.maximum(
+        np.abs(lo), np.abs(hi)).max(axis=-1, keepdims=True)
+    np.testing.assert_array_equal(box[..., 0:3][used],
+                                  np.nextafter(lo - pad, -inf))
+    np.testing.assert_array_equal(box[..., 3:6][used],
+                                  np.nextafter(hi + pad, inf))
+    assert (box[~used] == 0).all() and (box[..., 6:] == 0).all()
+    assert (box[..., 0:3][used] < want_lo[used]).all()
+    assert (box[..., 3:6][used] > want_hi[used]).all()
+
+
+def test_dead_slots_do_not_widen_a_box():
+    rng = np.random.default_rng(5)
+    tris = np.zeros((3, 128), np.float32)
+    tris[:, :126] = rng.normal(size=(3, 126)).astype(np.float32)
+    leaf_prim = np.full((3, t_mk3.PALLAS_LEAF), -1, np.int32)
+    leaf_prim[0, :10] = np.arange(10)      # group 0 full, group 1 3 live
+    leaf_prim[1, :4] = np.arange(4)        # group 1 empty
+    far = tris.copy()
+    for r in range(3):                     # far-off garbage in dead slots
+        for k in np.nonzero(leaf_prim[r] < 0)[0]:
+            far[r, 9 * k:9 * k + 9] = 1e6
+    got = t_mk3.group_boxes(far, leaf_prim)
+    np.testing.assert_array_equal(got, t_mk3.group_boxes(tris, leaf_prim))
+    assert (got[1, 8:] == 0).all() and (got[2] == 0).all()
+    v = tris[0, 63:90].reshape(3, 9)  # group 1's live slots
+    pad = np.float32(t_mk3.GROUP_MARGIN) * np.abs(v).max()
+    assert got[0, 8] == np.nextafter(v[:, 0::3].min() - pad, -np.inf)
+    assert got[0, 11] == np.nextafter(v[:, 0::3].max() + pad, np.inf)
+
+
+def _rays(packed, n, seed):
+    """Seeded rays from points around the tree's box: half toward random
+    points of the box, half toward points of random live triangles near
+    their corners and edges (Dirichlet weights), whose hits lie at the
+    faces of their group's box."""
+    rng = np.random.default_rng(seed)
+    nodes = packed.nodes.numpy()
+    lo, hi = nodes[0, 0:3], nodes[0, 3:6]
+    span = hi - lo
+    o = lo - 0.5 * span + rng.random((n, 3)) * 2.0 * span
+    tgt = lo + rng.random((n, 3)) * span
+    live = packed.leaf_prim.numpy().reshape(-1) >= 0
+    tri = packed.tris.numpy()[:, :9 * t_mk3.PALLAS_LEAF].reshape(-1, 3, 3)[
+        live]
+    pick = rng.integers(0, tri.shape[0], n // 2)
+    w = rng.dirichlet([0.05] * 3, n // 2)
+    tgt[:n // 2] = (w[:, :, None] * tri[pick]).sum(axis=1)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)),
+            torch.from_numpy(d.astype(np.float32)))
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+@pytest.mark.parametrize("isect", ["mt", "bw"])
+def test_culling_drops_no_hit(packed, isect, seed):
+    """Every slot hit, at its own t as the bound (raised by GROUP_MARGIN,
+    as the kernels raise it), lies in a group whose box the plain slab
+    test passes: the kernels' group culling keeps every hit a walk bounded
+    at or above that t can take."""
+    o, d = _rays(packed, 2048, seed=seed)
+    o3, d3 = o.unbind(-1), d.unbind(-1)
+    inv3 = tuple(1.0 / mega._fix(c) for c in d3)
+    rows = packed.tris.shape[0]
+    slot = np.arange(rows * t_mk3.PALLAS_LEAF)
+    live = packed.leaf_prim.numpy().reshape(-1) >= 0
+    slot = slot[live]
+    if isect == "mt":
+        rec = packed.tris[:, :9 * t_mk3.PALLAS_LEAF].reshape(-1, 9)[
+            torch.from_numpy(slot)]
+    else:
+        rpl, bw_rpl = packed.rows_per_leaf, packed.bw_rows_per_leaf
+        per_leaf = rpl * t_mk3.PALLAS_LEAF
+        leaf, j = slot // per_leaf, slot % per_leaf
+        bw = packed.tris_bw.reshape(-1, bw_rpl, 128)[:, :, :120].reshape(
+            -1, bw_rpl * t_mk3.BW_PER_ROW, 12)
+        rec = bw[torch.from_numpy(leaf), torch.from_numpy(j)]
+    box = packed.leafbox.reshape(rows * 2, 8)[
+        torch.from_numpy(slot // t_mk3.GROUP)]
+    hits = 0
+    for s0, ok, t in mega._slot_chunks(o3, d3, rec):
+        b = box[s0:s0 + ok.shape[1]].T[:, None, :]
+        bound = t + t.abs() * t_mk3.GROUP_MARGIN
+        passes = mega._slab(tuple(c[:, None] for c in o3),
+                            tuple(c[:, None] for c in inv3), b, bound)
+        assert bool((passes | ~ok).all())
+        hits += int(ok.sum())
+    assert hits > 100
+
+
+def _binary_worst(nodes, i=0):
+    """Interior levels on the longest path from node i: the ordered walk
+    holds at most one pending far child per level of its path, and any
+    child can be the near one for some ray."""
+    if nodes[i, 7] > 0:
+        return 0
+    return 1 + max(_binary_worst(nodes, i + 1),
+                   _binary_worst(nodes, int(nodes[i, 9])))
+
+
+def _wide_worst(wide, row=0, below=0):
+    """The wide walk's most entries from expanding ``row`` with ``below``
+    entries under it: its present children, and for each interior child
+    (any may be the nearest, popped first) the rest of them below that
+    child's own expansion."""
+    cnt, meta = wide[row, 7::8], wide[row, 6::8]
+    kids = int((cnt >= 0).sum())
+    return max([below + kids] + [
+        _wide_worst(wide, int(meta[c]), below + kids - 1)
+        for c in range(cnt.shape[0]) if cnt[c] == 0])
+
+
+def test_stored_depths_equal_a_walk_of_the_rows(packed):
+    assert packed.stack_binary == _binary_worst(packed.nodes.numpy())
+    assert packed.stack_wide == _wide_worst(packed.wide.numpy())
+    assert 0 < packed.stack_binary <= t_mk3.STACK_BINARY
+    assert 0 < packed.stack_wide <= traverse_wide.STACK
+
+
+def test_flagship_depths():
+    """mesh100k with its preset's 98-triangle leaves: 19 BVH4 entries
+    and 12 binary ones, far below the 256 and 96 of the twin's stacks."""
+    scene, _, cfg = get_preset("mesh100k", width=8, height=8, device="cpu")
+    packed = t_bvh.prepare_bvh(scene, cfg, "cpu")
+    assert (packed.stack_wide, packed.stack_binary) == (19, 12)
+    assert packed.stack_wide == _wide_worst(packed.wide.numpy())
+    assert packed.stack_binary == _binary_worst(packed.nodes.numpy())
+
+
+def _chain(n):
+    """A left-leaning chain of n interior nodes, one leaf on each side:
+    the ordered walk's worst push depth is n."""
+    nodes = np.zeros((2 * n + 1, 16), np.float32)
+    nodes[:, 6] = -1.0
+    for i in range(n):
+        nodes[2 * i, 9] = 2 * i + 2
+        nodes[2 * i + 1, 7] = 1.0
+        nodes[2 * i + 1, 6] = float(i)
+    nodes[2 * n, 7] = 1.0
+    return nodes
+
+
+@pytest.mark.parametrize("n", [1, 12, t_mk3.STACK_BINARY])
+def test_check_stack_passes_up_to_the_capacity(n):
+    depth = t_mk3.binary_stack_depth(_chain(n))
+    assert depth == n
+    t_mk3.check_stack(depth, t_mk3.STACK_BINARY)
+
+
+@pytest.mark.parametrize("depth,capacity", [
+    (t_mk3.STACK_BINARY + 1, t_mk3.STACK_BINARY),
+    (traverse_wide.STACK + 1, traverse_wide.STACK), (-1, 96)])
+def test_check_stack_raises(depth, capacity):
+    with pytest.raises(ValueError, match="stack"):
+        t_mk3.check_stack(depth, capacity, "walk")
+
+
+def test_deep_chain_raises_before_any_launch():
+    """A binary tree deeper than the ordered walk's stack: its stored
+    depth is above the capacity, so the wrappers' check refuses it."""
+    nodes = _chain(t_mk3.STACK_BINARY + 8)
+    assert t_mk3.binary_stack_depth(nodes) == t_mk3.STACK_BINARY + 8
+    with pytest.raises(ValueError, match="more than the kernel's capacity"):
+        t_mk3.check_stack(t_mk3.binary_stack_depth(nodes),
+                          t_mk3.STACK_BINARY, "walk_raw mk4")
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _deep_packed(device):
+    """The small scene's tree with its depths set past the kernels'
+    stacks (as a pathological tree would carry them)."""
+    pk = _tree("small", 14, 4).to(device)
+    return pk.replace(stack_binary=t_mk3.STACK_BINARY + 1,
+                      stack_wide=traverse_wide.STACK + 1)
+
+
+@pytest.mark.gpu
+def test_too_deep_tree_raises_before_launch_on_card(cuda):
+    pk = _deep_packed(cuda)
+    o = torch.zeros((64, 3), device=cuda)
+    d = torch.ones((64, 3), device=cuda)
+    tm = torch.full((64,), 3e38, device=cuda)
+    before = dict(t_mk3.launches)
+    with pytest.raises(ValueError, match="capacity"):
+        t_mk3.walk_raw("mk4", pk, o, d, tm)
+    assert t_mk3.launches == before
+    scene = small_scene(t_scene, t_meshgen, device="cpu").to(cuda)
+    aux = mega.build_aux(scene, CFG.background)
+    kw = dict(n_lights=2, n_spheres=1, n_tris=2, max_bounces=2)
+    seg = dict(mega.launches)
+    with pytest.raises(ValueError, match="capacity"):
+        mega.trace_segment(pk, aux, 0, o, d, torch.ones_like(o), tm, **kw)
+    assert mega.launches == seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["bw/wide4", "mt/binary"])
+def test_shared_overflow_counter_on_card(cuda, route):
+    """Several launches on one overflow counter (as a frame's chain shares
+    it): no push dropped, and the bits of a launch with its own."""
+    isect, arity = ("bw", 4) if route == "bw/wide4" else ("mt", 0)
+    pk = _tree("small", 14, arity).to(cuda)
+    scene = small_scene(t_scene, t_meshgen, device="cpu").to(cuda)
+    aux = mega.build_aux(scene, CFG.background)
+    o, d = (x.to(cuda) for x in _rays(pk.to("cpu"), 5000, seed=3))
+    thr = torch.ones_like(o)
+    tm = torch.full((5000,), 3e38, device=cuda)
+    tm[::5] = -1.0
+    kw = dict(n_lights=2, n_spheres=1, n_tris=2, max_bounces=2,
+              tri_isect=isect, use_wide=arity != 0)
+    ovf = torch.zeros(1, dtype=torch.int32, device=cuda)
+    shared = [mega.trace_segment(pk, aux, 0, o, d, thr, tm, overflow=ovf,
+                                 **kw) for _ in range(3)]
+    walks = [t_mk3.walk_raw("mk4", pk, o, d, tm, overflow=ovf)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert int(ovf.item()) == 0
+    alone = mega.trace_segment(pk, aux, 0, o, d, thr, tm, **kw)
+    for got in shared:
+        for a, b in zip(got, alone):
+            assert torch.equal(a, b)
+    want = t_mk3.walk_raw("mk4", pk, o, d, tm)
+    for got in walks:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

@@ -1,5 +1,5 @@
 // Device code shared by the BVH walks (traverse.cu) and the fused segment
-// kernel (mega_segment.cu), for Hopper (sm_90a), one thread per ray:
+// kernel (mega_segment.cu), for Hopper (sm_90a):
 //
 //   Ray, fix_dir, make_ray   a ray with its clamped inverse direction;
 //   slab                     the TPU kernels' slab test over [0, best]: 1/d
@@ -8,13 +8,20 @@
 //   mt_test, mt_hit          Möller–Trumbore against one triangle, in the
 //                            TPU kernels' operation order (mt_hit reads a
 //                            leaf slot's 9 floats through __ldg);
+//   group_hit                the slab test of a leaf-slot group's box (the
+//                            port's leafbox rows, ops/kernels/traverse_mk3.
+//                            group_boxes): a leaf test skips a group whose
+//                            box the ray does not enter below its bound
+//                            (raised by kGroupMargin);
+//   Stack                    a lane's walk stack of (code, entry
+//                            distance), in local memory;
 //   Node, load_node          the binary node row [16] f32: lo(0:3) hi(3:6)
 //                            leaf row(6) count(7) miss(8) right(9);
 //   walk_ordered_binary      the binary walk of the TPU's traverse_mk4:
 //                            near child first by entry distance, the far
-//                            child pushed on a private 96-entry stack with
-//                            its entry distance and dropped on pop when
-//                            that exceeds the walk's bound;
+//                            child pushed on the lane's Stack with its
+//                            entry distance and dropped on pop when that
+//                            exceeds the walk's bound;
 //   walk_threaded_binary     the binary walk of the TPU's traverse_mk3:
 //                            leftmost-DFS order, descend to node + 1 on a
 //                            box hit, else follow the miss link; no stack.
@@ -28,6 +35,7 @@
 //                                       walk (an any-hit walk found one)
 //   float bound()                       the current bound (best t)
 //   void overflow()                     a push the stack had no room for
+//   void pushed(int sp)                 a push left sp entries (counting)
 //
 // Numerics: IEEE division, no fast-math, and the sources are built with
 // -fmad=false (ops/kernels/_lib.py), so each product and sum rounds where
@@ -44,7 +52,20 @@ namespace urt {
 constexpr int kRow = 128;         // row stride of tris, tris_bw and aux
 constexpr int kLeafSlots = 14;    // PALLAS_LEAF: triangles per tris row
 constexpr int kNodeRow = 16;      // floats per binary node row
-constexpr int kStackBinary = 96;  // ops/pallas/traverse_mk4.STACK
+constexpr int kGroup = 7;         // leaf slots per group box (GROUP)
+constexpr int kBoxRow = 16;       // floats per leafbox row: 2 group boxes
+// GROUP_MARGIN: a triangle's hit is computed a few ulps of t off the
+// triangle, so a group is tested up to bound * (1 + this); its box is
+// widened by as much of its coordinates (group_boxes)
+constexpr float kGroupMargin = 1.0f / 65536.0f;
+// stack capacities (entries per lane) of the wide walks and of the ordered
+// binary walk: ops/kernels/traverse_wide.STACK and traverse_mk3.
+// STACK_BINARY, which the wrappers hold the tree's worst push depth to
+// before a launch
+constexpr int kStackWide = 256;
+constexpr int kStackBinary = 96;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-5f;
 constexpr float kTiny = 1e-30f;
 
@@ -85,6 +106,25 @@ __device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
   return tn <= tf && tn <= best;
 }
 
+// Does the ray enter, at or below `bound` raised by kGroupMargin, the box
+// of the group of leaf slots j0 .. j0 + kGroup - 1 of the leaf whose first
+// tris row is leaf_row? The box holds every vertex of the group's live
+// slots, widened outward (group_boxes), so a skipped group holds no hit
+// at t <= bound; the margins only test more groups, and a tested group
+// changes the walk only by a hit strictly below the bound.
+__device__ __forceinline__ bool group_hit(const float* leafbox, int leaf_row,
+                                          int j0, const Ray& r,
+                                          float bound) {
+  const float4* b = reinterpret_cast<const float4*>(
+      leafbox + (size_t)(leaf_row + j0 / kLeafSlots) * kBoxRow +
+      8 * ((j0 % kLeafSlots) / kGroup));
+  const float4 lo = __ldg(b);      // lx ly lz hx
+  const float4 hi = __ldg(b + 1);  // hy hz - -
+  float tn;
+  return slab(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r,
+              bound + fabsf(bound) * kGroupMargin, tn);
+}
+
 // Möller–Trumbore against one triangle v0 v1 v2.
 __device__ __forceinline__ bool mt_test(float v0x, float v0y, float v0z,
                                         float v1x, float v1y, float v1z,
@@ -117,6 +157,40 @@ __device__ __forceinline__ bool mt_hit(const float* v, const Ray& r,
                  __ldg(v + 8), r, t);
 }
 
+// A lane's stack of (code, entry distance). Its deepest use is the tree's
+// worst push depth (PackedBVH.stack_*), which the wrapper checked against
+// CAP before the launch. It lives in local memory: cached in L1 as far as
+// it is used (10 entries on the flagship), and measured faster than a
+// stack of the tree's depth in shared memory, which takes the L1 that
+// caches the BVH rows (PERF.md).
+template <int CAP>
+struct Stack {
+  int code[CAP];
+  float key[CAP];
+  int sp;
+
+  // false (and nothing stored) when the stack is full
+  __device__ __forceinline__ bool push(int c, float k) {
+    if (sp >= CAP) return false;
+    code[sp] = c;
+    key[sp] = k;
+    ++sp;
+    return true;
+  }
+
+  // Pop the nearest entry that can still beat `best`; false when empty.
+  __device__ __forceinline__ bool pop(float best, int& c) {
+    while (sp > 0) {
+      --sp;
+      if (key[sp] <= best) {
+        c = code[sp];
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
 // Binary node row: lo(0:3) hi(3:6) leaf row(6) count(7) miss(8) right(9).
 struct Node {
   float4 a;  // lx ly lz hx
@@ -138,11 +212,9 @@ __device__ __forceinline__ bool node_slab(const Node& nd, const Ray& r,
 // traverse_mk4's order: near child first; the far child waits on the
 // stack with its entry distance, and is dropped on pop when that exceeds
 // the visitor's bound.
-template <class V>
-__device__ void walk_ordered_binary(V& v) {
-  int node[kStackBinary];
-  float key[kStackBinary];
-  int sp = 0;
+template <class V, class S>
+__device__ void walk_ordered_binary(V& v, S& st) {
+  st.sp = 0;
   int cursor = 0;
   float tn;
   if (!v.box(v.node(0), tn)) return;
@@ -159,13 +231,10 @@ __device__ void walk_ordered_binary(V& v) {
       const bool hr = right >= 0 && v.box(v.node(right), tr);
       if (hl && hr) {
         const bool l_first = tl <= tr;
-        if (sp < kStackBinary) {
-          node[sp] = l_first ? right : left;
-          key[sp] = l_first ? tr : tl;
-          ++sp;
-        } else {
+        if (st.push(l_first ? right : left, l_first ? tr : tl))
+          v.pushed(st.sp);
+        else
           v.overflow();
-        }
         cursor = l_first ? left : right;
         continue;
       }
@@ -174,16 +243,7 @@ __device__ void walk_ordered_binary(V& v) {
         continue;
       }
     }
-    bool popped = false;
-    while (sp > 0) {
-      --sp;
-      if (key[sp] <= v.bound()) {
-        cursor = node[sp];
-        popped = true;
-        break;
-      }
-    }
-    if (!popped) return;
+    if (!st.pop(v.bound(), cursor)) return;
   }
 }
 

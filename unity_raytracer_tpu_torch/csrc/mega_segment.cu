@@ -1,4 +1,4 @@
-// Fused bounce-segment kernel for Hopper (sm_90a): one thread per ray.
+// Fused bounce-segment kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel unity_raytracer_tpu/ops/pallas/mega.py:_kernel
 // (its pallas_call is at mega.py:1398) in all its modes, a template
@@ -20,7 +20,7 @@
 //                reflection) on four more.
 // Two more template parameters pick the mesh walk (the twin's mode e):
 //   LAYOUT       kWide4 / kWide8: the wide BVH4/8 rows (ops/kernels/
-//                traverse_wide.widen), near-first with a 256-entry stack;
+//                traverse_wide.widen), near-first with a stack;
 //                kBinary: the binary node rows (bvh_arity = 0), the
 //                ordered walk of traverse_mk4 for the nearest hit and the
 //                threaded walk of traverse_mk3 for shadows
@@ -34,47 +34,70 @@
 //                the shading normal.
 // It reads the host-built arrays unchanged (wide rows or binary nodes,
 // tris or tris_bw rows with a 128-float stride, leafmeta, the aux block of
-// ops/kernels/mega.build_aux) and writes the five outputs of one segment,
+// ops/kernels/mega.build_aux) plus the port's own leafbox rows (one box per
+// 7-slot group of leaf slots), and writes the five outputs of one segment,
 // plus the records or the refract child.
 //
-// Design: one thread per ray with a private stack. The wide walk keeps
-// STACK (int code, float entry distance) entries: it slab-tests the
-// children of a wide node against its own ray, sorts the hits by entry
-// distance in registers and pushes them far-to-near; on pop it skips an
-// entry whose entry distance exceeds its best_t. The binary walks are the
-// traversal kernels' own (bvh_walk.cuh) with this kernel's leaf tests. The
-// TPU kernel's per-tile union walk, scalar SMEM cursor, shared stale prune
-// and its tile_r / walk_unroll / occ_mode / near_mode knobs do not exist
-// here: they were the TPU's answer to one cursor per tile and change no
-// result. Any-hit shadow walks stop at the first occluder closer than the
-// light, after testing spheres and loose triangles first. A min-mode walk
-// starts from best = the light distance, lowers it with spheres and loose
-// triangles (strict <), then walks near-first (threaded on the binary
-// layout), pruning by best and lowering it on every closer hit; it never
-// stops early. Its occlusion mask (best < best0) is the any-hit walk's, so
-// the shading, delta and continuation of RECORD_SOFT equal FORWARD's. The
-// binary walks test a leaf's slots up to its triangle count; the wide
-// walks too (the count rides in the stack code), where the twin tests
-// every slot of the leaf's rows: the slots past the count are all-zero
-// triangles that no ray hits, so both find the same hits.
+// Semantics: a lane walks its own ray with pops pruned by its own best t.
+// The TPU kernel's per-tile union walk, scalar SMEM cursor, shared stale
+// prune and its tile_r / walk_unroll / occ_mode / near_mode knobs do not
+// exist here: they were the TPU's answer to one cursor per tile and change
+// no result. The wide walk slab-tests the children of a wide node, sorts
+// the hits by entry distance in registers and pushes them far-to-near; on
+// pop it skips an entry whose entry distance exceeds its best_t. Any-hit
+// shadow walks stop at the first occluder closer than the light, after
+// testing spheres and loose triangles first. A min-mode walk starts from
+// best = the light distance, lowers it with spheres and loose triangles
+// (strict <), then walks near-first (threaded on the binary layout),
+// pruning by best and lowering it on every closer hit; it never stops
+// early. Its occlusion mask (best < best0) is the any-hit walk's, so the
+// shading, delta and continuation of RECORD_SOFT equal FORWARD's. A leaf
+// test takes its slots (up to the leaf's triangle count, which the wide
+// walks carry in the stack code; the twin tests the zero pad slots too,
+// which no ray hits) in groups of 7: a group is tested, in slot order,
+// only when the ray enters the group's box at or below the walk's bound
+// (best_t, the light distance or the min-mode best); a skipped group
+// holds no hit there, so strict < keeps the same hits and winners.
 //
 // What bounds it on this card: divergent pointer chasing. The 32 rays of a
 // warp visit different nodes and leaves, so the loads of the ~10 MB of BVH
 // rows (they fit in the 50 MB L2) are scattered and serialised, and the
-// per-thread stack lives in local memory beside a register-heavy ray state,
-// which limits occupancy. wgmma and TMA do not apply: there is no dense
-// tile product and no regular tile to copy. The record modes add 6 (RECORD)
-// or 6 + L (RECORD_SOFT) output streams per lane and FORK 10; RECORD_SOFT's
-// min-mode walks visit every box nearer than the nearest occluder instead
-// of stopping at the first one. This simple version does nothing about
-// either yet beyond 16-byte loads of node and Baldwin–Weber records; the
-// speed work is for later.
+// leaf-slot tests, most of the work on the flagship's 98-slot leaves, ran
+// with a third (nearest walk) or a quarter (shadow walks) of the warp
+// active (PERF.md); wgmma and TMA do not apply (no dense tile
+// product, no regular tile to copy). The design spends the SIMT warp:
+//   - leaf groups culled by their box (above): the largest gain;
+//   - warp-pooled shadow queries: after the nearest walks, each lane finds
+//     the lights it needs a shadow walk for (the light_cull gate and
+//     n.l >= 0, as before); the warp compacts those (lane, light) pairs
+//     light-major into a list in its shared memory (ballot and popc),
+//     with each lane's hit point and normal, and walks the list 32 pairs
+//     at a time (ShadowWalk). Each pair's ray is rebuilt from its owner's
+//     point by the owner's formulas; the answer (occluded, or the
+//     min-mode t) goes back to the owner, which then shades its lights in
+//     light order as before, so the colour sums and occbits round exactly
+//     as before. A warp without a hit skips the phase. Measured within
+//     noise of per-lane walks on the flagship: a round of 32 walks lasts
+//     as long as its longest. Refilling a lane from the list as soon as
+//     its walk ended, a walk step at a time, was measured slower still
+//     (PERF.md).
+// The stacks stay in local memory (kStackWide / kStackBinary entries;
+// the wrapper holds the tree's worst push depth, PackedBVH.stack_wide /
+// stack_binary, to them before the launch): a stack of the tree's depth
+// in shared memory, and persistent warps taking 32 lanes at a time from a
+// counter, were both measured slower (PERF.md). One thread per
+// ray: dead lanes write their pass-through and join the warp's ballots; a
+// warp without a live lane stops there.
+// The record modes add 6 (RECORD) or 6 + L (RECORD_SOFT) output streams
+// per lane and FORK 10; RECORD_SOFT's min-mode walks visit every box
+// nearer than the nearest occluder instead of stopping at the first one.
 //
 // A counting instance (template flag C, launched only by chip_smoke.py to
 // measure the work, built only where it reads one) adds each lane's slab
-// tests, Baldwin–Weber leaf-slot tests, sphere tests and Möller–Trumbore
-// tests (loose triangles and MT leaf slots) to four device counters; the
-// kernel's bound in PERF.md is computed from them.
+// tests (node and group boxes), Baldwin–Weber leaf-slot tests, sphere
+// tests and Möller–Trumbore tests (loose triangles and MT leaf slots) to
+// four device counters, from which PERF.md's bound is computed, and their
+// split by phase (mega.COUNTS).
 //
 // Numerics follow the TPU kernel and the plain PyTorch version
 // (ops/kernels/mega.py:trace_segment_plain) formula by formula: IEEE
@@ -85,7 +108,8 @@
 // bits of expf/logf and by which of two hits at equal distance is met
 // first.
 // A push that would overflow the stack is dropped and counted in
-// *overflow; the wrapper raises when the count is not zero.
+// *overflow; the wrapper raises when the count is not zero (it checked
+// the tree's depth against the capacity, so none is).
 //
 // Instances: -DURT_MEGA_GROUP picks one library's (ops/kernels/_lib.py):
 // 4 the BVH4 rows, 8 the BVH8 rows, 0 the binary rows and the meshless
@@ -102,9 +126,10 @@ namespace {
 
 using namespace urt;
 
-constexpr int kStack = 256;      // ops/kernels/traverse_wide.STACK
 constexpr int kBwPerRow = 10;    // BW_PER_ROW: records per tris_bw row
 constexpr int kBlock = 128;
+constexpr int kLightChunk = 8;   // lights pooled at once (LIGHT_CHUNK)
+constexpr int kCounts = 16;      // ops/kernels/mega.COUNTS
 constexpr float kBig = 3.0e38f;
 constexpr float kShadowEps = 1e-4f;
 // the TPU kernel clamps squared lengths with max(x, 1e-60); 1e-60 rounds
@@ -121,6 +146,7 @@ struct Args {
   const float* tmax;
   const float* table;  // wide rows [Nw, 8*arity] or binary nodes [Nn, 16]
   const float* leaf;   // tris_bw (Baldwin–Weber) or tris (MT) rows
+  const float* leafbox;  // [tris rows, 16]: two group boxes per tris row
   const float* leafmeta;
   const float* aux;
   float* delta;
@@ -128,7 +154,7 @@ struct Args {
   float* d2;
   float* thr2;
   float* tmax2;
-  int* overflow;
+  int* overflow;  // [1]: dropped stack pushes
   int n;
   int depth;
   int leaf_rows;
@@ -147,29 +173,72 @@ struct Args {
   float* rmat;
   float* rocc;
   float* rst;
-  // COUNT: slab tests, BW leaf-slot tests, sphere tests, MT tests
+  // COUNT: kCounts tallies (ops/kernels/mega.COUNTS)
   unsigned long long* counts;
   // FORK: the refract child o [n,3], d [n,3], weight [n,3], tmax [n]
   float* o3;
   float* d3;
   float* thr3;
   float* tmax3;
+  int light_chunk;  // lights pooled at once
+  int warp_floats;  // a warp's region of shared memory, in 4-byte words
 };
 
-template <bool COUNT>
-struct Stack {
-  int code[kStack];
-  float key[kStack];
-  int sp;
+// The counting instance's tallies (mega.COUNTS): the totals the bound
+// reads, and per phase (0 the nearest walk, 1 the shadow walks) slab
+// tests, leaf-slot tests, warp issues of a leaf-slot test, the deepest
+// stack and the group box tests. The other instances count nothing.
+template <bool C>
+struct Tally {
+  __device__ void phase(int) {}
+  __device__ void slab() {}
+  __device__ void group() {}
+  template <bool MT>
+  __device__ void slot() {}
+  __device__ void sphere() {}
+  __device__ void tri() {}
+  __device__ void pushed(int) {}
+  __device__ void live() {}
+  __device__ void query() {}
+  __device__ void flush(unsigned long long*) const {}
 };
 
-// the counting instance's stack also carries the lane's tallies
 template <>
-struct Stack<true> {
-  int code[kStack];
-  float key[kStack];
-  int sp;
-  unsigned long long slab, leaf, sphere, tri;
+struct Tally<true> {
+  unsigned long long v[kCounts];
+  int ph;
+  __device__ void phase(int p) { ph = p; }
+  __device__ void slab() {
+    ++v[0];
+    ++v[4 + ph];
+  }
+  __device__ void group() {
+    slab();
+    ++v[14 + ph];
+  }
+  // one leaf-slot test; the first active lane of the warp counts the issue
+  template <bool MT>
+  __device__ void slot() {
+    ++v[MT ? 3 : 1];
+    ++v[6 + ph];
+    if (static_cast<int>(threadIdx.x & 31) == __ffs(__activemask()) - 1)
+      ++v[8 + ph];
+  }
+  __device__ void sphere() { ++v[2]; }
+  __device__ void tri() { ++v[3]; }
+  __device__ void pushed(int sp) {
+    if (static_cast<unsigned long long>(sp) > v[10 + ph]) v[10 + ph] = sp;
+  }
+  __device__ void live() { ++v[12]; }
+  __device__ void query() { ++v[13]; }
+  __device__ void flush(unsigned long long* counts) const {
+    for (int k = 0; k < kCounts; ++k) {
+      if (k == 10 || k == 11)
+        atomicMax(counts + k, v[k]);
+      else
+        atomicAdd(counts + k, v[k]);
+    }
+  }
 };
 
 __device__ __forceinline__ float rsqrt_clamped(float x) {
@@ -217,7 +286,7 @@ __device__ __forceinline__ void tri_normal(const float* v, float& nx,
 }
 
 // Möller–Trumbore against a loose triangle's aux row v0 v1 v2 (0:9), read
-// with plain loads: through __ldg the forward BVH4 instance needs 8 more
+// with plain loads: through __ldg the forward BVH4 instance needed 8 more
 // registers (ptxas, PERF.md).
 __device__ __forceinline__ bool mt_aux(const float* v, const Ray& r,
                                        float& t) {
@@ -259,37 +328,39 @@ __device__ __forceinline__ float slot_matid(const Args& a, int leaf_row,
                j % kLeafSlots);
 }
 
-// Nearest-hit tests of a leaf's `count` slots (strict <): the winner's t,
-// shading normal and material id.
+// Nearest-hit tests of a leaf's `count` slots (strict <), a group at a
+// time: the winner's t, shading normal and material id.
 template <bool MT, bool C>
 __device__ __forceinline__ void near_leaf(const Args& a, int leaf_row,
                                           int count, const Ray& r,
-                                          Stack<C>& st, float& best_t,
+                                          Tally<C>& tl, float& best_t,
                                           float& bnx, float& bny,
                                           float& bnz, float& bmat) {
-  if constexpr (MT) {
-    if constexpr (C) st.tri += count;
-    for (int j = 0; j < count; ++j) {
-      const float* v = mt_slot(a, leaf_row, j);
-      float t;
-      if (mt_hit(v, r, t) && t < best_t) {
-        best_t = t;
-        tri_normal(v, bnx, bny, bnz);
-        bmat = slot_matid(a, leaf_row, j);
-      }
-    }
-  } else {
-    if constexpr (C) st.leaf += count;
-    for (int j = 0; j < count; ++j) {
-      float t, nx, ny, nz;
-      if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) &&
-          t < best_t) {
-        best_t = t;
-        // the stored unit plane normal is the shading normal
-        bnx = nx;
-        bny = ny;
-        bnz = nz;
-        bmat = slot_matid(a, leaf_row, j);
+  for (int j0 = 0; j0 < count; j0 += kGroup) {
+    tl.group();
+    if (!group_hit(a.leafbox, leaf_row, j0, r, best_t)) continue;
+    const int end = j0 + kGroup < count ? j0 + kGroup : count;
+    for (int j = j0; j < end; ++j) {
+      tl.template slot<MT>();
+      if constexpr (MT) {
+        const float* v = mt_slot(a, leaf_row, j);
+        float t;
+        if (mt_hit(v, r, t) && t < best_t) {
+          best_t = t;
+          tri_normal(v, bnx, bny, bnz);
+          bmat = slot_matid(a, leaf_row, j);
+        }
+      } else {
+        float t, nx, ny, nz;
+        if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) &&
+            t < best_t) {
+          best_t = t;
+          // the stored unit plane normal is the shading normal
+          bnx = nx;
+          bny = ny;
+          bnz = nz;
+          bmat = slot_matid(a, leaf_row, j);
+        }
       }
     }
   }
@@ -299,17 +370,21 @@ __device__ __forceinline__ void near_leaf(const Args& a, int leaf_row,
 template <bool MT, bool C>
 __device__ __forceinline__ bool any_leaf(const Args& a, int leaf_row,
                                          int count, const Ray& r,
-                                         float tmax, Stack<C>& st) {
-  for (int j = 0; j < count; ++j) {
-    float t;
-    if constexpr (MT) {
-      if constexpr (C) ++st.tri;
-      if (mt_hit(mt_slot(a, leaf_row, j), r, t) && t < tmax) return true;
-    } else {
-      if constexpr (C) ++st.leaf;
-      float nx, ny, nz;
-      if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) && t < tmax)
-        return true;
+                                         float tmax, Tally<C>& tl) {
+  for (int j0 = 0; j0 < count; j0 += kGroup) {
+    tl.group();
+    if (!group_hit(a.leafbox, leaf_row, j0, r, tmax)) continue;
+    const int end = j0 + kGroup < count ? j0 + kGroup : count;
+    for (int j = j0; j < end; ++j) {
+      tl.template slot<MT>();
+      float t;
+      if constexpr (MT) {
+        if (mt_hit(mt_slot(a, leaf_row, j), r, t) && t < tmax) return true;
+      } else {
+        float nx, ny, nz;
+        if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) && t < tmax)
+          return true;
+      }
     }
   }
   return false;
@@ -319,16 +394,21 @@ __device__ __forceinline__ bool any_leaf(const Args& a, int leaf_row,
 template <bool MT, bool C>
 __device__ __forceinline__ void min_leaf(const Args& a, int leaf_row,
                                          int count, const Ray& r,
-                                         float& best, Stack<C>& st) {
-  if constexpr (C) (MT ? st.tri : st.leaf) += count;
-  for (int j = 0; j < count; ++j) {
-    float t;
-    if constexpr (MT) {
-      if (mt_hit(mt_slot(a, leaf_row, j), r, t) && t < best) best = t;
-    } else {
-      float nx, ny, nz;
-      if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) && t < best)
-        best = t;
+                                         float& best, Tally<C>& tl) {
+  for (int j0 = 0; j0 < count; j0 += kGroup) {
+    tl.group();
+    if (!group_hit(a.leafbox, leaf_row, j0, r, best)) continue;
+    const int end = j0 + kGroup < count ? j0 + kGroup : count;
+    for (int j = j0; j < end; ++j) {
+      tl.template slot<MT>();
+      float t;
+      if constexpr (MT) {
+        if (mt_hit(mt_slot(a, leaf_row, j), r, t) && t < best) best = t;
+      } else {
+        float nx, ny, nz;
+        if (bw_hit(bw_record(a, leaf_row, j), r, t, nx, ny, nz) && t < best)
+          best = t;
+      }
     }
   }
 }
@@ -341,36 +421,12 @@ __device__ __forceinline__ int leaf_code(int leaf_row, int count) {
   return -2 - (leaf_row * 256 + count);
 }
 
-template <bool C>
-__device__ __forceinline__ void push(Stack<C>& st, int code, float key,
-                                     int* overflow) {
-  if (st.sp < kStack) {
-    st.code[st.sp] = code;
-    st.key[st.sp] = key;
-    ++st.sp;
-  } else {
-    atomicAdd(overflow, 1);
-  }
-}
-
-// Pop the nearest entry that can still beat `best`; false when empty.
-template <bool C>
-__device__ __forceinline__ bool pop(Stack<C>& st, float best, int& code) {
-  while (st.sp > 0) {
-    --st.sp;
-    if (st.key[st.sp] <= best) {
-      code = st.code[st.sp];
-      return true;
-    }
-  }
-  return false;
-}
-
 // Slab-test the ARITY children of wide row `node`; push the hits
 // far-to-near (ORDERED) or in reverse slot order.
 template <int ARITY, bool ORDERED, bool C>
 __device__ __forceinline__ void expand(const Args& a, int node, const Ray& r,
-                                       float best, Stack<C>& st) {
+                                       float best, Stack<kStackWide>& st,
+                                       Tally<C>& tl) {
   const float4* row =
       reinterpret_cast<const float4*>(a.table + (size_t)node * 8 * ARITY);
   float key[ARITY];
@@ -379,7 +435,7 @@ __device__ __forceinline__ void expand(const Args& a, int node, const Ray& r,
   for (int c = 0; c < ARITY; ++c) {
     const float4 lo = __ldg(row + 2 * c);      // lx ly lz hx
     const float4 hi = __ldg(row + 2 * c + 1);  // hy hz meta count
-    if constexpr (C) st.slab += hi.w >= 0.f;
+    if (hi.w >= 0.f) tl.slab();
     float tn;
     const bool hit = hi.w >= 0.f &&
                      slab(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, best, tn);
@@ -405,58 +461,31 @@ __device__ __forceinline__ void expand(const Args& a, int node, const Ray& r,
   }
 #pragma unroll
   for (int c = ARITY - 1; c >= 0; --c) {
-    if (key[c] < INFINITY) push(st, code[c], key[c], a.overflow);
+    if (key[c] < INFINITY) {
+      if (st.push(code[c], key[c]))
+        tl.pushed(st.sp);
+      else
+        atomicAdd(a.overflow, 1);
+    }
   }
 }
 
-// Nearest mesh hit: near-first walk with a per-thread best_t.
+// Nearest mesh hit: near-first walk with a per-lane best_t.
 template <int ARITY, bool MT, bool C>
-__device__ void nearest_wide(const Args& a, const Ray& r, Stack<C>& st,
-                             float& best_t, float& bnx, float& bny,
-                             float& bnz, float& bmat) {
+__device__ void nearest_wide(const Args& a, const Ray& r,
+                             Stack<kStackWide>& st, Tally<C>& tl,
+                             float& best_t, float& bnx,
+                             float& bny, float& bnz, float& bmat) {
   st.sp = 0;
   int cursor = 0;  // wide row 0 holds the root's children
   do {
     if (cursor >= 0) {
-      expand<ARITY, true>(a, cursor, r, best_t, st);
+      expand<ARITY, true>(a, cursor, r, best_t, st, tl);
     } else {
       const int x = -2 - cursor;
-      near_leaf<MT>(a, x >> 8, x & 255, r, st, best_t, bnx, bny, bnz, bmat);
+      near_leaf<MT>(a, x >> 8, x & 255, r, tl, best_t, bnx, bny, bnz, bmat);
     }
-  } while (pop(st, best_t, cursor));
-}
-
-// Any-hit mesh occlusion closer than tmax.
-template <int ARITY, bool MT, bool C>
-__device__ bool occluded_wide(const Args& a, const Ray& r, float tmax,
-                              Stack<C>& st) {
-  st.sp = 0;
-  int cursor = 0;
-  do {
-    if (cursor >= 0) {
-      expand<ARITY, false>(a, cursor, r, tmax, st);
-    } else {
-      const int x = -2 - cursor;
-      if (any_leaf<MT>(a, x >> 8, x & 255, r, tmax, st)) return true;
-    }
-  } while (pop(st, tmax, cursor));
-  return false;
-}
-
-// Min-mode mesh walk: best lowered to the nearest occluder below it.
-template <int ARITY, bool MT, bool C>
-__device__ void min_wide(const Args& a, const Ray& r, float& best,
-                         Stack<C>& st) {
-  st.sp = 0;
-  int cursor = 0;
-  do {
-    if (cursor >= 0) {
-      expand<ARITY, true>(a, cursor, r, best, st);
-    } else {
-      const int x = -2 - cursor;
-      min_leaf<MT>(a, x >> 8, x & 255, r, best, st);
-    }
-  } while (pop(st, best, cursor));
+  } while (st.pop(best_t, cursor));
 }
 
 // ---- the binary walks' visitors (bvh_walk.cuh), MT leaves ---------------
@@ -465,13 +494,14 @@ template <bool C>
 struct BinaryBase {
   const Args& a;
   const Ray& r;
-  Stack<C>& st;
+  Tally<C>& tl;
   __device__ Node node(int i) const { return load_node(a.table, i); }
   __device__ bool box_below(const Node& nd, float bound, float& tn) const {
-    if constexpr (C) ++st.slab;
+    tl.slab();
     return node_slab(nd, r, bound, tn);
   }
   __device__ void overflow() const { atomicAdd(a.overflow, 1); }
+  __device__ void pushed(int sp) const { tl.pushed(sp); }
 };
 
 // nearest: the ordered walk, bounded by the lane's best_t
@@ -486,149 +516,206 @@ struct NearBinary : BinaryBase<C> {
     return this->box_below(nd, best_t, tn);
   }
   __device__ bool leaf(int row, int count) const {
-    near_leaf<true>(this->a, row, count, this->r, this->st, best_t, bnx,
+    near_leaf<true>(this->a, row, count, this->r, this->tl, best_t, bnx,
                     bny, bnz, bmat);
     return false;
   }
   __device__ float bound() const { return best_t; }
 };
 
-// any-hit: the threaded walk, bounded by the light distance
-template <bool C>
-struct AnyBinary : BinaryBase<C> {
-  float tmax;
-  bool& found;
-  __device__ bool box(const Node& nd, float& tn) const {
-    return this->box_below(nd, tmax, tn);
-  }
-  __device__ bool leaf(int row, int count) const {
-    found = any_leaf<true>(this->a, row, count, this->r, tmax, this->st);
-    return found;
-  }
-  __device__ float bound() const { return tmax; }
-};
-
-// min mode: the threaded walk, bounded by the running nearest occluder
-template <bool C>
-struct MinBinary : BinaryBase<C> {
-  float& best;
-  __device__ bool box(const Node& nd, float& tn) const {
-    return this->box_below(nd, best, tn);
-  }
-  __device__ bool leaf(int row, int count) const {
-    min_leaf<true>(this->a, row, count, this->r, best, this->st);
-    return false;
-  }
-  __device__ float bound() const { return best; }
-};
-
 // ---- the walks of a layout ----------------------------------------------
+
+// the walk stack of a layout (kMeshless walks nothing)
+template <int LAYOUT>
+using LayoutStack = Stack<LAYOUT == kBinary     ? kStackBinary
+                          : LAYOUT == kMeshless ? 1
+                                                : kStackWide>;
 
 template <int LAYOUT, bool MT, bool C>
 __device__ __forceinline__ void nearest_mesh(const Args& a, const Ray& r,
-                                             Stack<C>& st, float& best_t,
+                                             LayoutStack<LAYOUT>& st,
+                                             Tally<C>& tl, float& best_t,
                                              float& bnx, float& bny,
                                              float& bnz, float& bmat) {
   if constexpr (LAYOUT == kBinary) {
-    NearBinary<C> v{{a, r, st}, best_t, bnx, bny, bnz, bmat};
-    walk_ordered_binary(v);
+    NearBinary<C> v{{a, r, tl}, best_t, bnx, bny, bnz, bmat};
+    walk_ordered_binary(v, st);
   } else if constexpr (LAYOUT != kMeshless) {
-    nearest_wide<LAYOUT, MT>(a, r, st, best_t, bnx, bny, bnz, bmat);
+    nearest_wide<LAYOUT, MT>(a, r, st, tl, best_t, bnx, bny, bnz, bmat);
   }
 }
 
-template <int LAYOUT, bool MT, bool C>
-__device__ __forceinline__ bool occluded_mesh(const Args& a, const Ray& r,
-                                              float tmax, Stack<C>& st) {
-  if constexpr (LAYOUT == kBinary) {
-    bool found = false;
-    AnyBinary<C> v{{a, r, st}, tmax, found};
-    walk_threaded_binary(v);
-    return found;
-  } else if constexpr (LAYOUT != kMeshless) {
-    return occluded_wide<LAYOUT, MT>(a, r, tmax, st);
-  }
-  return false;
+// ---- the pooled shadow phase --------------------------------------------
+
+// The geometry of light l seen from hit point p with shading normal n, by
+// the formulas of the lane that owns the hit (RayTracingSetup.cs:324-455).
+struct LightGeom {
+  float ld2, ldist, ldx, ldy, ldz, ln;
+};
+
+__device__ __forceinline__ LightGeom light_geom(const float* lrow, float px,
+                                                float py, float pz,
+                                                float bnx, float bny,
+                                                float bnz) {
+  const float lvx = lrow[0] - px, lvy = lrow[1] - py, lvz = lrow[2] - pz;
+  const float ld2 = lvx * lvx + lvy * lvy + lvz * lvz;
+  const float ldist = sqrtf(ld2);
+  const float linv = rsqrt_clamped(ld2);
+  const float ldx = lvx * linv, ldy = lvy * linv, ldz = lvz * linv;
+  return LightGeom{ld2, ldist, ldx, ldy, ldz,
+                   ldx * bnx + ldy * bny + ldz * bnz};
 }
 
-template <int LAYOUT, bool MT, bool C>
-__device__ __forceinline__ void min_mesh(const Args& a, const Ray& r,
-                                         float& best, Stack<C>& st) {
-  if constexpr (LAYOUT == kBinary) {
-    MinBinary<C> v{{a, r, st}, best};
-    walk_threaded_binary(v);
-  } else if constexpr (LAYOUT != kMeshless) {
-    min_wide<LAYOUT, MT>(a, r, best, st);
-  }
-}
-
-// Shadow query from s toward a light at distance tmax (TPU _occluded):
-// scene-box gate, spheres, loose triangles, then the BVH.
-template <int LAYOUT, bool MT, bool C>
-__device__ bool occluded(const Args& a, const Ray& r, float tmax,
-                         Stack<C>& st) {
-  float tn;
-  if constexpr (C) ++st.slab;
-  if (!slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3], a.aux[4], a.aux[5], r,
-            kBig, tn))
-    return false;
-  if (!(tmax > 0.f)) return false;
-  const float* srow = a.aux + (size_t)(1 + a.n_lights) * kRow;
-  for (int s = 0; s < a.n_spheres; ++s, srow += kRow) {
-    if constexpr (C) ++st.sphere;
-    float t;
-    if (sphere_hit(srow, r, t) && t < tmax) return true;
-  }
-  const float* trow = a.aux + (size_t)(1 + a.n_lights + a.n_spheres) * kRow;
-  for (int k = 0; k < a.n_tris; ++k, trow += kRow) {
-    if constexpr (C) ++st.tri;
-    float t;
-    if (mt_aux(trow, r, t) && trow[12] > 0.f && t < tmax) return true;
-  }
-  return occluded_mesh<LAYOUT, MT>(a, r, tmax, st);
-}
-
-// Min-mode shadow query (TPU _occluded with min_mode): the nearest
-// occluder t below best0, where best0 is the light distance, or -1 when
-// the ray starts outside the scene box. Returns best0 itself when nothing
-// is closer. Never retires early: the walk pops every entry nearer than
-// the running best.
-template <int LAYOUT, bool MT, bool C>
-__device__ float nearest_occluder(const Args& a, const Ray& r, float best0,
-                                  Stack<C>& st) {
-  float best = best0;
-  const float* srow = a.aux + (size_t)(1 + a.n_lights) * kRow;
-  for (int s = 0; s < a.n_spheres; ++s, srow += kRow) {
-    if constexpr (C) ++st.sphere;
-    float t;
-    if (sphere_hit(srow, r, t) && t < best) best = t;
-  }
-  const float* trow = a.aux + (size_t)(1 + a.n_lights + a.n_spheres) * kRow;
-  for (int k = 0; k < a.n_tris; ++k, trow += kRow) {
-    if constexpr (C) ++st.tri;
-    float t;
-    if (mt_aux(trow, r, t) && trow[12] > 0.f && t < best) best = t;
-  }
-  if (!(best > 0.f)) return best;
-  min_mesh<LAYOUT, MT>(a, r, best, st);
-  return best;
-}
-
+// One pooled shadow query (TPU _occluded, any-hit or min mode). start()
+// rebuilds the pair's shadow ray from its owner's hit
+// point and normal (the warp's `pn` columns) exactly as the owner builds
+// it, then tests the scene-box gate, the spheres and the loose triangles;
+// step() makes one step of the mesh walk (a wide row expanded or a leaf
+// tested; one binary node, threaded order). The tests, their order and
+// their bounds are the per-lane walks' of before:
+//   any-hit  the first occluder closer than the light distance ends it;
+//   min mode best starts at best0 = the light distance (-1 outside the
+//            scene box), is lowered by every closer sphere, triangle and
+//            leaf slot (strict <), and prunes the walk; it never retires
+//            early.
 template <int LAYOUT, bool MT, int MODE, bool C>
-__global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
-  constexpr bool kRec = MODE == kRecord || MODE == kRecordSoft;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const float ox = a.o[3 * i], oy = a.o[3 * i + 1], oz = a.o[3 * i + 2];
-  const float dx = a.d[3 * i], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
-  const float tr = a.thr[3 * i], tg = a.thr[3 * i + 1],
-              tb = a.thr[3 * i + 2];
-  float* delta = a.delta + 3 * i;
-  float* o2 = a.o2 + 3 * i;
-  float* d2 = a.d2 + 3 * i;
-  float* thr2 = a.thr2 + 3 * i;
+struct ShadowWalk {
+  static constexpr bool kMin = MODE == kRecordSoft;
+  Ray r;
+  float bound;  // any-hit: the light distance; min mode: the running best
+  float best0;  // min mode: the light distance, or -1 outside the box
+  int cursor;   // the walk's row, leaf code or node
+  bool occ;     // any-hit: an occluder was found
 
-  if (!(a.tmax[i] >= 0.f)) {  // dead lane: pass-through
+  // false when the pair is answered before any mesh walk
+  __device__ bool start(const Args& a, const float* pn, int owner, int l,
+                        LayoutStack<LAYOUT>& st, Tally<C>& tl) {
+    const float px = pn[owner], py = pn[kWarp + owner],
+                pz = pn[2 * kWarp + owner];
+    const float bnx = pn[3 * kWarp + owner], bny = pn[4 * kWarp + owner],
+                bnz = pn[5 * kWarp + owner];
+    const LightGeom g = light_geom(a.aux + (size_t)(1 + l) * kRow, px, py,
+                                   pz, bnx, bny, bnz);
+    r = make_ray(px + bnx * kShadowEps, py + bny * kShadowEps,
+                 pz + bnz * kShadowEps, g.ldx, g.ldy, g.ldz);
+    tl.query();
+    occ = false;
+    cursor = 0;
+    st.sp = 0;
+    float tn;
+    tl.slab();
+    const bool in_box = slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3],
+                             a.aux[4], a.aux[5], r, kBig, tn);
+    const float* srow = a.aux + (size_t)(1 + a.n_lights) * kRow;
+    const float* trow =
+        a.aux + (size_t)(1 + a.n_lights + a.n_spheres) * kRow;
+    if constexpr (kMin) {
+      best0 = in_box ? g.ldist : -1.f;
+      bound = best0;
+      for (int s = 0; s < a.n_spheres; ++s, srow += kRow) {
+        tl.sphere();
+        float t;
+        if (sphere_hit(srow, r, t) && t < bound) bound = t;
+      }
+      for (int k = 0; k < a.n_tris; ++k, trow += kRow) {
+        tl.tri();
+        float t;
+        if (mt_aux(trow, r, t) && trow[12] > 0.f && t < bound) bound = t;
+      }
+      return LAYOUT != kMeshless && bound > 0.f;
+    } else {
+      bound = g.ldist;
+      if (!in_box || !(bound > 0.f)) return false;
+      for (int s = 0; s < a.n_spheres; ++s, srow += kRow) {
+        tl.sphere();
+        float t;
+        if (sphere_hit(srow, r, t) && t < bound) {
+          occ = true;
+          return false;
+        }
+      }
+      for (int k = 0; k < a.n_tris; ++k, trow += kRow) {
+        tl.tri();
+        float t;
+        if (mt_aux(trow, r, t) && trow[12] > 0.f && t < bound) {
+          occ = true;
+          return false;
+        }
+      }
+      return LAYOUT != kMeshless;
+    }
+  }
+
+  // false when the walk has ended
+  __device__ bool step(const Args& a, LayoutStack<LAYOUT>& st,
+                       Tally<C>& tl) {
+    if constexpr (LAYOUT == kBinary) {
+      const Node nd = load_node(a.table, cursor);
+      float tn;
+      tl.slab();
+      const bool hit = node_slab(nd, r, bound, tn);
+      const int count = static_cast<int>(nd.b.w);
+      if (hit && count > 0) {
+        const int row = static_cast<int>(nd.b.z);
+        if constexpr (kMin) {
+          min_leaf<true>(a, row, count, r, bound, tl);
+        } else if (any_leaf<true>(a, row, count, r, bound, tl)) {
+          occ = true;
+          return false;
+        }
+      }
+      cursor = (hit && count <= 0) ? cursor + 1 : static_cast<int>(nd.c.x);
+      return cursor >= 0;
+    } else if constexpr (LAYOUT != kMeshless) {
+      if (cursor >= 0) {
+        expand<LAYOUT, kMin>(a, cursor, r, bound, st, tl);
+      } else {
+        const int x = -2 - cursor;
+        if constexpr (kMin) {
+          min_leaf<MT>(a, x >> 8, x & 255, r, bound, tl);
+        } else if (any_leaf<MT>(a, x >> 8, x & 255, r, bound, tl)) {
+          occ = true;
+          return false;
+        }
+      }
+      return st.pop(bound, cursor);
+    }
+    return false;
+  }
+
+  // any-hit: 1 when occluded, else 0; min mode: the nearest occluder t
+  // when it is closer than the light (occluded), else -1
+  __device__ float answer() const {
+    if constexpr (kMin)
+      return bound < best0 && best0 > 0.f ? bound : -1.f;
+    return occ ? 1.f : 0.f;
+  }
+};
+
+// One segment on lane i of a warp (a lane i >= n does nothing but join
+// the warp's ballots). `pn` [6][32], `pairs` and `ans` [light_chunk][32]
+// are the warp's shared memory for the pooled shadow queries.
+template <int LAYOUT, bool MT, int MODE, bool C>
+__device__ __forceinline__ void segment_lanes(const Args& a, int i,
+                                              LayoutStack<LAYOUT>& st,
+                                              float* pn, int* pairs,
+                                              float* ans, Tally<C>& tl) {
+  constexpr bool kRec = MODE == kRecord || MODE == kRecordSoft;
+  const int lane = static_cast<int>(threadIdx.x & (kWarp - 1));
+  const bool valid = i < a.n;
+  const bool live = valid && a.tmax[i] >= 0.f;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 1.f;
+  float tr = 0.f, tg = 0.f, tb = 0.f;
+  if (valid) {
+    ox = a.o[3 * i]; oy = a.o[3 * i + 1]; oz = a.o[3 * i + 2];
+    dx = a.d[3 * i]; dy = a.d[3 * i + 1]; dz = a.d[3 * i + 2];
+    tr = a.thr[3 * i]; tg = a.thr[3 * i + 1]; tb = a.thr[3 * i + 2];
+  }
+  if (valid && !live) {  // dead lane: pass-through
+    float* delta = a.delta + 3 * i;
+    float* o2 = a.o2 + 3 * i;
+    float* d2 = a.d2 + 3 * i;
+    float* thr2 = a.thr2 + 3 * i;
     delta[0] = delta[1] = delta[2] = 0.f;
     o2[0] = ox; o2[1] = oy; o2[2] = oz;
     d2[0] = dx; d2[1] = dy; d2[2] = dz;
@@ -654,53 +741,53 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
         for (int l = 0; l < a.n_lights; ++l)
           a.rst[(size_t)i * a.n_lights + l] = kBig;
     }
-    return;
   }
+  if (!__any_sync(kFull, live)) return;  // a dead warp is done
 
-  Stack<C> st;
-  if constexpr (C) st.slab = st.leaf = st.sphere = st.tri = 0;
-  const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
   const int L = a.n_lights, S = a.n_spheres, T = a.n_tris;
-
   // ---- nearest hit: mesh (strict <), then spheres, then loose tris
   //      (strict >, the reference combine order Scene.cs:94,107) -------
   float best_t = kBig, bnx = 0.f, bny = 0.f, bnz = 0.f, bmat = -1.f;
-  nearest_mesh<LAYOUT, MT>(a, r, st, best_t, bnx, bny, bnz, bmat);
-
-  const float* srow = a.aux + (size_t)(1 + L) * kRow;
-  for (int s = 0; s < S; ++s, srow += kRow) {
-    if constexpr (C) ++st.sphere;
-    float ts;
-    if (sphere_hit(srow, r, ts) && best_t > ts) {
-      const float rinv = rsqrt_clamped(srow[3]);
-      const float px = ox + dx * ts - srow[0];
-      const float py = oy + dy * ts - srow[1];
-      const float pz = oz + dz * ts - srow[2];
-      best_t = ts;
-      bnx = px * rinv;
-      bny = py * rinv;
-      bnz = pz * rinv;
-      bmat = srow[5];
+  bool hit = false;
+  if (live) {
+    tl.phase(0);
+    tl.live();
+    const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
+    nearest_mesh<LAYOUT, MT>(a, r, st, tl, best_t, bnx, bny, bnz, bmat);
+    const float* srow = a.aux + (size_t)(1 + L) * kRow;
+    for (int s = 0; s < S; ++s, srow += kRow) {
+      tl.sphere();
+      float ts;
+      if (sphere_hit(srow, r, ts) && best_t > ts) {
+        const float rinv = rsqrt_clamped(srow[3]);
+        const float px = ox + dx * ts - srow[0];
+        const float py = oy + dy * ts - srow[1];
+        const float pz = oz + dz * ts - srow[2];
+        best_t = ts;
+        bnx = px * rinv;
+        bny = py * rinv;
+        bnz = pz * rinv;
+        bmat = srow[5];
+      }
     }
-  }
-  const float* trow = a.aux + (size_t)(1 + L + S) * kRow;
-  for (int k = 0; k < T; ++k, trow += kRow) {
-    if constexpr (C) ++st.tri;
-    float tt;
-    if (mt_aux(trow, r, tt) && trow[12] > 0.f && best_t > tt) {
-      best_t = tt;
-      bnx = trow[9];
-      bny = trow[10];
-      bnz = trow[11];
-      bmat = trow[13];
+    const float* trow = a.aux + (size_t)(1 + L + S) * kRow;
+    for (int k = 0; k < T; ++k, trow += kRow) {
+      tl.tri();
+      float tt;
+      if (mt_aux(trow, r, tt) && trow[12] > 0.f && best_t > tt) {
+        best_t = tt;
+        bnx = trow[9];
+        bny = trow[10];
+        bnz = trow[11];
+        bmat = trow[13];
+      }
     }
+    float tn_box;
+    tl.slab();
+    const bool in_box = slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3],
+                             a.aux[4], a.aux[5], r, kBig, tn_box);
+    hit = in_box && best_t < kBig && best_t >= 0.f;
   }
-
-  float tn_box;
-  if constexpr (C) ++st.slab;
-  const bool in_box = slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3], a.aux[4],
-                           a.aux[5], r, kBig, tn_box);
-  const bool hit = in_box && best_t < kBig && best_t >= 0.f;
 
   // ---- material: diffuse ambient mirror specular phong is_mirror, and
   //      for the fork transparency ior is_dielectric ---------------------
@@ -720,69 +807,112 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
   const float py = oy + dy * t_safe;
   const float pz = oz + dz * t_safe;
 
-  // ---- direct lighting (RayTracingSetup.cs:324-455) --------------------
+  // ---- direct lighting (RayTracingSetup.cs:324-455), a chunk of lights
+  //      at a time: the warp pools the shadow queries, then each lane
+  //      shades the chunk's lights in light order ------------------------
   float col_r = m[3] * a.aux[6];
   float col_g = m[4] * a.aux[7];
   float col_b = m[5] * a.aux[8];
-  const float sx = px + bnx * kShadowEps;
-  const float sy = py + bny * kShadowEps;
-  const float sz = pz + bnz * kShadowEps;
   const float kdks = fmaxf(fmaxf(m[0], m[1]), m[2]) +
                      fmaxf(fmaxf(m[9], m[10]), m[11]);
   float occbits = 0.f;  // RECORD modes: sum of 2^l over occluded lights
-  if constexpr (MODE == kRecordSoft)
-    for (int l = 0; l < L; ++l) a.rst[(size_t)i * L + l] = kBig;
-  const float* lrow = a.aux + kRow;
-  for (int l = 0; l < L; ++l, lrow += kRow) {
-    const float lvx = lrow[0] - px, lvy = lrow[1] - py, lvz = lrow[2] - pz;
-    const float ld2 = lvx * lvx + lvy * lvy + lvz * lvz;
-    const float ldist = sqrtf(ld2);
-    const float linv = rsqrt_clamped(ld2);
-    const float ldx = lvx * linv, ldy = lvy * linv, ldz = lvz * linv;
-    const float ln = ldx * bnx + ldy * bny + ldz * bnz;
-    bool need = hit && ln >= 0.f && lrow[6] > 0.f;
-    if (a.light_cull > 0.f) {
-      const float imax = fmaxf(fmaxf(lrow[3], lrow[4]), lrow[5]);
-      need = need && kdks * imax >= a.light_cull * ld2;
+  pn[lane] = px;
+  pn[kWarp + lane] = py;
+  pn[2 * kWarp + lane] = pz;
+  pn[3 * kWarp + lane] = bnx;
+  pn[4 * kWarp + lane] = bny;
+  pn[5 * kWarp + lane] = bnz;
+  const unsigned below = (1u << lane) - 1u;
+  const int lights = __any_sync(kFull, hit) ? L : 0;
+  for (int c0 = 0; c0 < lights; c0 += a.light_chunk) {
+    const int cn = L - c0 < a.light_chunk ? L - c0 : a.light_chunk;
+    // 1. the (lane, light) pairs that need a walk, light-major
+    unsigned needs = 0;
+    int total = 0;
+    for (int k = 0; k < cn; ++k) {
+      bool need = false;
+      if (hit) {
+        const float* lrow = a.aux + (size_t)(1 + c0 + k) * kRow;
+        const LightGeom g = light_geom(lrow, px, py, pz, bnx, bny, bnz);
+        need = g.ln >= 0.f && lrow[6] > 0.f;
+        if (a.light_cull > 0.f) {
+          const float imax = fmaxf(fmaxf(lrow[3], lrow[4]), lrow[5]);
+          need = need && kdks * imax >= a.light_cull * g.ld2;
+        }
+      }
+      const unsigned ballot = __ballot_sync(kFull, need);
+      if (need) {
+        pairs[total + __popc(ballot & below)] = k * kWarp + lane;
+        needs |= 1u << k;
+      }
+      total += __popc(ballot);
     }
-    if (!need) continue;  // a culled or unneeded light is not occluded
-    bool occ;
-    if constexpr (MODE == kRecordSoft) {
-      const Ray sr = make_ray(sx, sy, sz, ldx, ldy, ldz);
-      float tn;
-      if constexpr (C) ++st.slab;
-      const float best0 = slab(a.aux[0], a.aux[1], a.aux[2], a.aux[3],
-                               a.aux[4], a.aux[5], sr, kBig, tn)
-                              ? ldist
-                              : -1.f;
-      const float best = nearest_occluder<LAYOUT, MT>(a, sr, best0, st);
-      occ = best < best0 && best0 > 0.f;
-      if (occ) a.rst[(size_t)i * L + l] = best;
-    } else {
-      occ = occluded<LAYOUT, MT>(a, make_ray(sx, sy, sz, ldx, ldy, ldz),
-                                 ldist, st);
+    __syncwarp();
+    // 2. the warp walks the pairs, 32 at a time
+    tl.phase(1);
+    for (int q0 = 0; q0 < total; q0 += kWarp) {
+      if (q0 + lane < total) {
+        const int pr = pairs[q0 + lane];
+        ShadowWalk<LAYOUT, MT, MODE, C> w;
+        if (w.start(a, pn, pr & (kWarp - 1), c0 + pr / kWarp, st, tl))
+          while (w.step(a, st, tl)) {
+          }
+        ans[pr] = w.answer();
+      }
     }
-    if constexpr (kRec) {
-      if (occ) occbits += static_cast<float>(1 << l);
+    __syncwarp();
+    // 3. the owner shades the chunk's lights in light order
+    for (int k = 0; k < cn; ++k) {
+      const int l = c0 + k;
+      const bool need = (needs >> k) & 1u;
+      bool occ = false;
+      float st_l = kBig;
+      if (need) {
+        const float v = ans[k * kWarp + lane];
+        if constexpr (MODE == kRecordSoft) {
+          occ = v >= 0.f;
+          if (occ) st_l = v;
+        } else {
+          occ = v > 0.f;
+        }
+      }
+      if constexpr (MODE == kRecordSoft) {
+        if (live) a.rst[(size_t)i * L + l] = st_l;
+      }
+      if constexpr (kRec) {
+        if (occ) occbits += static_cast<float>(1 << l);
+      }
+      if (!need || occ) continue;  // a culled, unneeded or occluded light
+      const float* lrow = a.aux + (size_t)(1 + l) * kRow;
+      const LightGeom g = light_geom(lrow, px, py, pz, bnx, bny, bnz);
+      const float w = 1.0f / fmaxf(g.ld2, kMinSq);  // Intensity / d^2
+      const float dterm = fmaxf(0.f, g.ln) * w;
+      col_r += m[0] * dterm * lrow[3];
+      col_g += m[1] * dterm * lrow[4];
+      col_b += m[2] * dterm * lrow[5];
+      // Blinn-Phong specular, halfway (l + v)/|.| with v = -d
+      const float hx = g.ldx - dx, hy = g.ldy - dy, hz = g.ldz - dz;
+      const float hinv = rsqrt_clamped(hx * hx + hy * hy + hz * hz);
+      const float nh =
+          fmaxf(0.f, bnx * hx * hinv + bny * hy * hinv + bnz * hz * hinv);
+      const float sterm =
+          (nh > 0.f ? expf(m[12] * logf(fmaxf(nh, kTiny))) : 0.f) * w;
+      col_r += m[9] * sterm * lrow[3];
+      col_g += m[10] * sterm * lrow[4];
+      col_b += m[11] * sterm * lrow[5];
     }
-    if (occ) continue;
-    const float w = 1.0f / fmaxf(ld2, kMinSq);  // Intensity / d^2 (:350)
-    const float dterm = fmaxf(0.f, ln) * w;
-    col_r += m[0] * dterm * lrow[3];
-    col_g += m[1] * dterm * lrow[4];
-    col_b += m[2] * dterm * lrow[5];
-    // Blinn-Phong specular, halfway (l + v)/|.| with v = -d
-    const float hx = ldx - dx, hy = ldy - dy, hz = ldz - dz;
-    const float hinv = rsqrt_clamped(hx * hx + hy * hy + hz * hz);
-    const float nh =
-        fmaxf(0.f, bnx * hx * hinv + bny * hy * hinv + bnz * hz * hinv);
-    const float sterm =
-        (nh > 0.f ? expf(m[12] * logf(fmaxf(nh, kTiny))) : 0.f) * w;
-    col_r += m[9] * sterm * lrow[3];
-    col_g += m[10] * sterm * lrow[4];
-    col_b += m[11] * sterm * lrow[5];
+    __syncwarp();  // the next chunk rewrites pairs and ans
+  }
+  if (!live) return;
+  if constexpr (MODE == kRecordSoft) {  // no hit in the warp: no queries
+    if (lights == 0)
+      for (int l = 0; l < L; ++l) a.rst[(size_t)i * L + l] = kBig;
   }
 
+  float* delta = a.delta + 3 * i;
+  float* o2 = a.o2 + 3 * i;
+  float* d2 = a.d2 + 3 * i;
+  float* thr2 = a.thr2 + 3 * i;
   delta[0] = tr * (hit ? col_r : a.aux[9]);
   delta[1] = tg * (hit ? col_g : a.aux[10]);
   delta[2] = tb * (hit ? col_b : a.aux[11]);
@@ -866,19 +996,33 @@ __global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
     thr2[1] = cont ? tg * m[7] : tg;
     thr2[2] = cont ? tb * m[8] : tb;
   }
+}
 
-  if constexpr (C) {
-    atomicAdd(a.counts, st.slab);
-    atomicAdd(a.counts + 1, st.leaf);
-    atomicAdd(a.counts + 2, st.sphere);
-    atomicAdd(a.counts + 3, st.tri);
-  }
+// One thread per ray; each warp has its region of dynamic shared memory
+// for the pooled shadow queries: pn (6 * 32 words), pairs and ans
+// (light_chunk * 32 each).
+template <int LAYOUT, bool MT, int MODE, bool C>
+__global__ void __launch_bounds__(kBlock) mega_segment_kernel(const Args a) {
+  extern __shared__ float smem[];
+  LayoutStack<LAYOUT> st;
+  float* pn = smem + (threadIdx.x / kWarp) * a.warp_floats;
+  int* pairs = reinterpret_cast<int*>(pn + 6 * kWarp);
+  float* ans = reinterpret_cast<float*>(pairs + a.light_chunk * kWarp);
+  Tally<C> tl{};
+  segment_lanes<LAYOUT, MT, MODE>(
+      a, static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x), st, pn,
+      pairs, ans, tl);
+  tl.flush(a.counts);
 }
 
 template <int LAYOUT, bool MT, int MODE, bool C>
-cudaError_t go(const Args& a, cudaStream_t s) {
-  const dim3 grid((a.n + kBlock - 1) / kBlock);
-  mega_segment_kernel<LAYOUT, MT, MODE, C><<<grid, kBlock, 0, s>>>(a);
+cudaError_t go(Args a, cudaStream_t s) {
+  const auto kernel = mega_segment_kernel<LAYOUT, MT, MODE, C>;
+  a.light_chunk = a.n_lights < 1 ? 1
+                  : a.n_lights < kLightChunk ? a.n_lights : kLightChunk;
+  a.warp_floats = kWarp * (6 + 2 * a.light_chunk);
+  kernel<<<(a.n + kBlock - 1) / kBlock, kBlock,
+           sizeof(float) * a.warp_floats * (kBlock / kWarp), s>>>(a);
   return cudaGetLastError();
 }
 
@@ -934,17 +1078,20 @@ extern "C" {
 // One segment over n rays on `stream`, in `mode` (0 FORWARD, 1 RECORD,
 // 2 RECORD_SOFT, 3 FORK) on `layout` (0 meshless, 1 binary nodes, 4 or 8
 // wide rows in `table`) with the Möller–Trumbore (`mt` = 1, `leaf` =
-// tris) or Baldwin–Weber (`leaf` = tris_bw) leaf test. The record pointers
-// (rt, rn, rmat, rocc; rst for RECORD_SOFT) may point into larger buffers,
-// e.g. one segment's rows of a [B, n] array; the refract child's (o3, d3,
-// thr3, tmax3) are FORK's. A non-null `counts` (4 x u64) selects the
-// counting instance. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a combination this library has no instance
-// of, or a missing output pointer).
+// tris) or Baldwin–Weber (`leaf` = tris_bw) leaf test; `leafbox` the group
+// boxes of the tris rows; `overflow` the int32 counter of dropped stack
+// pushes. The record
+// pointers (rt, rn, rmat, rocc; rst for RECORD_SOFT) may point into larger
+// buffers, e.g. one segment's rows of a [B, n] array; the refract child's
+// (o3, d3, thr3, tmax3) are FORK's. A non-null `counts` (kCounts x u64)
+// selects the counting instance. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a combination this library has no
+// instance of or a missing output pointer).
 int urt_mega_segment(const float* o, const float* d, const float* thr,
                      const float* tmax, int n, int depth, const float* table,
-                     int layout, int mt, const float* leaf, int leaf_rows,
-                     int bw_rows, const float* leafmeta, int meta_w,
+                     int layout, int mt, const float* leaf,
+                     const float* leafbox, int leaf_rows, int bw_rows,
+                     const float* leafmeta, int meta_w,
                      const float* aux, int n_lights, int n_spheres,
                      int n_tris, int n_mats, int max_bounces,
                      float light_cull, float* delta, float* o2, float* d2,
@@ -957,14 +1104,21 @@ int urt_mega_segment(const float* o, const float* d, const float* thr,
   if ((rec && (!rt || !rn || !rmat || !rocc ||
                (mode == kRecordSoft && n_lights > 0 && !rst))) ||
       (mode == kFork && (!o3 || !d3 || !thr3 || !tmax3)) ||
-      mode < kForward || mode > kFork)
+      mode < kForward || mode > kFork || (layout != kMeshless && !leafbox))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{o, d, thr, tmax, table, leaf, leafmeta, aux,
-               delta, o2, d2, thr2, tmax2, overflow,
-               n, depth, leaf_rows, bw_rows, meta_w,
-               n_lights, n_spheres, n_tris, n_mats, max_bounces,
-               light_cull, rt, rn, rmat, rocc, rst, counts,
-               o3, d3, thr3, tmax3};
+  Args a{};
+  a.o = o; a.d = d; a.thr = thr; a.tmax = tmax;
+  a.table = table; a.leaf = leaf; a.leafbox = leafbox;
+  a.leafmeta = leafmeta; a.aux = aux;
+  a.delta = delta; a.o2 = o2; a.d2 = d2; a.thr2 = thr2; a.tmax2 = tmax2;
+  a.overflow = overflow;
+  a.n = n; a.depth = depth; a.leaf_rows = leaf_rows; a.bw_rows = bw_rows;
+  a.meta_w = meta_w; a.n_lights = n_lights; a.n_spheres = n_spheres;
+  a.n_tris = n_tris; a.n_mats = n_mats; a.max_bounces = max_bounces;
+  a.light_cull = light_cull;
+  a.rt = rt; a.rn = rn; a.rmat = rmat; a.rocc = rocc; a.rst = rst;
+  a.counts = counts;
+  a.o3 = o3; a.d3 = d3; a.thr3 = thr3; a.tmax3 = tmax3;
   return static_cast<int>(dispatch(a, layout, mt != 0, mode,
                                    counts != nullptr,
                                    static_cast<cudaStream_t>(stream)));

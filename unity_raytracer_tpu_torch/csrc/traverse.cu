@@ -1,4 +1,4 @@
-// Mesh BVH traversal kernels for Hopper (sm_90a): one thread per ray.
+// Mesh BVH traversal kernels for Hopper (sm_90a).
 //
 // Replaces three TPU kernels of the JAX package, which share their
 // outputs and their epilogue (ops/kernels/traverse_mk3.py):
@@ -17,40 +17,57 @@
 // slot in its 14-slot leaf row and that row; slot = row = -1 on a miss.
 // A lane with tmax < 0 is culled before the root and keeps its tmax.
 //
-// The binary walks and the ray, slab and Möller–Trumbore tests are the
-// fused segment kernel's too (bvh_walk.cuh); this file gives them its leaf
-// test and its counting.
+// The binary walks and the ray, slab, group-box and Möller–Trumbore tests
+// are the fused segment kernel's too (bvh_walk.cuh); this file gives them
+// its leaf test and its counting.
 //
-// Design: every thread walks its own ray with a private stack (96 entries
-// for the binary walk, 256 for the wide one) and prunes pops by its own
-// best t. The TPU kernels walk one cursor per tile of 1024 rays with a
-// scalar stack in SMEM and prune against the tile's largest best t; those
-// are Mosaic constraints (docs/KERNELS.md), not semantics, and are not
-// copied. What they leave: mk3 keeps its threaded order (it needs no
-// stack), mk4 its near-child-first order, wide its far-to-near pushes.
-// A per-thread walk meets hits in another order than the tile's, so of two
-// triangles at exactly equal t (a shared edge) it may keep the other one;
-// t itself is the same.
+// Design: every lane walks its own ray and prunes pops by its own best t.
+// The TPU kernels walk one cursor per tile of 1024 rays with a scalar
+// stack in SMEM and prune against the tile's largest best t; those are
+// Mosaic constraints (docs/KERNELS.md), not semantics, and are not copied.
+// What they leave: mk3 keeps its threaded order (it needs no stack), mk4
+// its near-child-first order, wide its far-to-near pushes. A per-lane walk
+// meets hits in another order than the tile's, so of two triangles at
+// exactly equal t (a shared edge) it may keep the other one; t itself is
+// the same.
 //
 // Leaf tests are Möller–Trumbore on the host-packed `tris` rows (14
-// triangles of 9 floats per 128-float row, leaf_rows rows per leaf). The
-// binary walks stop at the node's triangle count; the wide walk tests
-// every slot of the leaf, whose unused slots are all-zero triangles that
-// fail the determinant test (traverse_wide.py:391). The box test is the
-// kernels' slab test: 1/d clamped to +-1e-30, entry distance clamped at 0,
-// hit when tn <= tf and tn <= the running best t.
+// triangles of 9 floats per 128-float row, leaf_rows rows per leaf), in
+// groups of 7 slots: a group is tested only when the ray enters its box
+// (leafbox, one per group, over its live slots, widened outward) at or
+// below the lane's best t (raised by kGroupMargin); a skipped group holds no hit at t <= best, so
+// strict < keeps the same winner, in slot order. The binary walks stop at
+// the node's triangle count; the wide walk tests every group of the leaf,
+// whose unused slots are all-zero triangles that fail the determinant test
+// (traverse_wide.py:391). The box test is the kernels' slab test: 1/d
+// clamped to +-1e-30, entry distance clamped at 0, hit when tn <= tf and
+// tn <= the running best t.
+//
+// What bounds it on this card: divergent pointer chasing, not bytes or
+// FP32 (PERF.md: the walks ran at 5-7% of their bound). The 32 rays of a
+// warp visit different nodes and leaves, so their loads of the node and
+// leaf rows (they fit in the 50 MB L2) are scattered and serialised, and
+// the leaf-slot tests, most of a walk's work on 98-slot leaves, run with
+// a third of the warp active (PERF.md). The redesign of kernel #4
+// (MK4) culls leaf groups by their box (above), which cuts the slot
+// tests; the culled leaf test is every layout's. Its stack stays in local
+// memory (kStackBinary entries; the wrapper holds the tree's worst push
+// depth, PackedBVH.stack_binary, to it before the launch): a stack of the
+// tree's depth in shared memory, and persistent warps taking 32 lanes at a
+// time from a counter, were measured slower (PERF.md). WIDE keeps its
+// kStackWide-entry stack.
 //
 // Numerics: IEEE division, no fast-math, no FMA contraction (built with
 // -fmad=false, ops/kernels/_lib.py), so each product and sum rounds where
 // the plain PyTorch version (traverse_mk3.traverse_plain) rounds it.
 //
 // A push that would overflow the stack is dropped and counted in
-// *overflow; the wrapper raises when the count is not zero. A counting
-// instance (template flag C, launched only by chip_smoke.py to measure the
-// work) adds each lane's slab tests and Möller–Trumbore tests to two
-// device counters and sets a byte for every table row and every leaf slot
-// it reads, so the bytes the launch must move count each row it needs
-// once.
+// *overflow; the wrapper raises when the count is not zero (it checked
+// the tree's depth against the capacity, so none is). A counting instance (template flag C,
+// launched only by chip_smoke.py to measure the work) adds each lane's
+// tallies to device counters (traverse_mk3.COUNTS) and sets a byte for
+// every table row and every leaf slot it reads, so the bytes the launch
+// must move count each row it needs once.
 
 #include <cuda_runtime.h>
 
@@ -63,22 +80,23 @@ namespace {
 
 using namespace urt;
 
-constexpr int kStackWide = 256;   // ops/pallas/traverse_wide.STACK
 constexpr int kBlock = 128;
+constexpr int kCounts = 6;        // traverse_mk3.COUNTS
 
 enum Layout { kMk3 = 0, kMk4 = 1, kWide4 = 2, kWide8 = 3 };
 
 struct Args {
-  const float* o;      // [n, 3]
-  const float* d;      // [n, 3]
-  const float* tmax;   // [n]
-  const float* table;  // nodes [Nn, 16] (MK3, MK4) or wide [Nw, 8*arity]
-  const float* tris;   // [rows, 128]
-  float* t_out;        // [n]
-  int* slot_out;       // [n]
-  int* leaf_out;       // [n]
-  int* overflow;
-  unsigned long long* counts;  // C: slab tests, MT tests
+  const float* o;        // [n, 3]
+  const float* d;        // [n, 3]
+  const float* tmax;     // [n]
+  const float* table;    // nodes [Nn, 16] (MK3, MK4) or wide [Nw, 8*arity]
+  const float* tris;     // [rows, 128]
+  const float* leafbox;  // [rows, 16]: the two group boxes of a tris row
+  float* t_out;          // [n]
+  int* slot_out;         // [n]
+  int* leaf_out;         // [n]
+  int* overflow;         // [1]: dropped stack pushes
+  unsigned long long* counts;  // C: kCounts tallies
   unsigned char* seen_rows;    // C: [table rows] set where a row is read
   unsigned char* seen_slots;   // C: [tris rows * 14] set where a slot is
                                //    tested
@@ -86,32 +104,47 @@ struct Args {
   int leaf_rows;
 };
 
-// the lane's result and, in the counting instance, its tallies
+// the lane's result and, in the counting instance, its tallies: slab
+// tests (node and group boxes), MT tests, warp issues of an MT test,
+// deepest stack, group box tests
 struct Lane {
   float best_t;
   int slot;
   int leaf;
   unsigned long long slab;
   unsigned long long mt;
+  unsigned long long issue;
+  int depth;
+  unsigned long long groups;
 };
 
-// The triangles of the leaf whose first row is leaf_row, in slot order;
-// count < 0 tests every slot of every row. Strict <: of equal t the first
-// one met is kept. Returns true when an ANY walk found its occluder.
+// The triangles of the leaf whose first row is leaf_row, in slot order, a
+// group of kGroup slots at a time; count < 0 tests every slot of every
+// row. Strict <: of equal t the first one met is kept. Returns true when
+// an ANY walk found its occluder.
 template <bool ANY, bool C>
 __device__ __forceinline__ bool leaf_tests(const Args& a, int leaf_row,
                                            int count, const Ray& r,
                                            Lane& l) {
-  for (int rr = 0; rr < a.leaf_rows; ++rr) {
-    const float* row = a.tris + (size_t)(leaf_row + rr) * kRow;
-    for (int k = 0; k < kLeafSlots; ++k) {
-      if (count >= 0 && rr * kLeafSlots + k >= count) return false;
+  const int n = count >= 0 ? count : a.leaf_rows * kLeafSlots;
+  for (int j0 = 0; j0 < n; j0 += kGroup) {
+    if constexpr (C) {
+      ++l.slab;
+      ++l.groups;
+    }
+    if (!group_hit(a.leafbox, leaf_row, j0, r, l.best_t)) continue;
+    const int end = j0 + kGroup < n ? j0 + kGroup : n;
+    for (int j = j0; j < end; ++j) {
+      const int rr = j / kLeafSlots, k = j % kLeafSlots;
       if constexpr (C) {
         ++l.mt;
         a.seen_slots[(size_t)(leaf_row + rr) * kLeafSlots + k] = 1;
+        if (static_cast<int>(threadIdx.x & 31) == __ffs(__activemask()) - 1)
+          ++l.issue;
       }
       float t;
-      if (mt_hit(row + 9 * k, r, t) && t < l.best_t) {
+      if (mt_hit(a.tris + (size_t)(leaf_row + rr) * kRow + 9 * k, r, t) &&
+          t < l.best_t) {
         l.slot = k;
         l.leaf = leaf_row + rr;
         if constexpr (ANY) {
@@ -145,6 +178,9 @@ struct BinaryLane {
   }
   __device__ float bound() const { return l.best_t; }
   __device__ void overflow() const { atomicAdd(a.overflow, 1); }
+  __device__ void pushed(int sp) const {
+    if constexpr (C) l.depth = max(l.depth, sp);
+  }
 };
 
 // WIDE: slab-test the ARITY children of wide row `cursor`, sort the hits
@@ -196,6 +232,7 @@ __device__ void walk_wide(const Args& a, const Ray& r, Lane& l) {
             code[sp] = c[s];
             key[sp] = k[s];
             ++sp;
+            if constexpr (C) l.depth = max(l.depth, sp);
           } else {
             atomicAdd(a.overflow, 1);
           }
@@ -217,47 +254,62 @@ __device__ void walk_wide(const Args& a, const Ray& r, Lane& l) {
   }
 }
 
+template <bool C>
+__device__ __forceinline__ void flush(const Args& a, const Lane& l,
+                                      unsigned long long live) {
+  if constexpr (C) {
+    atomicAdd(a.counts, l.slab);
+    atomicAdd(a.counts + 1, l.mt);
+    atomicAdd(a.counts + 2, l.issue);
+    atomicMax(a.counts + 3, static_cast<unsigned long long>(l.depth));
+    atomicAdd(a.counts + 4, live);
+    atomicAdd(a.counts + 5, l.groups);
+  }
+}
+
+// One thread per ray.
 template <int LAYOUT, bool ANY, bool C>
 __global__ void __launch_bounds__(kBlock) traverse_kernel(const Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  Lane l{a.tmax[i], -1, -1, 0ull, 0ull};
+  Lane l{a.tmax[i], -1, -1, 0ull, 0ull, 0ull, 0, 0ull};
   if (l.best_t >= 0.f) {  // tmax < 0 culls the lane before the root
     const float dx = a.d[3 * i], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
     const Ray r{a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2], dx, dy, dz,
                 1.0f / fix_dir(dx), 1.0f / fix_dir(dy), 1.0f / fix_dir(dz)};
-    if constexpr (LAYOUT == kMk3) {
-      BinaryLane<ANY, C> v{a, r, l};
-      walk_threaded_binary(v);
-    } else if constexpr (LAYOUT == kMk4) {
-      BinaryLane<ANY, C> v{a, r, l};
-      walk_ordered_binary(v);
-    } else {
+    if constexpr (LAYOUT == kWide4 || LAYOUT == kWide8) {
       walk_wide<LAYOUT == kWide4 ? 4 : 8, ANY, C>(a, r, l);
+    } else {
+      BinaryLane<ANY, C> v{a, r, l};
+      if constexpr (LAYOUT == kMk3) {
+        walk_threaded_binary(v);
+      } else {
+        Stack<kStackBinary> st;
+        walk_ordered_binary(v, st);
+      }
     }
   }
   a.t_out[i] = l.best_t;
   a.slot_out[i] = l.slot;
   a.leaf_out[i] = l.leaf;
-  if constexpr (C) {
-    atomicAdd(a.counts, l.slab);
-    atomicAdd(a.counts + 1, l.mt);
-  }
+  flush<C>(a, l, a.tmax[i] >= 0.f);
+}
+
+template <int LAYOUT, bool ANY, bool C>
+cudaError_t go(const Args& a, cudaStream_t s) {
+  traverse_kernel<LAYOUT, ANY, C><<<(a.n + kBlock - 1) / kBlock, kBlock, 0,
+                                    s>>>(a);
+  return cudaGetLastError();
 }
 
 template <int LAYOUT>
 cudaError_t launch(const Args& a, bool any_hit, bool count, cudaStream_t s) {
-  const dim3 grid((a.n + kBlock - 1) / kBlock);
   switch ((any_hit ? 2 : 0) + (count ? 1 : 0)) {
-    case 0: traverse_kernel<LAYOUT, false, false><<<grid, kBlock, 0, s>>>(a);
-      break;
-    case 1: traverse_kernel<LAYOUT, false, true><<<grid, kBlock, 0, s>>>(a);
-      break;
-    case 2: traverse_kernel<LAYOUT, true, false><<<grid, kBlock, 0, s>>>(a);
-      break;
-    default: traverse_kernel<LAYOUT, true, true><<<grid, kBlock, 0, s>>>(a);
+    case 0: return go<LAYOUT, false, false>(a, s);
+    case 1: return go<LAYOUT, false, true>(a, s);
+    case 2: return go<LAYOUT, true, false>(a, s);
+    default: return go<LAYOUT, true, true>(a, s);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -266,19 +318,22 @@ extern "C" {
 
 // One walk over n rays on `stream`. layout: 0 MK3, 1 MK4 (table = nodes
 // [Nn,16]), 2 WIDE with arity 4, 3 WIDE with arity 8 (table = wide
-// [Nw, 8*arity]). A non-null `counts` (2 x u64) selects the counting
+// [Nw, 8*arity]); leafbox the group boxes of the tris rows; overflow the
+// int32 counter of dropped stack pushes. A non-null `counts` (kCounts x u64) selects the counting
 // instance, which also needs `seen_rows` (one byte per table row) and
 // `seen_slots` (one byte per leaf slot, rows of tris x 14). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // unknown layout).
 int urt_traverse(const float* o, const float* d, const float* tmax, int n,
                  int layout, int any_hit, const float* table,
-                 const float* tris, int leaf_rows, float* t_out,
-                 int* slot_out, int* leaf_out, int* overflow,
-                 unsigned long long* counts, unsigned char* seen_rows,
-                 unsigned char* seen_slots, void* stream) {
-  const Args a{o, d, tmax, table, tris, t_out, slot_out, leaf_out,
-               overflow, counts, seen_rows, seen_slots, n, leaf_rows};
+                 const float* tris, const float* leafbox, int leaf_rows,
+                 float* t_out, int* slot_out, int* leaf_out,
+                 int* overflow, unsigned long long* counts,
+                 unsigned char* seen_rows, unsigned char* seen_slots,
+                 void* stream) {
+  const Args a{o,         d,        tmax,       table,     tris,
+               leafbox,   t_out,    slot_out,   leaf_out,  overflow,
+               counts,    seen_rows, seen_slots, n,        leaf_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool any = any_hit != 0, count = counts != nullptr;
   switch (layout) {

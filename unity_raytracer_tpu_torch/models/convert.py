@@ -83,11 +83,15 @@ def packed_from_arrays(obj, device="cuda") -> PackedBVH:
     attributes, its ``MeshBVH`` too (the traversal epilogue reads its
     ``tri_verts`` and ``prim_index`` on the device). The rows-per-leaf
     counts come from the shape tags (``leaf_tag``, ``bw_tag``) the JAX
-    layout carries them in."""
+    layout carries them in; the port's own group boxes and stack depths
+    are computed from the arrays."""
     opt = lambda k: (None if getattr(obj, k, None) is None
                      else _t(getattr(obj, k), device))
+    from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
+        binary_stack_depth, group_boxes, wide_stack_depth)
     leaf_tag = getattr(obj, "leaf_tag", None)
     bw_tag = getattr(obj, "bw_tag", None)
+    wide = getattr(obj, "wide", None)
     return PackedBVH(
         nodes=_t(obj.nodes, device), tris=_t(obj.tris, device),
         leaf_prim=_t(obj.leaf_prim, device),
@@ -95,7 +99,10 @@ def packed_from_arrays(obj, device="cuda") -> PackedBVH:
         leafmeta=opt("leafmeta"), wide=opt("wide"),
         rows_per_leaf=1 if leaf_tag is None else int(np.shape(leaf_tag)[0]),
         tris_bw=opt("tris_bw"),
-        bw_rows_per_leaf=0 if bw_tag is None else int(np.shape(bw_tag)[0]))
+        bw_rows_per_leaf=0 if bw_tag is None else int(np.shape(bw_tag)[0]),
+        leafbox=_t(group_boxes(obj.tris, obj.leaf_prim), device),
+        stack_binary=binary_stack_depth(obj.nodes),
+        stack_wide=-1 if wide is None else wide_stack_depth(wide))
 
 
 def params_from_arrays(d, device="cuda") -> Dict[str, torch.Tensor]:

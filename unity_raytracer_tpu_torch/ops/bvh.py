@@ -297,7 +297,8 @@ def _meshless_packed(arity: int) -> PackedBVH:
         leaf_prim=torch.full((1, PALLAS_LEAF), -1, dtype=torch.int32),
         bvh=build(np.zeros((0, 3, 3), np.float32)),
         leafmeta=torch.zeros((1, 16)), wide=torch.from_numpy(wide),
-        tris_bw=torch.zeros((1, 128)), bw_rows_per_leaf=1)
+        tris_bw=torch.zeros((1, 128)), bw_rows_per_leaf=1,
+        leafbox=torch.zeros((1, 16)), stack_binary=0, stack_wide=0)
 
 
 def prepare_bvh(scene, cfg, device=None):
@@ -306,7 +307,9 @@ def prepare_bvh(scene, cfg, device=None):
 
     Every kernel but 'xla' gets a ``PackedBVH``: native SAH build with
     ``cfg.bvh_leaf``-triangle leaves and ``cfg.bvh_bins`` bins,
-    ``pack_rows``, ``widen`` to ``cfg.bvh_arity``, ``pack_bw`` and the
+    ``pack_rows`` (with the port's group boxes ``leafbox`` and the binary
+    walk's worst push depth ``stack_binary``), ``widen`` to
+    ``cfg.bvh_arity`` (with ``stack_wide``), ``pack_bw`` and the
     per-leaf-slot combined material ids (``leafmeta``, table order
     spheres ++ loose triangles ++ meshes, as ``ops/kernels/mega.build_aux``
     lays it out). ``kernel='xla'`` gets a plain ``MeshBVH`` with

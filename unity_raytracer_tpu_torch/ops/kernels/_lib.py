@@ -144,7 +144,7 @@ def mega_lib(group: str) -> ctypes.CDLL:
             lib.urt_mega_segment.argtypes = [
                 p, p, p, p, i, i,          # o d thr tmax n depth
                 p, i, i,                   # table layout mt
-                p, i, i,                   # leaf table leaf_rows bw_rows
+                p, p, i, i,                # leaf leafbox leaf_rows bw_rows
                 p, i,                      # leafmeta meta_w
                 p, i, i, i, i, i, f,       # aux L S T M max_bounces cull
                 p, p, p, p, p,             # delta o2 d2 thr2 tmax2
@@ -168,7 +168,8 @@ def traverse_lib() -> ctypes.CDLL:
             lib.urt_traverse.restype = i
             lib.urt_traverse.argtypes = [
                 p, p, p, i,                # o d tmax n
-                i, i, p, p, i,             # layout any_hit table tris rows
+                i, i, p, p, p, i,          # layout any_hit table tris
+                                           # leafbox rows
                 p, p, p, p, p,             # t slot leaf overflow counts
                 p, p, p]                   # seen_rows seen_slots stream
             _libs["traverse"] = lib

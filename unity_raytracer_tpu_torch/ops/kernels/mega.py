@@ -67,7 +67,8 @@ import torch
 
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    _BIG, BW_PER_ROW, EPS, PALLAS_LEAF, PackedBVH, check_overflow)
+    _BIG, _WIDE_STACK, BW_PER_ROW, EPS, PALLAS_LEAF, STACK_BINARY, PackedBVH,
+    check_overflow, check_stack)
 from unity_raytracer_tpu_torch.ops.shade import SHADOW_EPS
 
 _TINY = 1e-30
@@ -92,6 +93,17 @@ launches = dict.fromkeys(MODES, 0)
 route_launches = {(m, r): 0 for m in MODES for r in ROUTES}
 # per-light occlusion bits are a float32 sum of 2^l: exact up to 2^24
 MAX_RECORD_LIGHTS = 24
+# the counting instance's tallies, in the order of its ``counts`` tensor:
+# the totals the bound reads (slab tests, Baldwin–Weber leaf-slot tests,
+# sphere tests, Möller–Trumbore tests), then per phase (the nearest walk,
+# the shadow walks) slab tests, leaf-slot tests, warp issues of a
+# leaf-slot test (slot tests / issues = mean active lanes per test) and
+# the deepest stack (a maximum), then live lanes, shadow queries, and per
+# phase the leaf-group box tests
+COUNTS = ("slab", "bw_slot", "sphere", "mt",
+          "nearest_slab", "shadow_slab", "nearest_slots", "shadow_slots",
+          "nearest_issues", "shadow_issues", "nearest_depth", "shadow_depth",
+          "live", "queries", "nearest_groups", "shadow_groups")
 
 
 def build_aux(scene, background) -> torch.Tensor:
@@ -633,16 +645,19 @@ def trace_segment(packed: PackedBVH | None, aux: torch.Tensor, depth: int,
     device counter of dropped stack pushes shared by several launches; the
     caller checks it (``check_overflow``) once they are done. Without one,
     the wrapper makes its own and checks it after this launch.
+    ``check_stack`` raises before the launch for a tree whose worst push
+    depth on the route's layout (``PackedBVH.stack_wide`` or
+    ``stack_binary``) exceeds the kernel's stack.
 
     ``out`` (record modes): the tensors to write the records into, in the
     order of the record tuple — e.g. one segment's rows of ``[B, N, ...]``
     buffers (``ops/replay.trace_records``); they are returned as the
-    record tuple. ``counts`` (CUDA only, for measurement): an int64 [4]
-    device tensor; the launch then runs the route's counting instance
-    (only the instances ``chip_smoke.py`` reads have one), which adds the
-    slab tests, Baldwin–Weber leaf-slot tests, sphere tests and
-    Möller–Trumbore tests (loose triangles and 'mt' leaf slots) it made,
-    in that order.
+    record tuple. ``counts`` (CUDA only, for measurement): an int64
+    ``[len(COUNTS)]`` device tensor; the launch then runs the route's
+    counting instance (only the instances ``chip_smoke.py`` reads have
+    one), which adds its tallies (``COUNTS``: the slab tests,
+    Baldwin–Weber leaf-slot tests, sphere tests and Möller–Trumbore tests
+    it made, then their split by phase).
     """
     record = record or record_soft
     if fork and record:
@@ -690,9 +705,13 @@ def trace_segment(packed: PackedBVH | None, aux: torch.Tensor, depth: int,
         raise NotImplementedError(
             f"the CUDA kernel has instances for BVH arity 4 and 8 and the "
             f"binary layout, not {route}")
+    if route != "meshless" and packed.leafbox is None:
+        raise ValueError("trace_segment: PackedBVH.leafbox missing — build "
+                         "the BVH with pack_rows / prepare_bvh")
     # the tables are read 16 bytes at a time
     tables = dict(aux=aux) if route == "meshless" else dict(
-        aux=aux, table=table, leaf=leaf, leafmeta=packed.leafmeta)
+        aux=aux, table=table, leaf=leaf, leafmeta=packed.leafmeta,
+        leafbox=packed.leafbox)
     for name, t in dict(o=o, d=d, thr=thr, tmax=tmax, **tables).items():
         if t.device != o.device or t.dtype != torch.float32 \
                 or not t.is_contiguous() \
@@ -703,12 +722,21 @@ def trace_segment(packed: PackedBVH | None, aux: torch.Tensor, depth: int,
     if o.shape != (n, 3) or d.shape != (n, 3) or thr.shape != (n, 3) \
             or tmax.shape != (n,) or aux.shape[1] != 128 \
             or (leaf is not None and leaf.shape[1] != 128) \
+            or (leaf is not None and packed.leafbox.shape
+                != (packed.tris.shape[0], 16)) \
             or (route == "mt/binary" and table.shape[1] != 16):
         raise ValueError("trace_segment: bad ray, table or aux shapes")
-    if counts is not None and (counts.shape != (4,) or counts.dtype !=
-                               torch.int64 or counts.device != o.device):
-        raise ValueError(f"trace_segment: counts must be an int64 [4] "
-                         f"tensor on {o.device}")
+    if layout == "binary":
+        check_stack(packed.stack_binary, STACK_BINARY,
+                    f"trace_segment on {route}")
+    elif route != "meshless":
+        check_stack(packed.stack_wide, _WIDE_STACK,
+                    f"trace_segment on {route}")
+    if counts is not None and (counts.shape != (len(COUNTS),) or
+                               counts.dtype != torch.int64 or
+                               counts.device != o.device):
+        raise ValueError(f"trace_segment: counts must be an int64 "
+                         f"[{len(COUNTS)}] tensor on {o.device}")
 
     return _launch(packed, aux, depth, o, d, thr, tmax, route, mode,
                    n_lights, n_spheres, n_tris, max_bounces, light_cull,
@@ -746,6 +774,7 @@ def _launch(packed, aux, depth, o, d, thr, tmax, route, mode, n_lights,
             o.data_ptr(), d.data_ptr(), thr.data_ptr(), tmax.data_ptr(),
             n, int(depth), tptr(table), _LAYOUT[layout],
             int(not route.startswith("bw")), tptr(leaf),
+            tptr(packed.leafbox) if meshed else None,
             packed.rows_per_leaf if meshed else 1,
             packed.bw_rows_per_leaf if meshed else 0,
             tptr(packed.leafmeta) if meshed else None,

@@ -16,6 +16,14 @@ the CUDA kernels read the same layout on either device:
 * ``tris_bw [n_leaves*bw_rpl, 128] f32`` — Baldwin–Weber records, 10 per
   row x 12 floats (unit normal, plane offset, two barycentric rows).
 
+Two more pieces belong to the port alone (the JAX package has no
+counterpart): ``leafbox [n_leaves*rpl, 16] f32``, per ``tris`` row the
+boxes of its two 7-slot groups (``group_boxes``), which the kernels' leaf
+tests slab-test before testing a group's slots; and the worst push depth
+of each walk's stack (``binary_stack_depth``, ``wide_stack_depth``), which
+the wrappers hold to the kernels' stack capacities before a launch
+(``check_stack`` raises for a deeper tree).
+
 The host stage works on CPU tensors (zero-copy numpy views);
 ``PackedBVH.to(device)`` moves the finished arrays.
 
@@ -47,6 +55,18 @@ _BIG = 3.0e38
 
 PALLAS_LEAF = 14  # 14 tris x 9 floats = 126 lanes <= 128
 BW_PER_ROW = 10   # 10 tris x 12 floats = 120 lanes <= 128
+GROUP = 7         # leaf slots per group box (csrc/bvh_walk.cuh kGroup)
+# a triangle's hit is computed off the triangle by a few ulps of the
+# coordinates (more for a grazing ray) and of t: group_boxes widens a box
+# by GROUP_MARGIN of its largest |coordinate|, and the kernels test a group
+# up to the walk's bound x (1 + GROUP_MARGIN) (kGroupMargin), so that
+# culling errs only towards testing a group
+GROUP_MARGIN = 2.0 ** -16
+# stack entries per lane of the kernels' wide walks (traverse_wide.STACK
+# is this value) and of the ordered binary walk (the twin's
+# traverse_mk4.STACK): csrc/bvh_walk.cuh kStackWide, kStackBinary
+_WIDE_STACK = 256
+STACK_BINARY = 96
 
 
 @dataclass(frozen=True)
@@ -63,6 +83,12 @@ class PackedBVH:
     # [n_leaves*bw_rpl, 128] f32 Baldwin–Weber leaf records (pack_bw)
     tris_bw: Optional[torch.Tensor] = None
     bw_rows_per_leaf: int = 0
+    # [n_leaves*rpl, 16] f32 group boxes of the tris rows (group_boxes)
+    leafbox: Optional[torch.Tensor] = None
+    # worst push depth of the ordered binary walk (binary_stack_depth) and
+    # of the wide walk of ``wide`` (wide_stack_depth); -1: not computed
+    stack_binary: int = -1
+    stack_wide: int = -1
 
     def replace(self, **kw) -> "PackedBVH":
         return dataclasses.replace(self, **kw)
@@ -129,7 +155,87 @@ def pack_rows(bvh, leaf_slots: int = PALLAS_LEAF) -> PackedBVH:
     return PackedBVH(nodes=torch.from_numpy(nodes),
                      tris=torch.from_numpy(tris),
                      leaf_prim=torch.from_numpy(leaf_prim), bvh=bvh,
-                     rows_per_leaf=rpl)
+                     rows_per_leaf=rpl,
+                     leafbox=torch.from_numpy(group_boxes(tris, leaf_prim)),
+                     stack_binary=binary_stack_depth(nodes))
+
+
+def group_boxes(tris, leaf_prim) -> np.ndarray:
+    """Per ``tris`` row [R,128] the boxes of its PALLAS_LEAF // GROUP
+    (two) groups of GROUP slots -> [R,16] f32: group g at lanes 8g..8g+5
+    (min xyz, max xyz), the rest 0. A box is the exact min and max of the
+    float32 vertices of the group's live slots (``leaf_prim >= 0``), as the
+    builder bounds a node, widened by GROUP_MARGIN times its largest
+    |coordinate| and then by one ulp (``np.nextafter``), outward, so that
+    it holds every hit its triangles report; dead slots do not widen it,
+    and a group with no live slot gets zeros (no leaf test reaches it: the
+    slots fill from 0)."""
+    tris = np.asarray(tris, np.float32)
+    rows, groups = tris.shape[0], PALLAS_LEAF // GROUP
+    v = tris[:, :9 * PALLAS_LEAF].reshape(rows, groups, GROUP, 3, 3)
+    live = (np.asarray(leaf_prim) >= 0).reshape(rows, groups, GROUP)
+    keep = live[..., None, None]
+    inf = np.float32(np.inf)
+    used = live.any(axis=2)[..., None]
+    lo = np.where(used, np.where(keep, v, inf).min(axis=(2, 3)), 0.0)
+    hi = np.where(used, np.where(keep, v, -inf).max(axis=(2, 3)), 0.0)
+    pad = np.float32(GROUP_MARGIN) * np.maximum(
+        np.abs(lo), np.abs(hi)).max(axis=-1, keepdims=True)
+    out = np.zeros((rows, 2, 8), np.float32)
+    out[:, :groups, 0:3] = np.where(used, np.nextafter(lo - pad, -inf), 0.0)
+    out[:, :groups, 3:6] = np.where(used, np.nextafter(hi + pad, inf), 0.0)
+    return out.reshape(rows, 16)
+
+
+def binary_stack_depth(nodes) -> int:
+    """The most entries the ordered binary walk (traverse_mk4's order)
+    can hold on its stack for the node rows [Nn,16]: it pushes one far
+    child per interior node on its path, so the deepest interior node's
+    depth + 1 (0 when the root is a leaf). Children follow their parent
+    in the rows (left = i + 1, right = lane 9)."""
+    nodes = np.asarray(nodes)
+    count = nodes[:, 7]
+    right = nodes[:, 9].astype(np.int64)
+    depth = np.zeros(nodes.shape[0], np.int64)
+    worst = 0
+    for i in range(nodes.shape[0]):
+        if count[i] <= 0:
+            worst = max(worst, int(depth[i]) + 1)
+            depth[i + 1] = depth[right[i]] = depth[i] + 1
+    return worst
+
+
+def wide_stack_depth(wide) -> int:
+    """The most entries the wide walk can hold on its stack for the wide
+    rows [Nw, 8*arity]: expanding row r pushes its present children on
+    top of, at most, every present child but one of each row above it,
+    so max over rows of (present children of r + sum over its ancestors of
+    their present children - 1)."""
+    w = np.asarray(wide)
+    cnt = w[:, 7::8]
+    meta = w[:, 6::8].astype(np.int64)
+    present = (cnt >= 0).sum(axis=1)
+    worst, todo = 0, [(0, 0)] if w.shape[0] else []
+    while todo:
+        row, below = todo.pop()
+        worst = max(worst, below + int(present[row]))
+        for c in np.nonzero(cnt[row] == 0)[0]:
+            todo.append((int(meta[row, c]), below + int(present[row]) - 1))
+    return worst
+
+
+def check_stack(depth: int, capacity: int, what: str = "walk") -> None:
+    """Raise ``ValueError`` when a tree whose worst push depth is
+    ``depth`` needs more stack entries than a kernel's ``capacity`` (or
+    carries no depth, -1): the wrappers call it before any launch, so no
+    walk can drop a push."""
+    if depth < 0:
+        raise ValueError(f"{what}: the PackedBVH carries no stack depth; "
+                         f"build it with pack_rows / widen / prepare_bvh")
+    if depth > capacity:
+        raise ValueError(f"{what}: the tree needs a stack of {depth} "
+                         f"entries, more than the kernel's capacity "
+                         f"{capacity}; rebuild it with larger leaves")
 
 
 def pack_bw(packed: PackedBVH) -> PackedBVH:
@@ -187,6 +293,11 @@ def pack_bw(packed: PackedBVH) -> PackedBVH:
 # 0 to start a count); only walk_raw's CUDA branch adds to them
 LAYOUTS = ("mk3", "mk4", "wide4", "wide8")
 launches = dict.fromkeys(LAYOUTS, 0)
+# the counting instance's tallies, in the order of its ``counts`` tensor:
+# slab tests, Möller–Trumbore tests, warp issues of a leaf-slot test (MT
+# tests / issues = mean active lanes per test), the deepest stack (a
+# maximum), live lanes, leaf-group box tests
+COUNTS = ("slab", "mt", "issues", "depth", "live", "groups")
 # plain version: ray x leaf-slot pairs per brute-force chunk
 _CHUNK_ELEMS = 1 << 22
 
@@ -269,9 +380,12 @@ def walk_raw(layout: str, packed: PackedBVH, o: torch.Tensor,
     shared by several launches, which the caller checks
     (``check_overflow``) once they are done; without one the wrapper
     makes its own and checks it after this launch (one host sync).
-    ``counts`` (CUDA only, for measurement): an int64 [2] device tensor;
-    the launch then runs the kernel's counting instance, which adds its
-    slab tests and Möller–Trumbore tests, and sets to 1 the bytes of
+    ``check_stack`` raises first for a tree deeper than the walk's stack
+    (``packed.stack_binary`` against STACK_BINARY for mk4,
+    ``packed.stack_wide`` against ``traverse_wide.STACK`` for wide).
+    ``counts`` (CUDA only, for measurement): an int64 ``[len(COUNTS)]``
+    device tensor; the launch then runs the kernel's counting instance,
+    which adds its tallies (``COUNTS``), and sets to 1 the bytes of
     ``seen = (rows, slots)`` (uint8, one per row of the layout's table and
     one per leaf slot of ``tris``: ``tris`` rows x 14) that it reads."""
     if layout not in LAYOUTS:
@@ -287,25 +401,35 @@ def walk_raw(layout: str, packed: PackedBVH, o: torch.Tensor,
     if o.device.type != "cuda":
         raise ValueError(f"walk_raw: unsupported device {o.device}")
     n = o.shape[0]
-    for name, t in dict(o=o, d=d, tmax=tmax, table=table,
-                        tris=packed.tris).items():
+    box = packed.leafbox
+    if box is None:
+        raise ValueError("walk_raw: PackedBVH.leafbox missing — build the "
+                         "BVH with pack_rows / prepare_bvh")
+    for name, t in dict(o=o, d=d, tmax=tmax, table=table, tris=packed.tris,
+                        leafbox=box).items():
         if t.device != o.device or t.dtype != torch.float32 \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"walk_raw: {name} must be a contiguous, "
                              f"16-byte aligned float32 tensor on {o.device}")
     if o.shape != (n, 3) or d.shape != (n, 3) or tmax.shape != (n,) \
-            or packed.tris.shape[1] != 128:
+            or packed.tris.shape[1] != 128 \
+            or box.shape != (packed.tris.shape[0], 16):
         raise ValueError("walk_raw: bad ray or table shapes")
     if (counts is None) != (seen is None):
         raise ValueError("walk_raw: counts and seen go together")
+    if layout == "mk4":
+        check_stack(packed.stack_binary, STACK_BINARY, "walk_raw mk4")
+    elif layout.startswith("wide"):
+        check_stack(packed.stack_wide, _WIDE_STACK, f"walk_raw {layout}")
     if counts is not None and (
-            counts.shape != (2,) or counts.dtype != torch.int64
+            counts.shape != (len(COUNTS),) or counts.dtype != torch.int64
             or counts.device != o.device
             or [s.shape for s in seen] != [(table.shape[0],), (
                 packed.tris.shape[0] * PALLAS_LEAF,)]
             or any(s.dtype != torch.uint8 or s.device != o.device
                    or not s.is_contiguous() for s in seen)):
-        raise ValueError(f"walk_raw: counts must be an int64 [2] tensor and "
+        raise ValueError(f"walk_raw: counts must be an int64 "
+                         f"[{len(COUNTS)}] tensor and "
                          f"seen two contiguous uint8 tensors (table rows, "
                          f"tris rows x {PALLAS_LEAF}) on {o.device}")
     t_out = torch.empty_like(tmax)
@@ -318,8 +442,9 @@ def walk_raw(layout: str, packed: PackedBVH, o: torch.Tensor,
         err = _lib.traverse_lib().urt_traverse(
             o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n,
             LAYOUTS.index(layout), int(any_hit), table.data_ptr(),
-            packed.tris.data_ptr(), packed.rows_per_leaf, t_out.data_ptr(),
-            slot.data_ptr(), leaf.data_ptr(), overflow.data_ptr(),
+            packed.tris.data_ptr(), box.data_ptr(), packed.rows_per_leaf,
+            t_out.data_ptr(), slot.data_ptr(), leaf.data_ptr(),
+            overflow.data_ptr(),
             None if counts is None else counts.data_ptr(),
             None if seen is None else seen[0].data_ptr(),
             None if seen is None else seen[1].data_ptr(),

@@ -16,8 +16,10 @@ wide node; child slot c occupies lanes [8c, 8c+8):
 The fused segment kernel (``csrc/mega_segment.cu``) and the wide walk
 (``csrc/traverse.cu``) walk these rows with a private ``STACK``-entry
 stack per ray; ``widen`` refuses, on the host, a tree deep enough to
-overflow it, and the kernels count any overflow that would still happen
-so the wrappers raise.
+overflow it, and stores the tree's worst push depth
+(``PackedBVH.stack_wide``, ``traverse_mk3.wide_stack_depth``), which the
+wrappers hold to ``STACK`` before a launch; the kernels count any
+overflow that would still happen so the wrappers raise.
 """
 
 from __future__ import annotations
@@ -28,18 +30,19 @@ import numpy as np
 import torch
 
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    PackedBVH, walk)
+    _WIDE_STACK, PackedBVH, walk, wide_stack_depth)
 
 # up to (arity-1) residual pushes per tree level plus arity at the
 # deepest expansion; the wide-tree depth stays far below this
-STACK = 256
+STACK = _WIDE_STACK
 
 DEFAULT_ARITY = 4
 
 
 def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
     """Collapse the packed binary tree into an arity-wide tree (numpy).
-    Returns ``packed`` with the ``wide`` field filled.
+    Returns ``packed`` with the ``wide`` field and its worst push depth
+    (``stack_wide``) filled.
 
     Collapse rule: start from a binary interior node's two children and
     repeatedly replace the largest-surface-area interior child with its
@@ -117,7 +120,8 @@ def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
             else:
                 out[r, b0 + 6] = float(widx[k])
                 out[r, b0 + 7] = 0.0
-    return packed.replace(wide=torch.from_numpy(out))
+    return packed.replace(wide=torch.from_numpy(out),
+                          stack_wide=wide_stack_depth(out))
 
 
 def traverse_wide(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
