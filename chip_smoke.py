@@ -57,7 +57,7 @@ From the root of a checkout, on a machine with a CUDA card, it
    whose t does not tie (tied lanes counted), the occlusion predicate
    equal on every any-hit lane, culled lanes a miss, no stack overflow;
    the counting instance gives each kernel's bound and the work of each
-   of the composed frame's mk4 launches (``counters`` lines);
+   launch of each walk in its composed frame (``counters`` lines);
 9. renders the flagship composed frame with ``kernel='pallas'`` (the
    traversal ``'auto'`` takes on the card), then ``'wide'`` (arity 4 and
    8) and ``'pallas3'``: each within rtol = atol = 5e-4 of the fused frame
@@ -307,8 +307,10 @@ def log_segment_counts(what, packed, aux, depth, ins, kw):
 
 def log_walk_counts(what, layout, packed, ins):
     """One counting launch of a walk; logs slab tests, leaf-group box
-    tests and MT tests per live lane, the mean active lanes per MT test and
-    the deepest stack."""
+    tests and MT tests per live lane (the sequential leaf test's, the work
+    the walk needs), the mean active lanes per MT test (mk3 and wide: the
+    lanes busy per cooperative pass, and of them the lanes doing needed
+    work, with the slot tests the passes ran) and the deepest stack."""
     import torch
     from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
     table = packed.nodes if layout in ("mk3", "mk4") else packed.wide
@@ -319,11 +321,17 @@ def log_walk_counts(what, layout, packed, ins):
                            packed.tris.shape[0] * m3.PALLAS_LEAF))
     m3.walk_raw(layout, packed, *ins, counts=counts, seen=seen)
     c = dict(zip(m3.COUNTS, counts.tolist()))
-    live = max(c["live"], 1)
+    live, issues = max(c["live"], 1), max(c["issues"], 1)
+    if layout == "mk4":
+        lanes = f"{c['mt'] / issues:.2f} active lanes per MT test"
+    else:
+        lanes = (f"{c['pass_slots'] / issues:.2f} lanes busy per "
+                 f"cooperative pass, {c['mt'] / issues:.2f} of them on "
+                 f"needed tests ({c['pass_slots'] / live:.3f} slot tests "
+                 f"run per live lane)")
     log(f"counters {what}: {c['live']} live lanes; {c['slab'] / live:.3f} "
         f"slab tests, {c['groups'] / live:.3f} leaf-group box tests, "
-        f"{c['mt'] / live:.3f} MT tests per live lane; "
-        f"{c['mt'] / max(c['issues'], 1):.2f} active lanes per MT test; "
+        f"{c['mt'] / live:.3f} MT tests per live lane; {lanes}; "
         f"deepest stack {c['depth']}")
 
 
@@ -380,7 +388,8 @@ def walk_work(layout, packed, launches):
     output written once: 40 B per live lane and 16 B per culled lane, plus
     each node (or wide) row and each leaf slot that the launch's counting
     instance reads, once per launch; operations from the counting
-    instance's slab and MT tests."""
+    instance's slab and MT tests (those of the sequential leaf test: the
+    cooperative leaf phase's extra tests are not work the walk needs)."""
     import torch
     from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
     table = packed.nodes if layout in ("mk3", "mk4") else packed.wide
@@ -514,11 +523,13 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b:.4f} ms "
             f"({by}: {nb} bytes, {ops:.6g} FP32 operations) {card}")
 
-    # step-0 counters of the composed frame's mk4 launches
-    for k, x in enumerate(frame_walks["mk4"]):
-        log_walk_counts(f"composed frame mk4 launch {k} "
-                        f"({'any-hit' if x[4] else 'nearest'}, "
-                        f"{x[1].shape[0]} lanes)", "mk4", packed, x[1:])
+    # step-0 counters of each walk's launches in its composed frame
+    for layout, (_, _, arity, _) in WALKS.items():
+        for k, x in enumerate(frame_walks[layout]):
+            log_walk_counts(f"composed frame {layout} launch {k} "
+                            f"({'any-hit' if x[4] else 'nearest'}, "
+                            f"{x[1].shape[0]} lanes)", layout, bvhs[arity],
+                            x[1:])
 
     # ---- 9. the composed frames: main path of each walk
     for layout, (name, kernel, arity, _) in WALKS.items():
@@ -1139,7 +1150,8 @@ def main():
     from unity_raytracer_tpu_torch.ops.kernels.ptxas import entries
     for name in ("traverse", "nearest_tri"):
         for entry, v in sorted(entries(libs[name].build["log"]).items()):
-            m = re.search(r"traverse_kernelILi(\d)ELb(\d)ELb(\d)E", entry)
+            m = re.search(r"(?:traverse|coop)_kernelILi(\d)ELb(\d)ELb(\d)E",
+                          entry)
             what = (f"{('mk3', 'mk4', 'wide4', 'wide8')[int(m.group(1))]} "
                     f"{'any-hit' if m.group(2) == '1' else 'nearest'}"
                     f"{' counting' if m.group(3) == '1' else ''}"

@@ -238,6 +238,28 @@ def test_cli_render_cornell_routes(tmp_path, monkeypatch, kernel, fused):
         and img.std() > 0.01
 
 
+def test_cli_render_defaults_to_cornell_box(tmp_path, monkeypatch):
+    """``render`` without ``--preset`` renders ``cornell_box``, as the
+    twin's CLI does: the default parses to that preset, and the image
+    equals the one ``--preset cornell_box`` writes."""
+    from unity_raytracer_tpu_torch import __main__ as cli
+    from unity_raytracer_tpu_torch.models import presets
+    asked, real = [], presets.get_preset
+    monkeypatch.setattr(presets, "get_preset", lambda name, **k: (
+        asked.append(name), real(name, **k))[1])
+    imgs = []
+    for extra in ([], ["--preset", "cornell_box"]):
+        out = tmp_path / f"d{len(imgs)}.npy"
+        monkeypatch.setattr(sys, "argv", [
+            "unity_raytracer_tpu_torch", "render", "--width", "8",
+            "--height", "8", "--device", "cpu", "--out", str(out)] + extra)
+        cli.main()
+        imgs.append(np.load(out))
+    assert asked == ["cornell_box", "cornell_box"]
+    assert imgs[0].shape == (8, 8, 3) and imgs[0].std() > 0.01
+    np.testing.assert_array_equal(imgs[0], imgs[1])
+
+
 @pytest.mark.gpu
 def test_render_on_card_matches_cpu(cuda):
     before = mega.launches["forward"]

@@ -415,3 +415,53 @@ def test_nearest_triangle_on_card(cuda, rng):
     assert t_imk.launches["nearest_triangle"] == before + 1
     want = t_imk.nearest_triangle_plain(o, d, tris, valid)
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def _dup_packed(arity, leaf, device):
+    """A subdivision-3 icosphere with every third triangle twice (exact t
+    ties inside and across leaves), packed with ``leaf``-slot leaves (98:
+    7 rows and 14 slot groups per leaf, most leaves shorter than that)."""
+    from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import pack_rows
+    from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import widen
+    v, f = t_meshgen.icosphere(subdivisions=3, radius=2.0)
+    tris = np.concatenate([v[f], v[f][::3]]).astype(np.float32)
+    b = t_bvh.build(tris, leaf_size=leaf)
+    return widen(pack_rows(b, leaf_slots=max(leaf, t_mk3.PALLAS_LEAF)),
+                 arity=arity).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["mk3", "wide4", "wide8"])
+@pytest.mark.parametrize("leaf", [14, 98])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cooperative_leaf_walks_match_plain_on_card(cuda, rng, layout, leaf,
+                                                    any_hit):
+    """The walks with the warp-cooperative leaf phase (MK3, WIDE) on
+    multi-row leaves and duplicated triangles: t bitwise; the triangle the
+    plain version's first-in-(row, slot) order picks wherever no other
+    triangle ties its t, and a triangle at exactly that t where one does;
+    the occlusion predicate exactly."""
+    packed = _dup_packed(8 if layout == "wide8" else 4, leaf, cuda)
+    o, _ = _rays(rng, 4000)
+    d = rng.normal(size=(4000, 3)).astype(np.float32) * 1.2 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)   # toward the sphere
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    tm = torch.full((4000,), 3e38, device=cuda)
+    tm[1::3] = 2.5 if any_hit else 4.0
+    tm[::7] = -1.0
+    got = t_mk3.walk_raw(layout, packed, o, d, tm, any_hit)
+    want = t_mk3.traverse_plain(packed, o, d, tm, any_hit)
+    if any_hit:
+        assert torch.equal(got[0] < 0, want[0] < 0)
+        assert torch.equal(got[1] >= 0, want[1] >= 0)
+        return
+    assert torch.equal(got[0], want[0])
+    same = (got[1] == want[1]) & (got[2] == want[2])
+    i = torch.nonzero(~same).squeeze(1)
+    from unity_raytracer_tpu_torch.ops.kernels.mega import _mt
+    v = packed.tris[got[2][i].long(), :126].reshape(-1, 14, 9)[
+        torch.arange(i.numel(), device=cuda), got[1][i].long()]
+    ok, t_k = _mt(tuple(c[i] for c in o.unbind(-1)),
+                  tuple(c[i] for c in d.unbind(-1)), v.T)
+    assert bool((ok & (t_k == want[0][i])).all())
+    assert int((want[1] >= 0).sum()) > 1000

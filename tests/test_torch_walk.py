@@ -15,7 +15,14 @@ against the port's plain code on seeded numpy inputs:
   ``mega._slab`` at the hit's own t;
 * the stored depths equal a recursive walk of the rows (19 BVH4 and 12
   binary entries on ``mesh100k``);
-* ``check_stack`` raises for a tree deeper than a kernel's stack.
+* ``check_stack`` raises for a tree deeper than a kernel's stack;
+* the threaded and wide walks' warp-cooperative leaf phase
+  (``csrc/traverse.cu`` ``leaf_phase``), modelled op for op in its scan,
+  owner search, queue and pass order, keeps the winner of the sequential
+  ``traverse_plain`` order on seeded leaves with exact ties, leaves
+  shorter than their rows and live-looking slots past the count;
+* the wide walk's leaf stack code decodes to every leaf child's first
+  row and triangle count.
 
 The ``gpu`` cases run the kernels on the card: a too-deep tree raises
 before any launch, and launches that share one overflow counter give the
@@ -246,6 +253,230 @@ def test_deep_chain_raises_before_any_launch():
     with pytest.raises(ValueError, match="more than the kernel's capacity"):
         t_mk3.check_stack(t_mk3.binary_stack_depth(nodes),
                           t_mk3.STACK_BINARY, "walk_raw mk4")
+
+
+# ---------------------------------------------------------------------------
+# the warp-cooperative leaf phase of the MK3 and WIDE walks
+# ---------------------------------------------------------------------------
+
+WARP, PASS_GROUPS, NO_KEY = 32, 4, (1 << 64) - 1
+
+
+def _leaf_phase_model(tris, leafbox, o, d, pend, any_hit):
+    """csrc/traverse.cu ``leaf_phase`` for one warp, in its loop and
+    reduction order: ``pend[lane]`` is None or (first tris row, count,
+    bound at leaf entry) of the lane's pending leaf. The owners' groups
+    are numbered by an inclusive scan; each chunk of 32 (owner, group)
+    pairs finds a pair's owner by the kernel's binary search over the
+    scan and slab-tests the group box against the owner's bound (raised
+    by GROUP_MARGIN); the kept groups join a queue in lane order; each
+    pass takes 4 queued groups, lane l testing slot l % 7 of group l // 7
+    below the owner's count and bound and folding a hit into the owner's
+    key, (t bits << 32 | slot) or the slot alone in any-hit mode, by a
+    64-bit minimum. Returns per lane None or (t, slot, leaf row)."""
+    inv = 1.0 / mega._fix(d)
+    groups = [0 if p is None else (p[1] + t_mk3.GROUP - 1) // t_mk3.GROUP
+              for p in pend]
+    incl = np.cumsum(groups)
+    excl = incl - np.asarray(groups)
+    total = int(incl[-1])
+    key = [NO_KEY] * WARP
+    row = torch.tensor([0 if p is None else p[0] for p in pend])
+    count = [0 if p is None else p[1] for p in pend]
+    bound = torch.tensor([0.0 if p is None else p[2] for p in pend],
+                         dtype=torch.float32)
+
+    def slot_pass(entries):
+        lane = torch.arange(t_mk3.GROUP * len(entries))
+        e = torch.tensor(entries)[lane // t_mk3.GROUP]
+        own = e & 31
+        j = (e >> 5) * t_mk3.GROUP + lane % t_mk3.GROUP
+        live = j < torch.tensor(count)[own]
+        r = row[own] + j // t_mk3.PALLAS_LEAF
+        k = j % t_mk3.PALLAS_LEAF
+        v = tris[r, :9 * t_mk3.PALLAS_LEAF].reshape(-1, t_mk3.PALLAS_LEAF,
+                                                    9)[lane, k]
+        ok, t = mega._mt(o[own].unbind(-1), d[own].unbind(-1), v.T)
+        hit = live & ok & (t < bound[own])
+        bits = t.numpy().view(np.uint32)
+        for lane_ in torch.nonzero(hit).squeeze(1).tolist():
+            jj = int(j[lane_])
+            cand = jj if any_hit else (int(bits[lane_]) << 32) | jj
+            key[int(own[lane_])] = min(key[int(own[lane_])], cand)
+
+    queue = []
+    for p0 in range(0, total, WARP):
+        p = p0 + np.arange(WARP)
+        own = np.zeros(WARP, np.int64)
+        for step in (16, 8, 4, 2, 1):
+            own += np.where(incl[own + step - 1] <= p, step, 0)
+        g = p - excl[own & 31]
+        valid = p < total
+        o_ = torch.from_numpy(own & 31)
+        j0 = torch.from_numpy(g) * t_mk3.GROUP
+        boxrow = row[o_] + j0 // t_mk3.PALLAS_LEAF
+        half = (j0 % t_mk3.PALLAS_LEAF) // t_mk3.GROUP
+        box = leafbox.reshape(-1, 2, 8)[boxrow.clamp(0, leafbox.shape[0]
+                                                     - 1), half].T
+        b = bound[o_]
+        keep = mega._slab(o[o_].unbind(-1), inv[o_].unbind(-1), box,
+                          b + b.abs() * t_mk3.GROUP_MARGIN)
+        queue += [(int(g[lane]) << 5) | int(own[lane]) for lane in range(WARP)
+                  if valid[lane] and bool(keep[lane])]
+        h = 0
+        while h + PASS_GROUPS <= len(queue):
+            slot_pass(queue[h:h + PASS_GROUPS])
+            h += PASS_GROUPS
+        queue = queue[h:]
+    if queue:
+        slot_pass(queue)
+    out = []
+    for lane in range(WARP):
+        if pend[lane] is None or key[lane] == NO_KEY:
+            out.append(None)
+            continue
+        j = key[lane] & 0xFFFFFFFF
+        t = -1.0 if any_hit else float(np.array(key[lane] >> 32, np.uint32)
+                                       .view(np.float32))
+        out.append((t, j % t_mk3.PALLAS_LEAF,
+                    pend[lane][0] + j // t_mk3.PALLAS_LEAF))
+    return out
+
+
+def _leaves(seed, n_leaves=24, rpl=7):
+    """Seeded leaves of ``rpl`` tris rows: random triangles in the unit
+    cube, counts from 1 to rpl * 14 (most leaves shorter than their rows),
+    a sixth of the live slots copies of an earlier slot of the same leaf
+    (exact t ties), and in every slot past the count a live triangle
+    grown 3x about its centroid, which a test that ignores the count
+    would hit first on some rays. Returns (tris, leafbox, counts)."""
+    rng = np.random.default_rng(seed)
+    slots = rpl * t_mk3.PALLAS_LEAF
+    tris = np.zeros((n_leaves * rpl, 128), np.float32)
+    leaf_prim = np.full((n_leaves * rpl, t_mk3.PALLAS_LEAF), -1, np.int32)
+    counts = rng.integers(1, slots + 1, n_leaves)
+    counts[:3] = (slots, 1, t_mk3.GROUP + 1)
+    for f, c in enumerate(counts):
+        v = (rng.random((slots, 3, 3)) * 0.2
+             + rng.random((1, 1, 3))).astype(np.float32).reshape(slots, 9)
+        for j in range(1, c):
+            if rng.random() < 1 / 6:
+                v[j] = v[rng.integers(0, j)]
+        big = v[rng.integers(0, c, slots - c)].reshape(-1, 3, 3)
+        mid = big.mean(axis=1, keepdims=True)
+        v[c:] = (mid + 3.0 * (big - mid)).reshape(-1, 9)
+        for j in range(slots):
+            r, k = divmod(j, t_mk3.PALLAS_LEAF)
+            tris[f * rpl + r, 9 * k:9 * k + 9] = v[j]
+            if j < c:
+                leaf_prim[f * rpl + r, k] = j
+    return (torch.from_numpy(tris),
+            torch.from_numpy(t_mk3.group_boxes(tris, leaf_prim)), counts)
+
+
+def _sequential(tris, rpl, o, d, leaf, count, bound, any_hit):
+    """traverse_plain on the leaf's own slots below its count: nearest
+    mode the first slot in (row, slot) order at the smallest t < bound,
+    any-hit mode the first slot with t < bound."""
+    from types import SimpleNamespace
+    sub = tris[leaf * rpl:(leaf + 1) * rpl].clone()
+    flat = sub[:, :9 * t_mk3.PALLAS_LEAF].reshape(-1, 9)
+    flat[count:] = 0.0
+    sub[:, :9 * t_mk3.PALLAS_LEAF] = flat.reshape(rpl, -1)
+    t, slot, r = t_mk3.traverse_plain(
+        SimpleNamespace(tris=sub), o[None], d[None],
+        torch.tensor([bound], dtype=torch.float32), any_hit)
+    if int(slot[0]) < 0:
+        return None
+    return float(t[0]), int(slot[0]), leaf * rpl + int(r[0])
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cooperative_leaf_phase_keeps_the_sequential_winner(seed, any_hit):
+    """The cooperative leaf phase picks, for every owner of a warp, the
+    (t, slot, leaf row) of the sequential order: seeded rays aimed at
+    random live slots of random leaves (several owners on one leaf, lanes
+    with no pending leaf), bounds of BIG, a random distance, or exactly
+    the t of one of the leaf's hits (strict <), duplicated triangles that
+    tie exactly, and slots past the count that must not be tested."""
+    rpl = 7
+    tris, leafbox, counts = _leaves(seed, rpl=rpl)
+    rng = np.random.default_rng(100 + seed)
+    checked = ties = wins = past_count = 0
+    for _ in range(6):
+        leaf = rng.integers(0, counts.shape[0], WARP)
+        leaf[:6] = leaf[0]                       # owners sharing a leaf
+        o = torch.from_numpy(rng.normal(size=(WARP, 3)).astype(np.float32))
+        tgt = torch.empty(WARP, 3)
+        for lane in range(WARP):
+            j = int(rng.integers(0, counts[leaf[lane]]))
+            r, k = divmod(j, t_mk3.PALLAS_LEAF)
+            v = tris[leaf[lane] * rpl + r, 9 * k:9 * k + 9].reshape(3, 3)
+            w = torch.from_numpy(rng.dirichlet([1.0] * 3).astype(np.float32))
+            tgt[lane] = (w[:, None] * v).sum(0)
+        d = tgt - o
+        d = d / d.norm(dim=1, keepdim=True)
+        pend = []
+        for lane in range(WARP):
+            c = int(counts[leaf[lane]])
+            kind = lane % 4
+            if kind == 3 and lane > 8:
+                pend.append(None)                # no pending leaf
+                continue
+            bound = 3.0e38 if kind == 0 else float(rng.random() * 3.0)
+            if kind == 2:                        # exactly a hit's t
+                first = _sequential(tris, rpl, o[lane], d[lane],
+                                    int(leaf[lane]), c, 3.0e38, False)
+                bound = first[0] if first else bound
+            pend.append((int(leaf[lane]) * rpl, c, bound))
+        got = _leaf_phase_model(tris, leafbox, o, d, pend, any_hit)
+        for lane in range(WARP):
+            if pend[lane] is None:
+                assert got[lane] is None
+                continue
+            want = _sequential(tris, rpl, o[lane], d[lane],
+                               int(leaf[lane]), pend[lane][1],
+                               pend[lane][2], any_hit)
+            assert got[lane] == want, (lane, pend[lane], got[lane], want)
+            past_count += want != _sequential(
+                tris, rpl, o[lane], d[lane], int(leaf[lane]),
+                rpl * t_mk3.PALLAS_LEAF, pend[lane][2], any_hit)
+            checked += 1
+            wins += want is not None
+            if want is not None and not any_hit:
+                r = want[2] - int(leaf[lane]) * rpl
+                j = r * t_mk3.PALLAS_LEAF + want[1]
+                v = tris[int(leaf[lane]) * rpl:(int(leaf[lane]) + 1) * rpl,
+                         :9 * t_mk3.PALLAS_LEAF].reshape(-1, 9)
+                ties += int((v[j + 1:pend[lane][1]] == v[j]).all(1).any())
+    assert checked > 150 and wins > 50 and past_count > 0, (
+        checked, wins, ties, past_count)
+    if not any_hit:
+        assert ties > 0, (checked, wins, ties)  # a later duplicate lost
+
+
+def test_wide_stack_code_carries_the_leaf_count(packed):
+    """What the wide walk's stack code for a leaf child (csrc/traverse.cu
+    ``WideStack``: -(2 + the slot index of the leaf's last triangle))
+    relies on to decode to the row's lane +6 (first tris row) and lane +7
+    (triangle count): every leaf child of ``PackedBVH.wide`` starts at a
+    multiple of ``rows_per_leaf``, holds a whole count in 1 ..
+    rows_per_leaf * 14, and its code fits an int32 below -1 (-1 means "pop
+    next"). The decoding itself is held on the card (test_torch_traverse.py,
+    ``test_cooperative_leaf_walks_match_plain_on_card``)."""
+    w = packed.wide.numpy()
+    meta = w[:, 6::8]
+    cnt = w[:, 7::8]
+    leaf = cnt > 0
+    assert leaf.any()
+    rpl = packed.rows_per_leaf
+    meta, cnt = meta[leaf], cnt[leaf]
+    assert (meta == np.round(meta)).all() and (cnt == np.round(cnt)).all()
+    meta, cnt = meta.astype(np.int64), cnt.astype(np.int64)
+    assert (meta >= 0).all() and (meta % rpl == 0).all()
+    assert (cnt <= rpl * t_mk3.PALLAS_LEAF).all()
+    assert (meta * t_mk3.PALLAS_LEAF + cnt + 1 < 2**31).all()
 
 
 # ---------------------------------------------------------------------------

@@ -189,7 +189,7 @@ def main():
     dev_help = ("torch device (default: cuda; cpu runs the plain PyTorch "
                 "versions)")
     r = sub.add_parser("render", help="render a preset to PNG/NPY")
-    r.add_argument("--preset", default="mesh100k")
+    r.add_argument("--preset", default="cornell_box")
     r.add_argument("--width", type=int)
     r.add_argument("--height", type=int)
     r.add_argument("--depth", type=int, default=None)

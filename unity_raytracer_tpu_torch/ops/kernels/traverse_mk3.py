@@ -296,8 +296,12 @@ launches = dict.fromkeys(LAYOUTS, 0)
 # the counting instance's tallies, in the order of its ``counts`` tensor:
 # slab tests, Möller–Trumbore tests, warp issues of a leaf-slot test (MT
 # tests / issues = mean active lanes per test), the deepest stack (a
-# maximum), live lanes, leaf-group box tests
-COUNTS = ("slab", "mt", "issues", "depth", "live", "groups")
+# maximum), live lanes, leaf-group box tests, and the slot tests that the
+# cooperative passes of mk3 and wide run (0 in mk4). slab, groups and mt
+# are the sequential leaf test's, the work the walk needs; in mk3 and
+# wide an issue is a cooperative pass (pass_slots / issues = lanes busy
+# per pass, mt / issues = lanes doing needed work per pass)
+COUNTS = ("slab", "mt", "issues", "depth", "live", "groups", "pass_slots")
 # plain version: ray x leaf-slot pairs per brute-force chunk
 _CHUNK_ELEMS = 1 << 22
 

@@ -128,8 +128,9 @@ def traverse_wide(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
                   t_max: torch.Tensor | None = None, any_hit: bool = False,
                   overflow: torch.Tensor | None = None):
     """Wide-row twin of ``traverse_packet3`` (needs ``packed.wide``, arity
-    4 or 8): children slab-tested per wide row, hits pushed far to near.
-    Same outputs, ``t_max`` cull, ``any_hit`` mode and ``overflow``."""
+    4 or 8): children slab-tested per wide row, the walk descending into
+    the nearest hit and pushing the others far to near. Same outputs,
+    ``t_max`` cull, ``any_hit`` mode and ``overflow``."""
     if packed.wide is None:
         raise ValueError("PackedBVH.wide missing — call widen() first")
     arity = packed.wide.shape[1] // 8

@@ -58,6 +58,14 @@ from unity_raytracer_tpu_torch.utils.config import RenderConfig
 Records = Tuple[torch.Tensor, ...]
 
 _BIG = 3.0e38
+# The bias diagnostic ``mesh_occ_frozen`` counts a lane only where the
+# recorded mesh occluder, moved FROZEN_MARGIN (relative) farther, still
+# lies below the recomputed sphere / loose-triangle occluder and still
+# occludes. Where the nearest occluder is a sphere or a loose triangle,
+# the record and the recomputation are one distance computed twice, and
+# without the margin their rounding would decide the count. The shading
+# min is not affected.
+FROZEN_MARGIN = 1e-4
 
 
 def _max(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -383,7 +391,10 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
             mesh_wins = ((stl < st) & (stl * stl < ld2)
                          & scene.lights.valid[l] & (ln >= 0.0))
             band = (stl * stl - ld2).abs() < 30.0 * max(temp, 1e-6)
-            frozen_any = frozen_any | mesh_wins
+            far = stl * (1.0 + FROZEN_MARGIN)
+            frozen_any = frozen_any | (
+                (far < st) & (far * far < ld2) & scene.lights.valid[l]
+                & (ln >= 0.0))
             frozen_band_any = frozen_band_any | (mesh_wins & band)
             proxy_risk_any = proxy_risk_any | (
                 diag_proxy & scene.lights.valid[l] & (ln >= 0.0)
