@@ -71,11 +71,22 @@ From the root of a checkout, on a machine with a CUDA card, it
     rtol 1e-4, gradients rtol 5e-3, atol 5e-4 x the largest |g|), then
     times 1 warm-up + 3 steps, each of the step's 48 ``traverse_packet4``
     launches alone against their bound, and reads the peak memory;
-11. holds the brute-force nearest-triangle kernel against its plain
-    version on 65,536 ``mesh10k`` primary rays ((t, index) on every
-    lane), times it on the whole 1024x1024 batch, and renders a small
-    BVH-less ``mesh10k`` frame through it on the card and with the plain
-    version on the CPU;
+11. holds the brute-force nearest-triangle kernel, which culls per
+    block of 256 rays, against its plain version bit for bit ((t, index)
+    on every lane) on the ``mesh10k`` launches of
+    ``scripts/torch_nearest_census.nearest_launches``: every launch of
+    the BVH-less 24x24, 64x64 and 128x128 frames, and the proxies that
+    no path makes, (i) the whole 1024x1024 primary batch, (ii) every 16th
+    of its rays, (iii) the mirror bounces that segment 1 of the composed
+    frame traces, (iv) the primary batch in a seeded random order; its
+    counting instance gives the triangles each block kept (held to the
+    plain model of the cull on (ii) and a 128x128 frame launch), the
+    exact tests per ray, the counted-work bound (bytes, or the kept
+    pairs' exact tests), the cull stream's operations and the
+    brute-force bound; times each launch; the kernels line's row is the
+    24x24 frame's launches, which the main path below makes; renders
+    that BVH-less ``mesh10k`` frame through the kernel on the card and
+    with the plain version on the CPU;
 12. fits on the composed path (``fit`` without ``--replay``) on the card
     and on the CPU from the same start, losses and parameters at rtol
     1e-3: the ``three_spheres`` toy (48x48, 5 steps, whole image) and
@@ -184,6 +195,13 @@ WALK_OPS = (25, 62)
 # bytes a walk moves per lane: a live lane reads o, d, tmax and writes t,
 # slot, leaf row; a culled lane (tmax < 0) reads tmax only
 WALK_LIVE_BYTES, WALK_CULLED_BYTES = 24 + 4 + 12, 4 + 12
+# the nearest-triangle kernel: bytes per ray (o, d in; t, index out) and
+# per triangle (9 floats and the valid flag), and FP32 operations of one
+# cull test (csrc/nearest_tri.cu: centre
+# offset 3, axial 5, radial 9 + 6, distance 6, F 4, s 2, c.n 5, g 6, A 4,
+# the margin 10, the threshold 4, the two compares)
+NEAREST_RAY_BYTES, NEAREST_TRI_BYTES = 32, 40
+CULL_OPS = 66
 # bytes a walk reads per binary node row (three float4: box, leaf row,
 # count, miss link, right child) and per leaf slot (one 9-float triangle);
 # a wide row is read whole
@@ -446,6 +464,119 @@ def check_walk(layout, packed, ins, plain, torch):
     return int(bad.sum()), int(tie.sum()), err
 
 
+def nearest_work(o, d, verts, valid, kept):
+    """(bytes, operations, exact pair tests, cull tests) of one
+    nearest-triangle launch: rays and triangles read once, (t, index)
+    written once, and the exact tests the culled kernel makes (every ray
+    of a block tests each triangle its block kept: ``kept``, from the
+    counting instance). The cull tests (every block with a ray that can
+    hit tests each valid triangle's ball against its cone) are the
+    design's own stream, not work the function needs: counted apart."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
+    n = o.shape[0]
+    lanes = torch.full_like(kept, imk.BLOCK, dtype=torch.int64)
+    lanes[-1] = n - imk.BLOCK * (kept.shape[0] - 1)
+    pairs = int((kept.long() * lanes).sum())
+    streaming = int(imk.block_bundles(o, d)["any_part"].sum())
+    culls = streaming * int((valid >= 0.5).sum())
+    nbytes = n * NEAREST_RAY_BYTES + verts.shape[0] * NEAREST_TRI_BYTES
+    return nbytes, pairs * OPS_PER_TEST[3], pairs, culls
+
+
+def nearest_phase(dev, card, failures):
+    """Phase 11's checks of the kernel (module docstring): returns its
+    kernels-line row (``launches`` is filled in by the caller)."""
+    import torch
+    from scripts.torch_nearest_census import nearest_launches
+    from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
+
+    runs, v10, ok10 = nearest_launches(dev)
+    n_t = int(ok10.sum())
+    res = {}
+    for what, (o, d) in runs.items():
+        got = imk.nearest_triangle_pallas(o, d, v10, ok10)
+        want = imk.nearest_triangle_plain(o, d, v10, ok10)
+        bad = int((~(got[0] == want[0]) & ~(torch.isinf(got[0])
+                                            & torch.isinf(want[0]))
+                   | (got[1] != want[1])).sum())
+        hits = int((want[1] >= 0).sum())
+        both = torch.isfinite(got[0]) & torch.isfinite(want[0])
+        err = float((got[0] - want[0])[both].abs().max()) if bool(
+            both.any()) else 0.0
+        t_c, i_c, kept = imk.nearest_triangle_survivors(o, d, v10, ok10)
+        if not (torch.equal(t_c, got[0]) and torch.equal(i_c, got[1])):
+            bad += 1
+            failures.append(f"nearest_triangle {what}: the counting "
+                            f"instance's bits differ from the kernel's")
+        nb, ops, pairs, culls = nearest_work(o, d, v10, ok10, kept)
+        cb = bound(nb, ops)
+        bb = bound(nb, o.shape[0] * n_t * OPS_PER_TEST[3])
+        stream = culls * CULL_OPS / FP32_OPS * 1e3
+        k_ms = events_ms(lambda: imk.nearest_triangle_pallas(o, d, v10,
+                                                             ok10), 5)
+        kf = kept.double()
+        res[what] = dict(ms=k_ms, err=err, counted=cb, brute=bb,
+                         stream=stream, kept_mean=float(kf.mean()))
+        log(f"nearest_triangle {what}: {o.shape[0]} rays x {n_t} "
+            f"triangles: {bad} lanes off the plain version ({hits} hits); "
+            f"kept per block of {imk.BLOCK} mean {float(kf.mean()):.3f}, "
+            f"max {int(kf.max())}, none in "
+            f"{float((kf == 0).double().mean()):.4f} of {kf.shape[0]} "
+            f"blocks; {pairs / o.shape[0]:.3f} exact tests per ray; kernel "
+            f"{k_ms:.4f} ms; counted-work bound {cb[0]:.4f} ms ({cb[1]}: "
+            f"{nb} bytes, {ops:.6g} FP32 operations); the cull stream "
+            f"{culls} tests, {stream:.4f} ms of operations; brute-force "
+            f"work {bb[0]:.4f} ms ({bb[1]}) {card}")
+        if bad or hits == 0:
+            failures.append(f"nearest_triangle {what}: {bad} lanes off, "
+                            f"{hits} hits")
+    # the plain model of the cull against the counting instance
+    for what in ("128x128 frame, launch 0",
+                 "(ii) proxy: every 16th primary ray"):
+        o, d = runs[what]
+        model = imk.nearest_triangle_survivors_plain(
+            o.cpu(), d.cpu(), v10.cpu(), ok10.cpu()).sum(1).to(torch.int32)
+        kept = imk.nearest_triangle_survivors(o, d, v10, ok10)[2].cpu()
+        log(f"nearest_triangle cull: the counting instance keeps per block "
+            f"what the plain model keeps on {what}: "
+            f"{torch.equal(model, kept)}")
+        if not torch.equal(model, kept):
+            failures.append(f"nearest_triangle: counting instance and "
+                            f"plain model of the cull disagree on {what}")
+    # the row: the main path's launches (phase 11's 24x24 frame), summed
+    main = [k for k in runs if k.startswith("24x24 frame")]
+    p_ms = sum(events_ms(lambda: imk.nearest_triangle_plain(
+        *runs[k], v10, ok10), 3) for k in main)
+    top = max(main, key=lambda k: res[k]["counted"][0])
+    frames = {}
+    for k, r in res.items():
+        if "frame" in k:
+            f = frames.setdefault(k.split(",")[0], dict(ms=0.0, bound_ms=0.0))
+            f["ms"] += r["ms"]
+            f["bound_ms"] += r["counted"][0]
+    log("nearest_triangle BVH-less mesh10k frames, launches summed: "
+        + "; ".join(f"{k} {f['ms']:.4f} ms, counted-work bound "
+                    f"{f['bound_ms']:.4f} ms" for k, f in frames.items())
+        + f" {card}")
+    row = {key: sum(res[k][key] for k in main) for key in ("ms", "stream")}
+    row.update({key: sum(res[k][key][0] for k in main)
+                for key in ("counted", "brute")})
+    return dict(
+        name="nearest_triangle", route="cuda", source=NEAREST_SRC,
+        replaces=NEAREST_REPLACES, launches=0,
+        max_abs_err=max(r["err"] for r in res.values()),
+        ms=row["ms"], plain_ms=p_ms, bound_ms=row["counted"],
+        bound_by=res[top]["counted"][1], library_ms=None,
+        brute_force_bound_ms=row["brute"], counted_bound_ms=row["counted"],
+        cull_stream_ms=row["stream"],
+        frames=frames,
+        survivors_per_block={k: r["kept_mean"] for k, r in res.items()},
+        launch_ms={k: r["ms"] for k, r in res.items()},
+        launch_bound_ms={k: r["counted"][0] for k, r in res.items()},
+        launch_cull_stream_ms={k: r["stream"] for k, r in res.items()})
+
+
 def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
                     fused_img, fused_live, issued, names):
     """Phases 8-12 (module docstring); returns the kernels-line rows of
@@ -654,34 +785,7 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
                  card)
 
     # ---- 11. the brute-force nearest triangle (no-BVH big meshes)
-    s10, c10, cfg10 = get_preset("mesh10k", device=dev)
-    o10, d10 = generate_rays_blocks(c10, cfg10.block_size)
-    v10, ok10 = s10.meshes.verts, s10.meshes.valid
-    idx = pick(o10.shape[0], 65536)
-    so, sd = o10[idx].contiguous(), d10[idx].contiguous()
-    got = imk.nearest_triangle_pallas(so, sd, v10, ok10)
-    want = imk.nearest_triangle_plain(so, sd, v10, ok10)
-    same_t = (got[0] == want[0]) | (torch.isinf(got[0])
-                                    & torch.isinf(want[0]))
-    bad = int((~same_t | (got[1] != want[1])).sum())
-    hits = int((want[1] >= 0).sum())
-    k_ms = events_ms(lambda: imk.nearest_triangle_pallas(so, sd, v10, ok10),
-                     5)
-    p_ms = events_ms(lambda: imk.nearest_triangle_plain(so, sd, v10, ok10),
-                     1)
-    full_ms = events_ms(lambda: imk.nearest_triangle_pallas(o10, d10, v10,
-                                                            ok10), 2)
-    n_t = int(ok10.sum())
-    tri_bytes = v10.shape[0] * (36 + 4)
-    sb = bound(so.shape[0] * 32 + tri_bytes, so.shape[0] * n_t * 62)
-    fb = bound(o10.shape[0] * 32 + tri_bytes, o10.shape[0] * n_t * 62)
-    log(f"nearest_triangle on {so.shape[0]} mesh10k rays x {n_t} "
-        f"triangles: {bad} lanes off ({hits} hits); kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.3f} ms, bound {sb[0]:.4f} ms ({sb[1]}); whole "
-        f"{o10.shape[0]}-ray batch {full_ms:.3f} ms, bound {fb[0]:.4f} ms "
-        f"({fb[1]}) {card}")
-    if bad or hits == 0:
-        failures.append(f"nearest_triangle: {bad} lanes off, {hits} hits")
+    rows["nearest"] = nearest_phase(dev, card, failures)
     small = dict(width=24, height=24)
     sc, cc, cs = get_preset("mesh10k", device="cpu", **small)
     cs = cs.with_(use_bvh=False, kernel="pallas")
@@ -699,12 +803,7 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
     if bad_px > max(1, MAX_BAD_FRACTION * 24 * 24) or n_launch == 0:
         failures.append("no-BVH mesh10k frame: card disagrees with the CPU "
                         "or made no nearest_triangle launch")
-    rows["nearest"] = dict(
-        name="nearest_triangle", route="cuda", source=NEAREST_SRC,
-        replaces=NEAREST_REPLACES, launches=n_launch, max_abs_err=float(
-            (got[0] - want[0])[want[1] >= 0].abs().max()) if hits else 0.0,
-        ms=k_ms, plain_ms=p_ms, bound_ms=sb[0], bound_by=sb[1],
-        library_ms=None, full_batch_ms=full_ms, full_batch_bound_ms=fb[0])
+    rows["nearest"]["launches"] = n_launch
 
     # ---- 12. the composed fits, card vs CPU: the CLI's default toy (whole
     # image) and a BVH preset (depth 1, chunked, remat: fit.py's chunked
@@ -1152,10 +1251,15 @@ def main():
         for entry, v in sorted(entries(libs[name].build["log"]).items()):
             m = re.search(r"(?:traverse|coop)_kernelILi(\d)ELb(\d)ELb(\d)E",
                           entry)
+            nt = re.search(r"nearest_tri_kernelILb(\d)ELb(\d)E", entry)
             what = (f"{('mk3', 'mk4', 'wide4', 'wide8')[int(m.group(1))]} "
                     f"{'any-hit' if m.group(2) == '1' else 'nearest'}"
                     f"{' counting' if m.group(3) == '1' else ''}"
-                    if m else name)
+                    if m else
+                    f"{name}{' counting' if nt.group(1) == '1' else ''} "
+                    f"{'split' if nt.group(2) == '1' else 'whole'}"
+                    if nt else f"{name} prep" if "prep" in entry else
+                    f"{name} finalize" if "finalize" in entry else name)
             log(f"  ptxas: {what}: {v.get('registers')} registers, "
                 f"{v.get('stack')} bytes stack, {v.get('spill')} bytes "
                 f"spill")

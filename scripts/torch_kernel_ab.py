@@ -2,7 +2,8 @@
 """Time the port's redesigned kernels against other revisions, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py LABEL=ROOT [LABEL=ROOT ...] \\
-        [--order 0,1,1,0] [--out build/ab.json]
+        [--order 0,1,1,0] [--only nearest] [--device-time] \\
+        [--out build/ab.json]
 
 Each ROOT is a directory holding a revision's ``unity_raytracer_tpu_torch/``
 and ``native/`` (``.`` for this checkout; an earlier commit unpacked with
@@ -22,7 +23,16 @@ launch alone (1 warm-up + 5):
 * the fork mode on the five levels of the ``cornell_box`` 512x512 tree
   (meshless);
 * the four launches of each BVH walk (mk4, mk3, wide4, wide8) in the
-  composed ``mesh100k`` frame.
+  composed ``mesh100k`` frame;
+* the brute-force nearest triangle on ``mesh10k`` (10,240 triangles):
+  every launch of the BVH-less 24x24, 64x64 and 128x128 frames, and the
+  proxy launches (i)-(iv) that no path makes
+  (``scripts/torch_nearest_census.py``, which builds them).
+
+``--only`` times some of these families alone (``fused``, ``fork``,
+``walks``, ``nearest``; default all). ``--device-time`` also reads each
+launch's device busy time (its kernels and memsets in a torch.profiler
+trace of 5 calls), which leaves out the host's part of a launch.
 
 Each launch's outputs are hashed (sha256 of their bytes), so the summary
 says whether every root computes the same bits. It prints one line per
@@ -45,24 +55,36 @@ import time
 REPEATS = 5
 
 
-def worker(root: str) -> dict:
+FAMILIES = ("fused", "fork", "walks", "nearest")
+
+
+def device_ms(fn) -> float:
+    """Mean device busy ms of ``fn`` over REPEATS calls: the kernels and
+    memsets in torch.profiler's CUDA trace, host time left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in prof.key_averages()
+               if not e.key.startswith("aten::"))
+    return busy / 1e3 / REPEATS
+
+
+def worker(root: str, only=FAMILIES, device_time=False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
-    from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
-    from unity_raytracer_tpu_torch.models.presets import get_preset
-    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
-    from unity_raytracer_tpu_torch.ops.kernels import _lib, mega
-    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
-    from unity_raytracer_tpu_torch.ops.render import (
-        render_frame, resolve_mode, trace_radiance)
+    from unity_raytracer_tpu_torch.ops.kernels import _lib
 
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
     _lib.build_all()
     out = {"root": root, "build_s": time.perf_counter() - t0, "ms": {},
-           "hash": {}}
-    counters = getattr(m3, "new_counters",
-                       lambda d: torch.zeros(1, dtype=torch.int32, device=d))
+           "device_ms": {}, "hash": {}}
 
     def timed(name, fn):
         res = fn()
@@ -79,12 +101,35 @@ def worker(root: str) -> dict:
         b.record()
         torch.cuda.synchronize()
         out["ms"][name] = a.elapsed_time(b) / REPEATS
+        if device_time:
+            out["device_ms"][name] = device_ms(fn)
 
     def flat(x):
         if isinstance(x, torch.Tensor):
             return [x]
         return [t for y in x for t in flat(y)]
 
+    if "fused" in only or "walks" in only:
+        mesh100k(dev, only, timed, out)
+    if "fork" in only:
+        fork_levels(dev, timed)
+    if "nearest" in only:
+        nearest(dev, timed)
+    return out
+
+
+def mesh100k(dev, only, timed, out):
+    """The fused kernel's segments and frame, and the walks, on the
+    mesh100k 1920x1080 frame."""
+    import torch
+    from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    from unity_raytracer_tpu_torch.ops.render import resolve_mode
+    counters = getattr(m3, "new_counters",
+                       lambda d: torch.zeros(1, dtype=torch.int32, device=d))
     scene, cam, cfg = get_preset("mesh100k", device=dev)
     cfg = resolve_mode(scene, cfg)
     aux = mega.build_aux(scene, cfg.background)
@@ -107,6 +152,18 @@ def worker(root: str) -> dict:
         segs.append((depth, ins))
         ins = mega.trace_segment(pk4, aux, depth, *ins, **kw)[1:5]
     ctl = counters(dev)
+    if "fused" in only:
+        fused(scene, cam, cfg, aux, kw, packs, segs, m3, ctl, timed, out)
+    if "walks" in only:
+        walks(scene, cam, cfg, pk4, packs["mt/wide8"][0], m3, ctl, timed)
+
+
+def fused(scene, cam, cfg, aux, kw, packs, segs, m3, ctl, timed, out):
+    """The fused kernel on each segment and the fused frame."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.render import render_frame
+    pk4 = packs["bw/wide4"][0]
     modes = {"forward": {}, "record": dict(record=True),
              "record_soft": dict(record_soft=True)}
     for route, (pk, isect, arity) in packs.items():
@@ -130,7 +187,14 @@ def worker(root: str) -> dict:
     torch.cuda.synchronize()
     out["ms"]["fused frame bw/wide4 (render_frame)"] = a.elapsed_time(b) / 3
 
-    # the cornell fork levels
+
+def fork_levels(dev, timed):
+    """The fork mode on the cornell_box 512x512 tree's levels."""
+    from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.render import (resolve_mode,
+                                                      trace_radiance)
     cs, cc, ccfg = get_preset("cornell_box", device=dev)
     ccfg = resolve_mode(cs, ccfg)
     caux = mega.build_aux(cs, ccfg.background)
@@ -154,11 +218,14 @@ def worker(root: str) -> dict:
         timed(f"fork meshless cornell level {depth}",
               lambda: mega.trace_segment(None, caux, depth, *x, **ckw))
 
-    # the composed frame's walks
+
+def walks(scene, cam, cfg, pk4, pk8, m3, ctl, timed):
+    """The four launches of each walk in the composed mesh100k frame."""
+    from unity_raytracer_tpu_torch.ops.render import render_frame
     walk_raw = m3.walk_raw
     for layout, kernel, pk in (("mk4", "pallas", pk4), ("mk3", "pallas3", pk4),
                                ("wide4", "wide", pk4),
-                               ("wide8", "wide", packs["mt/wide8"][0])):
+                               ("wide8", "wide", pk8)):
         seen = []
 
         def spy_walk(lay, packed, o_, d_, tmax, any_hit=False, **k):
@@ -174,7 +241,17 @@ def worker(root: str) -> dict:
             timed(f"walk {layout} frame launch {k}",
                   lambda: walk_raw(layout, pk, *x, overflow=ctl))
     m3.check_overflow(ctl)
-    return out
+
+
+def nearest(dev, timed):
+    """The nearest-triangle launches on mesh10k
+    (``torch_nearest_census.nearest_launches``)."""
+    from torch_nearest_census import nearest_launches
+    from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
+    runs, verts, valid = nearest_launches(dev)
+    for name, (lo, ld) in runs.items():
+        timed(f"nearest_triangle {name}",
+              lambda: imk.nearest_triangle_pallas(lo, ld, verts, valid))
 
 
 def main(argv=None) -> int:
@@ -183,9 +260,13 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default=None)
     ap.add_argument("--out", default="build/ab.json")
     ap.add_argument("--worker", default=None)
+    ap.add_argument("--only", default=",".join(FAMILIES))
+    ap.add_argument("--device-time", action="store_true")
     args = ap.parse_args(argv)
+    only = tuple(args.only.split(","))
     if args.worker is not None:
-        print("AB " + json.dumps(worker(args.worker)), flush=True)
+        print("AB " + json.dumps(worker(args.worker, only, args.device_time)),
+              flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -203,8 +284,9 @@ def main(argv=None) -> int:
         label, root = labels[k]
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--worker", root], capture_output=True,
-                              text=True, timeout=900)
+                               "--worker", root, "--only", args.only]
+                              + ["--device-time"] * args.device_time,
+                              capture_output=True, text=True, timeout=900)
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
         if proc.returncode or not line:
             print(f"{label} ({root}) failed:\n{proc.stdout[-4000:]}"
@@ -228,10 +310,16 @@ def main(argv=None) -> int:
         ref = next(r["hash"].get(name) for r in runs if r["label"] == first)
         same = {label: all(r["hash"].get(name) == ref for r in runs
                            if r["label"] == label) for label, _ in labels}
-        summary[name] = dict(ms=row, same=same)
+        dev = {label: sum(r["device_ms"].get(name, float("nan"))
+                          for r in runs
+                          if r["label"] == label)
+               / sum(r["label"] == label for r in runs)
+               for label, _ in labels} if args.device_time else {}
+        summary[name] = dict(ms=row, same=same, device_ms=dev)
         print(f"  {name}: " + ", ".join(
             f"{label} {row[label]:.4f} ms (x{row[label] / row[first]:.3f}"
-            f"{'' if same[label] else ', BITS DIFFER'})"
+            + (f"; device {dev[label]:.4f} ms" if dev else "")
+            + f"{'' if same[label] else ', BITS DIFFER'})"
             for label, _ in labels))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -185,7 +185,10 @@ def nearest_tri_lib() -> ctypes.CDLL:
             p = ctypes.c_void_p
             i = ctypes.c_int
             lib.urt_nearest_tri.restype = i
-            lib.urt_nearest_tri.argtypes = [p, p, p, p, i, i, p, p, p]
+            lib.urt_nearest_tri.argtypes = [
+                p, p, p, p, i, i,          # o d tris valid n n_tris
+                p, p, p, p, p, p]          # scratch keys t index
+                                           # survivors stream
             _libs["nearest_tri"] = lib
         return _libs["nearest_tri"]
 
