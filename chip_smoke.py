@@ -113,7 +113,33 @@ From the root of a checkout, on a machine with a CUDA card, it
     version on phase 3's flagship slices, then the flagship 1920x1080
     fused frame on each against the Baldwin–Weber frame (at most 0.01% of
     pixels outside 5e-4), timed, each launch alone, its bound from the
-    counting instance.
+    counting instance;
+17. the multi-device layer (``parallel/``) at world size 1: a one-rank
+    NCCL group opened in this process through a file store (NCCL's
+    bootstrap on the loopback), on the flagship frame: ``render_tiled``
+    and ``render_auto`` on the fused kernel against ``render`` at rtol =
+    atol = 1e-6; the chunked ``render`` (2^19 lanes per chunk, the last
+    padded) bit for bit against the unchunked frame;
+    ``render_tiled_orchestrated`` with 128-row bands against ``render``;
+    ``scene_sharded_hit``, ``scene_sharded_hit_bvh`` (tp = 1) and
+    ``nearest_hit_ring`` on the frame's primary rays, in the frame's
+    block order and in the twin's row-major order, against
+    ``nearest_hit`` on the same route (the nearest-triangle kernel
+    without a BVH; the threaded walk on the shard's packed rows): t,
+    kind, index and mesh index on every lane but the tied ones (equal t,
+    another triangle: counted and printed); every launch of the
+    nearest-triangle kernel and of the walk that these calls make, on
+    65,536 of its lanes (whole 256-ray blocks from the middle of the
+    frame), against the plain version on the same inputs (the nearest
+    triangle bit for bit, the walk as phase 9 holds it; the run of lanes
+    must hold hits); three ``make_sharded_train_
+    step`` steps at depth 1 on ``'pallas'`` (soft, chunks of 2^18, remat),
+    the loss falling and step 1 against ``fit``'s single-process composed
+    step from the same start (loss at rtol 1e-4, parameters at rtol 1e-4,
+    atol 1e-5); each item's launches of kernels #1, #3, #4 and #5 in one
+    call (counts set to 0 just before it, read just after; each item must
+    launch its kernel), its peak memory, and its time (CUDA events, 1
+    warm-up + 3).
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
@@ -121,7 +147,9 @@ raises and the exit code is not 0. The last two lines are the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device":
 {...}}``; the line before them is the JSON record of every kernel (the
 fused kernel's rows: modes (a), (b), (d) on Baldwin–Weber BVH4, the fork
-(c) meshless and on BVH4, and the forward (e) instances). Without
+(c) meshless and on BVH4, and the forward (e) instances; the rows of #1
+mode (a), #3, #4 and #5 also carry ``sharded_launches``, phase 17's
+launches per call). Without
 a CUDA card, or without the package beside this file, it exits non-zero
 and prints no result.
 """
@@ -129,6 +157,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -149,6 +178,9 @@ MAX_BAD_FRACTION = 1e-4   # lanes outside TOL: FMA contraction / visit order
 # of a sphere normal sends a later bounce to another surface (PERF.md)
 TREE_P99, TREE_MAX, TREE_OVER_FRACTION = 0.02, 1.0, 5e-4
 SLICE = 16384
+# phase 17: lanes of each sharded hit's kernel launches held against the
+# plain version (a run of whole 256-ray blocks from the middle of the frame)
+PLAIN_LANES = 65536
 BIG = 3.0e38
 KERNEL_SRC = "unity_raytracer_tpu_torch/csrc/mega_segment.cu"
 REPLACES = "unity_raytracer_tpu/ops/pallas/mega.py:459"
@@ -400,6 +432,58 @@ def capture_walks(fn):
     return seen
 
 
+def capture_launches(fn):
+    """Run ``fn`` once with the inputs and outputs of every launch of the
+    nearest-triangle kernel and of the walks recorded, in launch order:
+    ``("nearest", (o, d, verts, valid), (t, index))`` and ``("walk",
+    (layout, packed, o, d, tmax, any_hit), (t, slot, leaf row))``."""
+    from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    seen, nearest, walk_raw = [], imk.nearest_triangle_pallas, m3.walk_raw
+
+    def spy_nearest(o, d, verts, valid=None):
+        out = nearest(o, d, verts, valid)
+        seen.append(("nearest", (o, d, verts, valid),
+                     tuple(x.clone() for x in out)))
+        return out
+
+    def spy_walk(layout, packed, o, d, tmax, any_hit=False, **kw):
+        out = walk_raw(layout, packed, o, d, tmax, any_hit, **kw)
+        seen.append(("walk", (layout, packed, o, d, tmax, any_hit),
+                     tuple(x.clone() for x in out)))
+        return out
+
+    imk.nearest_triangle_pallas, m3.walk_raw = spy_nearest, spy_walk
+    try:
+        fn()
+    finally:
+        imk.nearest_triangle_pallas, m3.walk_raw = nearest, walk_raw
+    return seen
+
+
+def check_launch_lanes(launch, lo, hi, torch):
+    """One recorded launch (``capture_launches``) on its lanes ``[lo,
+    hi)`` against the plain version on the same inputs -> (lanes off,
+    hits, tied lanes): the nearest-triangle kernel bit for bit (t, first
+    index of the minimum), a walk as ``check_walk`` holds it."""
+    from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    kind, ins, out = launch
+    got = tuple(x[lo:hi] for x in out)
+    if kind == "nearest":
+        o, d, verts, valid = ins
+        want = imk.nearest_triangle_plain(o[lo:hi], d[lo:hi], verts, valid)
+        bad = (~(got[0] == want[0]) & ~(torch.isinf(got[0])
+                                        & torch.isinf(want[0]))
+               | (got[1] != want[1]))
+        return int(bad.sum()), int((want[1] >= 0).sum()), 0
+    layout, packed, o, d, tmax, any_hit = ins
+    sl = (o[lo:hi], d[lo:hi], tmax[lo:hi], any_hit)
+    plain = m3.traverse_plain(packed, *sl)
+    bad, tie, _ = check_walk(layout, packed, sl, plain, torch, got=got)
+    return bad, int((plain[1] >= 0).sum()), tie
+
+
 def walk_work(layout, packed, launches):
     """(bytes, FP32 operations) the walk must move and compute for the
     launches ``[(o, d, tmax, any_hit)]``, each input read once and each
@@ -431,15 +515,18 @@ def walk_work(layout, packed, launches):
     return nbytes, ops
 
 
-def check_walk(layout, packed, ins, plain, torch):
+def check_walk(layout, packed, ins, plain, torch, got=None):
     """Kernel vs plain raw outputs on one slice -> (bad lanes, tied lanes,
     max abs err of t): nearest t equal on every lane, the MeshSet row
     equal unless the kernel's triangle ties the plain t, any-hit
-    occlusion equal, culled lanes a miss with t = tmax."""
+    occlusion equal, culled lanes a miss with t = tmax. ``got``: the
+    kernel's outputs on these lanes from an earlier launch (else it is
+    launched on the slice)."""
     from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
     from unity_raytracer_tpu_torch.ops.kernels.mega import _mt
     o, d, tmax, any_hit = ins
-    t, slot, leaf = m3.walk_raw(layout, packed, o, d, tmax, any_hit)
+    t, slot, leaf = got if got is not None else m3.walk_raw(
+        layout, packed, o, d, tmax, any_hit)
     culled = tmax < 0
     bad = culled & ((slot != -1) | (t != tmax))
     if any_hit:
@@ -1213,6 +1300,251 @@ def mode_e_phases(dev, card, failures, scene, cam, cfg, packed4, packed8,
     return rows
 
 
+def parallel_phase(dev, card, failures, scene, cam, cfg, packed):
+    """Phase 17: the multi-device layer at world size 1 on the card — a
+    one-rank NCCL group opened in this process through a file store — on
+    the flagship frame. Returns ``{kernel: {call: launches per call}}``
+    for kernels #1, #3, #4 and #5."""
+    import tempfile
+
+    import torch
+
+    from unity_raytracer_tpu_torch.fit import FitConfig, fit, get_params
+    from unity_raytracer_tpu_torch.models.camera import (
+        generate_rays, generate_rays_blocks)
+    from unity_raytracer_tpu_torch.ops import intersect as isect
+    from unity_raytracer_tpu_torch.ops.kernels import (
+        intersect_mk, mega, traverse_mk3)
+    from unity_raytracer_tpu_torch.ops.render import render
+    from unity_raytracer_tpu_torch.parallel import bootstrap
+    from unity_raytracer_tpu_torch.parallel import shard as shardmod
+    from unity_raytracer_tpu_torch.parallel.mesh import make_mesh
+    from unity_raytracer_tpu_torch.utils.config import DiffConfig
+    from unity_raytracer_tpu_torch.utils.orchestrator import (
+        render_tiled_orchestrated)
+    from unity_raytracer_tpu_torch.utils.swizzle import padded_dims
+
+    def counts():
+        return {"mega_segment/forward": mega.launches["forward"],
+                "nearest_triangle": intersect_mk.launches["nearest_triangle"],
+                "traverse_packet4": traverse_mk3.launches["mk4"],
+                "traverse_packet3": traverse_mk3.launches["mk3"]}
+
+    def reset():
+        reset_mega_counts()
+        intersect_mk.launches["nearest_triangle"] = 0
+        for k in traverse_mk3.launches:
+            traverse_mk3.launches[k] = 0
+
+    per_call = {k: {} for k in counts()}
+
+    def counted(name, fn, kernel):
+        """One call with the counts set to 0 just before it and read just
+        after (it must launch ``kernel``), and its peak memory: returns
+        its result."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        for k, n in got.items():
+            if n:
+                per_call[k][name] = n
+        if not got[kernel]:
+            failures.append(f"sharded {name}: no {kernel} launch")
+        log(f"sharded {name}: launches per call " + ", ".join(
+            f"{k} {n}" for k, n in got.items() if n) + ", peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB "
+            f"{card}")
+        return out
+
+    def item(name, fn, kernel, profiled=False):
+        out = counted(name, fn, kernel)
+        ms = events_ms(fn, 3)
+        log(f"sharded {name}: {ms:.3f} ms (CUDA events, 1 warm-up + 3) "
+            f"{card}")
+        if profiled:
+            profile_once(fn, f"sharded {name}", ms, card)
+        return out
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: loopback
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    bootstrap.maybe_initialize(f"file://{store}/store", 1, 0, device="cuda",
+                               timeout_s=300)
+    try:
+        mesh = make_mesh(device="cuda")
+        log(f"phase 17: one-rank NCCL group {bootstrap.world()}, mesh "
+            f"{tuple(mesh.mesh.shape)} {card}")
+        cfg_m = cfg.with_(kernel="mega")
+        ref = render(scene, cam, cfg_m, bvh=packed)
+        for name, fn in (("render_tiled", shardmod.render_tiled),
+                         ("render_auto", shardmod.render_auto)):
+            img = item(name, lambda fn=fn: fn(scene, cam, cfg_m, mesh,
+                                              bvh=packed),
+                       "mega_segment/forward")
+            off = int((~torch.isclose(img, ref, rtol=1e-6, atol=1e-6))
+                      .sum())
+            log(f"sharded {name} vs render: {off} values outside rtol = "
+                f"atol = 1e-6, max abs diff "
+                f"{float((img - ref).abs().max()):.3g}")
+            if off:
+                failures.append(f"sharded {name} differs from render")
+        chunk = 1 << 19
+        img = item("render chunked 2^19",
+                   lambda: render(scene, cam, cfg_m.with_(ray_chunk=chunk),
+                                  bvh=packed), "mega_segment/forward",
+                   profiled=True)
+        n_lanes = math.prod(padded_dims(cam.width, cam.height,
+                                        cfg.block_size))
+        log(f"chunked frame: {-(-n_lanes // chunk)} chunks of {chunk} "
+            f"lanes, {(-n_lanes) % chunk} filler lanes in the last; "
+            f"bitwise equal to the unchunked frame: "
+            f"{bool(torch.equal(img, ref))}")
+        if not torch.equal(img, ref):
+            failures.append("chunked fused frame differs from the "
+                            "unchunked one")
+        img, reports = item(
+            "render_tiled_orchestrated 128 rows",
+            lambda: render_tiled_orchestrated(scene, cam, cfg_m, bvh=packed,
+                                              rows_per_tile=128),
+            "mega_segment/forward", profiled=True)
+        off = int((~torch.isclose(img, ref, rtol=1e-6, atol=1e-6)).sum())
+        log(f"orchestrated: {len(reports)} bands, all ok "
+            f"{all(r.ok for r in reports)}, {off} values outside 1e-6")
+        if off or not all(r.ok for r in reports):
+            failures.append("orchestrated frame differs from render")
+
+        # the hits, on the frame's primary rays in two orders: the
+        # frame's block order (``generate_rays_blocks``; a 256-ray block
+        # of the nearest-triangle kernel is a 32x8 tile), which the shard
+        # functions ask their callers for, and the twin's row-major order
+        # (a block is a strip of one image row, which the kernel's cull
+        # keeps far more triangles for). Each call against nearest_hit on
+        # the same route (the nearest-triangle kernel without a BVH, the
+        # threaded walk on the shard's packed rows), and each launch of
+        # #3 and #5 that the call makes held on a run of whole 256-ray
+        # blocks of its own inputs against the plain version
+        sb = shardmod.build_shard_bvhs(scene, 1)
+        tris = (scene.meshes.verts, scene.meshes.valid)
+        orders = {"block order": generate_rays_blocks(cam, cfg.block_size),
+                  "row-major": generate_rays(cam)}
+        for order, (o, d) in orders.items():
+            ref_k = isect.nearest_hit(scene, o, d, kernel="pallas")
+            ref_w = isect.nearest_hit(scene, o, d, bvh=sb["packed"][0],
+                                      kernel="pallas3")
+            lo = (o.shape[0] // 2) // intersect_mk.BLOCK * intersect_mk.BLOCK
+            hi = lo + PLAIN_LANES
+            for name, fn, want, kernel in (
+                    ("scene_sharded_hit",
+                     lambda: shardmod.scene_sharded_hit(scene, o, d, mesh),
+                     ref_k, "nearest_triangle"),
+                    ("scene_sharded_hit_bvh",
+                     lambda: shardmod.scene_sharded_hit_bvh(scene, o, d,
+                                                            mesh, sb),
+                     ref_w, "traverse_packet3"),
+                    ("nearest_hit_ring",
+                     lambda: shardmod.nearest_hit_ring(scene, o, d, mesh),
+                     ref_k, "nearest_triangle")):
+                label = f"{name} ({order})"
+                h = item(label, fn, kernel)
+                same_t = h.t == want.t
+                tied = same_t & (h.index != want.index)
+                bad = ~same_t | (h.kind != want.kind) | (
+                    (h.index != want.index) & ~tied) | (
+                    (h.mesh_index != want.mesh_index) & ~tied)
+                log(f"{label} vs nearest_hit on its route: "
+                    f"{int(bad.sum())} of {o.shape[0]} lanes differ, "
+                    f"{int(tied.sum())} tied lanes (equal t, another "
+                    f"triangle), {int((h.kind == isect.KIND_MESH).sum())} "
+                    f"mesh hits")
+                if bool(bad.any()):
+                    failures.append(f"{label} differs from nearest_hit")
+                launches = capture_launches(fn)
+                if not launches:
+                    failures.append(f"{label}: no launch of #3 or #5")
+                for k, launch in enumerate(launches):
+                    off, hits, ties = check_launch_lanes(launch, lo, hi,
+                                                         torch)
+                    rays = launch[1][0 if launch[0] == "nearest" else 2]
+                    log(f"{label} launch {k} ({launch[0]}, "
+                        f"{rays.shape[0]} lanes x {scene.meshes.count} "
+                        f"triangles): lanes "
+                        f"[{lo}, {hi}) against the plain version: {off} "
+                        f"off, {ties} tied, {hits} hits")
+                    if off or not hits:
+                        failures.append(f"{label} launch {k}: {off} lanes "
+                                        f"off the plain version, {hits} "
+                                        f"hits")
+            # the brute-force fold alone on these rays
+            k_ms = events_ms(lambda: intersect_mk.nearest_triangle_pallas(
+                o, d, *tris), 3)
+            kept = intersect_mk.nearest_triangle_survivors(o, d,
+                                                           *tris)[2].float()
+            log(f"nearest-triangle kernel alone, {o.shape[0]} primary rays "
+                f"{order}: {k_ms:.3f} ms, triangles kept per block of "
+                f"{intersect_mk.BLOCK} rays mean {float(kept.mean()):.1f}, "
+                f"max {int(kept.max())} of {scene.meshes.count} {card}")
+
+        # three sharded train steps at depth 1 on 'pallas' (the ordered
+        # binary walk), against fit's single-process composed step
+        names = ("sphere_centers", "sphere_diffuse")
+        fcfg = FitConfig(param_names=names, learning_rate=0.02, steps=1,
+                         soft_shadow_temp=1.0, soft_hit_temp=0.1,
+                         log_every=0)
+        cfg_t = cfg.with_(max_bounces=1, kernel="pallas", ray_chunk=1 << 18,
+                          remat=True)
+        target = render(scene, cam, cfg_t, bvh=packed)
+        true_p = get_params(scene, names)
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        noise = lambda lo, hi: (lo + (hi - lo) * torch.rand(
+            true_p["sphere_centers"].shape, generator=gen)).to(dev)
+        start = {"sphere_centers": true_p["sphere_centers"]
+                 + noise(-0.4, 0.4),
+                 "sphere_diffuse": torch.clamp(
+                     true_p["sphere_diffuse"] + noise(-0.2, 0.2), 0, 1)}
+        single = fit(scene, cam, cfg_t, target, fcfg, init_params=start,
+                     bvh=packed)
+        step = shardmod.make_sharded_train_step(
+            scene, cam, cfg_t.with_(diff=DiffConfig(
+                soft_shadow_temp=1.0, soft_hit_temp=0.1,
+                straight_through=True)), target.reshape(-1, 3), mesh, names,
+            lambda ps: torch.optim.Adam(ps, lr=fcfg.learning_rate),
+            bvh=packed)
+        o, d = orders["row-major"]  # the target's pixel order
+        tgt = target.reshape(-1, 3)
+        state = {"p": start, "opt": None}
+
+        def one_step():
+            state["p"], state["opt"], loss = step(state["p"], state["opt"],
+                                                  o, d, tgt)
+            return loss
+
+        losses = [float(counted("make_sharded_train_step", one_step,
+                                "traverse_packet4"))]
+        p1 = state["p"]
+        for _ in range(2):
+            losses.append(float(one_step()))
+        ok1 = np.isclose(losses[0], single.losses[0], rtol=1e-4) and all(
+            bool(torch.allclose(p1[k], single.params[k], rtol=1e-4,
+                                atol=1e-5)) for k in names)
+        log(f"sharded train steps: losses {losses} (falls: "
+            f"{losses[-1] < losses[0]}); step 1 vs fit's single-process "
+            f"step: loss {float(single.losses[0])!r}, params max abs diff "
+            + ", ".join(f"{k} {float((p1[k] - single.params[k]).abs().max()):.3g}"
+                        for k in names) + f": {'agree' if ok1 else 'DISAGREE'}")
+        if not ok1 or not losses[-1] < losses[0]:
+            failures.append("sharded train step disagrees with fit or its "
+                            "loss does not fall")
+        log(f"sharded make_sharded_train_step: "
+            f"{events_ms(one_step, 3):.3f} ms (CUDA events, 1 warm-up + 3) "
+            f"{card}")
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return per_call
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1693,6 +2025,8 @@ def main():
     new_rows = tree_phases(dev, card, failures)
     new_rows += mode_e_phases(dev, card, failures, scene, cam, cfg, packed,
                               packed8, slice_segs, fused_img, frame_ms)
+    # ---- the multi-device layer at world size 1: phase 17 --------------------
+    sharded = parallel_phase(dev, card, failures, scene, cam, cfg, packed)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -1712,7 +2046,11 @@ def main():
             "bound_by": by, "library_ms": None,
             "frame_ms": sum(seg_ms[mode]), "frame_bound_ms": fb,
             "frame_bound_by": fby})
-    print(json.dumps({"kernels": kernels + walk_rows + new_rows}))
+    rows = kernels + walk_rows + new_rows
+    for row in rows:  # launches per call of phase 17's sharded paths
+        if row["name"] in sharded:
+            row["sharded_launches"] = sharded[row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """Frozen JAX references for the port's replay and fit parity tests.
 
-    python tests/torch_goldens.py [replay] [fit] [composed] [tree]
+    python tests/torch_goldens.py [replay] [fit] [composed] [tree] [parallel]
 
-rewrites (all four, or the ones named) ``tests/goldens/torch/replay.npz``,
-``fit.npz``, ``composed.npz`` and ``tree.npz`` from the JAX package. The
-first two are on
+rewrites (all five, or the ones named) ``tests/goldens/torch/replay.npz``,
+``fit.npz``, ``composed.npz``, ``tree.npz`` and ``parallel.npz`` from the
+JAX package. The first two are on
 tests/test_replay.py's scene (``torch_parity.replay_scene``) at 16x16
 through ``torch_parity.CAMERA``:
 
@@ -29,16 +29,26 @@ through ``torch_parity.CAMERA``:
   twin's fused tree (``_trace_tree_mega``, Pallas interpreter) at 24x24
   for depths 1, 2 and 4; ``trace_radiance_tree_stats`` on
   ``truncating_tree`` (the count of live lanes ``tree_cap=1`` drops); and
-  eager ``jax.grad`` of the mean 12x12 image for ``TREE_NAMES``.
+  eager ``jax.grad`` of the mean 12x12 image for ``TREE_NAMES``;
+* ``parallel.npz``: the twin's sharded functions (``parallel/shard.py``)
+  on the cases of ``torch_parallel_cases.CASES``, on meshes of 4 and 2
+  of 4 fake CPU devices (``_parallel_arrays``), and the SHA-256 of each
+  file of ``PARALLEL_SOURCES`` and of ``_parallel_arrays``' own source
+  (``parallel_source_hashes``), which tests/test_torch_parallel.py checks
+  so that a change to the recipe or to the twin's ``parallel/`` without a
+  rerun fails.
 
 Computing these live costs ~80 s (replay, fit), ~95 s (composed) and
-~100 s (tree) of CPU per test run, so tests/test_torch_replay.py,
-tests/test_torch_fit.py, tests/test_torch_grad.py and
-tests/test_torch_tree.py load them. The constants below are those
+~100 s (tree) and ~150 s (parallel) of CPU per test run, so
+tests/test_torch_replay.py, tests/test_torch_fit.py,
+tests/test_torch_grad.py, tests/test_torch_tree.py and
+tests/test_torch_parallel.py load them. The constants below are those
 tests' recipe: change one, rerun the script. Nothing here imports JAX
 until the script runs.
 """
 
+import hashlib
+import inspect
 import pathlib
 import sys
 import tempfile
@@ -90,6 +100,11 @@ TREE_BLOCK = dict(block_size=8, tile_r=64)
 TRUNC_SIZE = 16
 TOY_FCFG = dict(param_names=FIT_NAMES, learning_rate=0.02,
                 soft_shadow_temp=1.0, soft_hit_temp=0.1, log_every=0)
+# what parallel.npz is computed from, relative to the repo root
+PARALLEL_SOURCES = ("tests/torch_parallel_cases.py",
+                    "unity_raytracer_tpu/parallel/shard.py",
+                    "unity_raytracer_tpu/parallel/collectives.py",
+                    "unity_raytracer_tpu/parallel/mesh.py")
 
 
 def load(name: str) -> dict:
@@ -384,14 +399,110 @@ def _fit_arrays() -> dict:
     return out
 
 
+def parallel_source_hashes() -> dict:
+    """``{"sources/<path>": SHA-256 hex}`` of each of ``PARALLEL_SOURCES``
+    and of ``_parallel_arrays``' source (key
+    ``sources/tests/torch_goldens.py:_parallel_arrays``)."""
+    root = GOLDEN_DIR.parents[2]
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+    out = {f"sources/{p}": sha((root / p).read_bytes())
+           for p in PARALLEL_SOURCES}
+    out["sources/tests/torch_goldens.py:_parallel_arrays"] = sha(
+        inspect.getsource(_parallel_arrays).encode())
+    return out
+
+
+def _parallel_arrays() -> dict:
+    """The twin's ``shard_map`` functions on the cases of
+    ``torch_parallel_cases.CASES``, each on ``make_mesh(shape,
+    devices=jax.devices()[:world])``; keys ``world/shape/case/field``,
+    and ``parallel_source_hashes``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from torch_parallel_cases import (CASES, FIT_LR, FIT_STEPS, SWAP_ROWS,
+                                      TRAIN_LR, inputs, shape_key,
+                                      start_params)
+    from unity_raytracer_tpu.models.camera import generate_rays
+    from unity_raytracer_tpu.ops.render import render
+    from unity_raytracer_tpu.parallel import mesh as meshmod
+    from unity_raytracer_tpu.parallel import shard as shardmod
+
+    hit = lambda h: {k: getattr(h, k) for k in ("t", "kind", "index",
+                                                "mesh_index", "mesh_n")}
+    out = {}
+    for world, meshes in CASES.items():
+        for shape, cases in meshes.items():
+            mesh = meshmod.make_mesh(shape, devices=jax.devices()[:world])
+            for case in cases:
+                if case in ("combine", "mesh_error", "placed"):
+                    continue  # nothing of the twin's to hold them to
+                if case == "swap":
+                    x = jnp.arange(SWAP_ROWS * 3,
+                                   dtype=jnp.float32).reshape(-1, 3)
+                    res = {"y": shardmod.swap_shard_axes(x, mesh, "dp",
+                                                         "tp")}
+                else:
+                    scene, cam, cfg, bvh = inputs("jax", case)
+                    o, d = generate_rays(cam)
+                    if case in ("tiled", "tiled_bvh", "tiled_pallas",
+                                "tiled_mega", "tiled_tiny"):
+                        res = {"img": shardmod.render_tiled(
+                            scene, cam, cfg, mesh, bvh=bvh)}
+                    elif case == "auto":
+                        res = {"img": shardmod.render_auto(scene, cam, cfg,
+                                                           mesh)}
+                    elif case in ("ssh", "ssh_padded"):
+                        res = hit(shardmod.scene_sharded_hit(scene, o, d,
+                                                             mesh))
+                    elif case in ("ssh_bvh", "ssh_bvh_meshes"):
+                        sb = shardmod.build_shard_bvhs(scene, shape[1])
+                        res = hit(shardmod.scene_sharded_hit_bvh(
+                            scene, o, d, mesh, sb))
+                    elif case == "ring":
+                        t, i = shardmod.nearest_mesh_hit_ring(scene, o, d,
+                                                              mesh)
+                        res = {"t": t, "i": i}
+                    elif case == "ring_hit":
+                        res = hit(shardmod.nearest_hit_ring(scene, o, d,
+                                                            mesh))
+                    else:  # train, fit
+                        tgt = render(scene, cam, cfg, bvh=bvh).reshape(-1, 3)
+                        p = start_params("jax", case, scene)
+                        tx = optax.adam(TRAIN_LR if case == "train"
+                                        else FIT_LR)
+                        step = shardmod.make_sharded_train_step(
+                            scene, cam, cfg, tgt, mesh, tuple(p), tx,
+                            bvh=bvh)
+                        st, losses = tx.init(p), []
+                        for _ in range(1 if case == "train" else FIT_STEPS):
+                            p, st, loss = step(p, st, o, d, tgt)
+                            losses.append(loss)
+                        res = {"losses": jnp.stack(losses),
+                               **{f"p/{k}": v for k, v in p.items()}}
+                for k, v in res.items():
+                    out[f"{world}/{shape_key(shape)}/{case}/{k}"] = \
+                        np.asarray(v)
+                print(world, shape, case, flush=True)
+    out.update({k: np.array(v) for k, v in parallel_source_hashes().items()})
+    return out
+
+
 def main():
+    which = sys.argv[1:] or ["replay", "fit", "composed", "tree",
+                             "parallel"]
+    if "parallel" in which:  # the twin's meshes: 4 fake CPU devices
+        import os
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                   " --xla_force_host_platform_device_count"
+                                   "=4")
     import jax
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
     GOLDEN_DIR.mkdir(parents=True, exist_ok=True)
-    which = sys.argv[1:] or ["replay", "fit", "composed", "tree"]
     makers = {"replay": _replay_arrays, "fit": _fit_arrays,
-              "composed": _composed_arrays, "tree": _tree_arrays}
+              "composed": _composed_arrays, "tree": _tree_arrays,
+              "parallel": _parallel_arrays}
     for name in which:
         np.savez_compressed(GOLDEN_DIR / f"{name}.npz", **makers[name]())
         print(GOLDEN_DIR / f"{name}.npz")

@@ -1,7 +1,8 @@
-"""CLI entry points: the ``render`` and ``fit`` subcommands.
+"""CLI entry points: the ``render``, ``fit`` and ``dryrun`` subcommands.
 
-Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``) and
-``cmd_fit`` (``:63-134``, arguments ``:171-185``). Usage::
+Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``),
+``cmd_fit`` (``:63-134``, arguments ``:171-185``) and ``cmd_dryrun``
+(``:137-147``, ``:187-190``). Usage::
 
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
     python -m unity_raytracer_tpu_torch render --preset mesh100k \
@@ -12,6 +13,8 @@ Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``) and
         --size 64 --steps 50 --out-dir fit/
 
     python -m unity_raytracer_tpu_torch fit --size 48 --steps 300
+    python -m unity_raytracer_tpu_torch dryrun
+    python -m unity_raytracer_tpu_torch dryrun --device cpu --devices 4
 
 Runs on the CUDA card (``--device`` picks another device; ``cpu`` runs the
 plain PyTorch versions). Without a card the command stops and says so; it
@@ -25,8 +28,10 @@ fused fork kernel for the tree. ``fit`` runs, as in the twin, the
 on the composed path at depth 1 with chunked, rematerialized gradients
 (``cornell_box`` through the composed tree), or with ``--replay`` on the
 record-replay path, which needs the mirror chain: on a tree scene it
-fails with the twin's ``ValueError``. The twin's ``bench`` and ``dryrun``
-subcommands are Queue A #14.
+fails with the twin's ``ValueError``. ``dryrun`` (the twin's ``:137-147``)
+runs the multi-device dry run (``parallel/dryrun.py``): one NCCL process
+per visible card, or ``--devices N`` gloo processes with ``--device
+cpu``. The twin's ``bench`` subcommand is Queue A #6.
 """
 
 from __future__ import annotations
@@ -92,8 +97,8 @@ def fit_setup(preset: str, width: int, height: int, replay: bool, device):
     ``replay`` gets the fused kernel's BVH at full depth; without it,
     depth 1 with chunked (pixels / 4 rays) and rematerialized composed
     gradients. The target is the render at the true parameters (the
-    replay's with the fused kernel it records with; chunking changes no
-    pixel, so the composed one renders whole)."""
+    replay's with the fused kernel it records with, the composed one
+    chunked, as in the twin)."""
     from unity_raytracer_tpu_torch.models.camera import Camera
     from unity_raytracer_tpu_torch.models.presets import (
         get_preset, three_spheres)
@@ -122,8 +127,7 @@ def fit_setup(preset: str, width: int, height: int, replay: bool, device):
         max_bounces=min(cfg.max_bounces, 1),
         ray_chunk=width * height // 4 or None, remat=True))
     bvh = bvhmod.prepare_bvh(scene, cfg) if cfg.use_bvh else None
-    target = render(scene, cam, cfg.with_(ray_chunk=None), bvh=bvh)
-    return scene, cam, cfg, bvh, target, False
+    return scene, cam, cfg, bvh, render(scene, cam, cfg, bvh=bvh), False
 
 
 def run_fit(preset: str, width: int, height: int, steps: int, lr: float,
@@ -174,11 +178,23 @@ def cmd_fit(args):
                       "loss_ratio": float(res.losses[-1] / res.losses[0]),
                       "center_err": float(err)}))
     if args.out_dir:
-        final = render(res.scene, cam, cfg.with_(ray_chunk=None),
-                       bvh=bvh).cpu().numpy()
+        final = render(res.scene, cam, cfg, bvh=bvh).cpu().numpy()
         imgutil.write_png(f"{args.out_dir}/recovered.png", final)
         imgutil.write_png(f"{args.out_dir}/target.png",
                           target.cpu().numpy())
+
+
+def cmd_dryrun(args):
+    """The multi-device dry run (``parallel/dryrun.py``): one NCCL process
+    per card, or ``--devices`` gloo processes with ``--device cpu``."""
+    import torch
+
+    from unity_raytracer_tpu_torch.parallel.dryrun import dryrun
+
+    device = _device(args)
+    n = args.devices or (torch.cuda.device_count() if device.type == "cuda"
+                         else 8)
+    dryrun(n, device.type)
 
 
 def main():
@@ -218,6 +234,15 @@ def main():
                         "records + differentiable replay) at full depth")
     f.add_argument("--device", default="cuda", help=dev_help)
     f.set_defaults(fn=cmd_fit)
+
+    d = sub.add_parser("dryrun", help="multi-device dry run of the "
+                       "distributed step on tiny shapes")
+    d.add_argument("--devices", type=int, default=None,
+                   help="ranks (default: every visible card; 8 on the CPU)")
+    d.add_argument("--device", default="cuda",
+                   help="cuda: one NCCL process per card; cpu: gloo "
+                        "processes")
+    d.set_defaults(fn=cmd_dryrun)
     args = ap.parse_args()
     args.fn(args)
 

@@ -153,25 +153,29 @@ def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
                                 o: torch.Tensor, d: torch.Tensor,
                                 target: torch.Tensor, bvh=None,
                                 chunk: Optional[int] = None,
-                                weights: Optional[torch.Tensor] = None
+                                weights: Optional[torch.Tensor] = None,
+                                denom: Optional[float] = None
                                 ) -> Callable:
     """Chunked gradient accumulation on the composed path: for each chunk
     of rays, ``backward()`` of its summed squared error into the same
-    ``.grad``; the loss and gradients are divided once by ``n_eff * 3``
-    at the end, so they equal the unchunked weighted-mean MSE's. Only one
-    chunk's graph is alive at a time; ``rcfg.remat`` also recomputes each
-    bounce segment in the backward.
+    ``.grad``; the loss and gradients are divided once at the end by 3x
+    the weight sum, so they equal the unchunked weighted-mean MSE's. Only
+    one chunk's graph is alive at a time; ``rcfg.remat`` also recomputes
+    each bounce segment in the backward.
 
     ``target``: radiance on the 0-255 scale, [N,3] aligned with
     ``(o, d)``. ``weights`` (optional [N]): per-lane loss weights, e.g. 0
-    on the pad margin of block-ordered raygen. Returns
-    ``f(params) -> (loss, grads)``."""
+    on the pad margin of block-ordered raygen. ``denom`` replaces the
+    divisor: a rank's share of a loss over more rays than its own
+    (``parallel/shard.make_sharded_train_step``). Returns ``f(params) ->
+    (loss, grads)``."""
     rcfg = resolve_mode(template, rcfg)
     n = o.shape[0]
     c = min(chunk or rcfg.ray_chunk or n, n)
     w = (torch.ones((n,), dtype=torch.float32, device=o.device)
          if weights is None else weights.to(torch.float32))
-    n_eff = w.sum()
+    if denom is None:
+        denom = w.sum() * 3.0
     pad = (-n) % c
     if pad:
         z = torch.zeros((pad, 3), dtype=torch.float32, device=o.device)
@@ -192,7 +196,6 @@ def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
             l_i = (((rad - tc[i]) ** 2) * wc[i][:, None]).sum()
             l_i.backward()
             loss = loss + l_i.detach()
-        denom = n_eff * 3.0
         return loss / denom, rp._grads(leaves, denom)
 
     return value_and_grad_fn

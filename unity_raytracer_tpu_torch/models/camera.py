@@ -1,7 +1,7 @@
 """Pinhole camera + block-ordered primary-ray generation.
 
 Twin: ``unity_raytracer_tpu/models/camera.py:20-127`` (``Camera`` with
-``make`` and ``from_fov``, ``generate_rays_blocks``). The reference model
+``make`` and ``from_fov``, ``generate_rays_blocks``, ``generate_rays``). The reference model
 is an explicit image plane (Data/Camera/ImagePlane.cs:11-45); primary
 rays go through pixel centers,
 ``topLeft + (x+0.5)*hLen/resX * right - (y+0.5)*vLen/resY * up``
@@ -109,3 +109,10 @@ def generate_rays_blocks(cam: Camera, bs: int
     d = torch.stack([dx / nrm, dy / nrm, dz / nrm], dim=-1)
     o = cam.position.expand(n, 3).contiguous()
     return o, d
+
+
+def generate_rays(cam: Camera) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primary rays through every pixel center, row-major (``x + y*W``,
+    the reference framebuffer index): ``generate_rays_blocks`` with
+    1-pixel blocks, the same arithmetic, as in the twin (``:116-127``)."""
+    return generate_rays_blocks(cam, 1)

@@ -158,6 +158,27 @@ def _best(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return tmin, idx.to(torch.int32)
 
 
+def nearest_mesh_triangle(o: torch.Tensor, d: torch.Tensor,
+                          verts: torch.Tensor, valid: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest triangle of a soup by the brute-force nearest-triangle
+    kernel (``ops/kernels/intersect_mk``, its plain version on the CPU):
+    ``(t [N], index [N] >= 0)``, +inf where nothing is hit. The kernel's
+    ``t`` is re-derived differentiably from the winning triangle, falling
+    back to the kernel's value where the re-derivation misses on
+    rounding."""
+    from unity_raytracer_tpu_torch.ops.bvh import _mt_one
+    from unity_raytracer_tpu_torch.ops.kernels.intersect_mk import (
+        nearest_triangle_pallas)
+    t_k, idx = nearest_triangle_pallas(o, d, verts, valid)
+    idx = idx.clamp_min(0)
+    tri = verts[idx.long()]
+    t_diff = _mt_one(o, d, tri[:, 0], tri[:, 1], tri[:, 2])
+    t = torch.where(torch.isfinite(t_k),
+                    torch.where(torch.isfinite(t_diff), t_diff, t_k), INF)
+    return t, idx
+
+
 def nearest_hit(scene, o: torch.Tensor, d: torch.Tensor, bvh=None,
                 kernel: str = "auto",
                 t_max: torch.Tensor | None = None,
@@ -169,26 +190,15 @@ def nearest_hit(scene, o: torch.Tensor, d: torch.Tensor, bvh=None,
 
     Without a BVH, a mesh of >= 2048 triangles with ``kernel`` 'pallas*'
     or 'mega' goes through the brute-force nearest-triangle kernel
-    (``ops/kernels/intersect_mk``); its ``t`` is re-derived differentiably
-    from the winning triangle, falling back to the kernel's value where
-    the re-derivation misses on rounding. ``t_max`` (detached) culls a
+    (``nearest_mesh_triangle``). ``t_max`` (detached) culls a
     lane of the BVH walk when negative; ``overflow`` goes to the walk
     (``ops/bvh.traverse_any``)."""
     mesh_n = None
     if bvh is None:
         if ((kernel.startswith("pallas") or kernel == "mega")
                 and scene.meshes.verts.shape[0] >= 2048):
-            from unity_raytracer_tpu_torch.ops.bvh import _mt_one
-            from unity_raytracer_tpu_torch.ops.kernels.intersect_mk import (
-                nearest_triangle_pallas)
-            t_k, i_mesh = nearest_triangle_pallas(
-                o, d, scene.meshes.verts, scene.meshes.valid)
-            i_mesh = i_mesh.clamp_min(0)
-            tri = scene.meshes.verts[i_mesh.long()]
-            t_diff = _mt_one(o, d, tri[:, 0], tri[:, 1], tri[:, 2])
-            t_mesh = torch.where(
-                torch.isfinite(t_k),
-                torch.where(torch.isfinite(t_diff), t_diff, t_k), INF)
+            t_mesh, i_mesh = nearest_mesh_triangle(o, d, scene.meshes.verts,
+                                                   scene.meshes.valid)
         else:
             t_mesh, i_mesh = _best(ray_triangles(o, d, scene.meshes.verts,
                                                  scene.meshes.valid))

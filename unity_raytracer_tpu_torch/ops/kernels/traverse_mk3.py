@@ -491,8 +491,11 @@ def walk(layout: str, packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
     epilogue on the rays as given. Unlike the TPU wrappers it pads
     nothing: the CUDA kernels run one thread per ray. ``overflow``: as in
     ``walk_raw``."""
-    od = o.detach().to(torch.float32).contiguous()
-    dd = d.detach().to(torch.float32).contiguous()
+    # the kernels read rays 16 bytes at a time: a view of rows that
+    # starts mid-way (a chunk of a ray batch) is copied
+    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
+    od = aligned(o.detach().to(torch.float32).contiguous())
+    dd = aligned(d.detach().to(torch.float32).contiguous())
     if t_max is None:
         tmax = torch.full((o.shape[0],), _BIG, dtype=torch.float32,
                           device=o.device)

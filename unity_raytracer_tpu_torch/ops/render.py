@@ -41,9 +41,14 @@ Queue C #1) and silently ignores a mesh it was given no BVH for (Queue C
 
 ``kernel='auto'`` is composed, as in the twin; its walk is the ordered
 binary kernel on the card and the plain per-lane walk elsewhere
-(``ops/bvh.traverse_any``). Not ported, raising ``NotImplementedError``
-naming the ROADMAP Queue A item: chunked frames (``ray_chunk`` in
-``render``, #14).
+(``ops/bvh.traverse_any``).
+
+``render`` chunks a frame over rays when ``cfg.ray_chunk`` is below the
+pixel count (the twin's ``_frame_chunked``, ``:645-688``): the
+block-ordered rays go through ``trace_radiance`` one chunk at a time, the
+last chunk padded with the twin's filler rays. A chain lane depends on no
+other lane, so a chunked chain equals the unchunked one bit for bit; a
+tree applies ``tree_cap`` per chunk, as the twin's does.
 """
 
 from __future__ import annotations
@@ -488,17 +493,35 @@ def render_frame(scene: Scene, cam: Camera, cfg: RenderConfig,
                            cfg.block_size) / 255.0
 
 
+def _frame_chunked(scene: Scene, cam: Camera, cfg: RenderConfig, bvh,
+                   chunk: int) -> torch.Tensor:
+    """The frame in chunks of ``chunk`` block-ordered rays, the last
+    padded with the twin's filler rays (origin and direction +z), then
+    un-swizzled and divided by 255. A tree's ``tree_cap`` applies per
+    chunk, as in the twin."""
+    o, d = generate_rays_blocks(cam, cfg.block_size)
+    total = o.shape[0]
+    pad = (-total) % chunk
+    if pad:
+        filler = torch.zeros((pad, 3), dtype=o.dtype, device=o.device)
+        filler[:, 2] = 1.0
+        o, d = torch.cat([o, filler]), torch.cat([d, filler])
+    rad = torch.cat([trace_radiance(scene, o[i:i + chunk], d[i:i + chunk],
+                                    cfg, bvh=bvh)
+                     for i in range(0, total + pad, chunk)])[:total]
+    return unswizzle_image(rad, cam.width, cam.height, cfg.block_size) / 255.0
+
+
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
            bvh=None) -> torch.Tensor:
     """Render the full image [H,W,3] on the display (0-1) scale: resolve
     'auto' mode, build the BVH ``cfg.kernel`` walks on the scene's device
-    if ``cfg.use_bvh`` and none was passed, then ``render_frame``."""
+    if ``cfg.use_bvh`` and none was passed, then ``render_frame``, or
+    ``_frame_chunked`` when ``cfg.ray_chunk`` is below the pixel count."""
     cfg = resolve_mode(scene, cfg)
     check_supported(cfg)
-    if cfg.ray_chunk:
-        raise NotImplementedError(
-            "not ported to unity_raytracer_tpu_torch yet: chunked frames "
-            "(ray_chunk) are #14 in ROADMAP.md Queue A")
     if cfg.use_bvh and bvh is None:
         bvh = bvhmod.prepare_bvh(scene, cfg, scene.aabb_min.device)
+    if cfg.ray_chunk and cfg.ray_chunk < cam.width * cam.height:
+        return _frame_chunked(scene, cam, cfg, bvh, cfg.ray_chunk)
     return render_frame(scene, cam, cfg, bvh)
