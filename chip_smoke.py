@@ -139,7 +139,29 @@ From the root of a checkout, on a machine with a CUDA card, it
     atol 1e-5); each item's launches of kernels #1, #3, #4 and #5 in one
     call (counts set to 0 just before it, read just after; each item must
     launch its kernel), its peak memory, and its time (CUDA events, 1
-    warm-up + 3).
+    warm-up + 3);
+18. the port's last modules: (a) the flagship (``mesh100k``, 1920x1080,
+    4 bounces) on an SBVH-presplit tree (``bvh_presplit`` = 0.3, the
+    numpy builder; prepare timed, references, nodes, wide rows and stack
+    depths printed), its fused frame on #1 modes (a) (Baldwin–Weber BVH4)
+    and (e) (Möller–Trumbore BVH4): every launch on 65,536 of its lanes
+    against the plain version (phase 3's gate), the frame against the
+    unsplit frame of the same route (at most 0.01% of pixels outside
+    rtol = atol = 5e-4), both timed in turns (``TURNS``), frame and
+    launches alone; (b) ``debug_maps`` on the flagship
+    with its packed BVH: every walk launch (#4) on 65,536 lanes against
+    the plain version (``check_walk``), finite maps, shadow in [0, 1], a
+    hit fraction in (0.05, 1], time and peak memory, then ``mesh10k``
+    64x64 card vs CPU (normal and depth to 1e-4, hit kind and id equal on
+    99.99% of pixels); (c) ``utils/profiling``: ``timed`` on the fused
+    flagship frame within 20% of CUDA events, ``roofline`` with the
+    card's HBM figure, ``trace`` writing a non-empty file; (d) the
+    ``cornell_box`` 16x16 fused tree at depth 4 against the port's scalar
+    oracle at tests/test_render_golden.py's tolerance; (e) the mesh-vertex
+    fit of ``FIT_r05_mesh.json`` (``MESH_FIT_STEPS`` steps), held to a
+    falling loss and a falling dented-face normal error. Each call that
+    launches #1 or #4 has its counts set to 0 just before it and read
+    just after (the kernels line's ``phase18_launches``).
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
@@ -149,7 +171,8 @@ raises and the exit code is not 0. The last two lines are the
 fused kernel's rows: modes (a), (b), (d) on Baldwin–Weber BVH4, the fork
 (c) meshless and on BVH4, and the forward (e) instances; the rows of #1
 mode (a), #3, #4 and #5 also carry ``sharded_launches``, phase 17's
-launches per call). Without
+launches per call, and those of #1 modes (a), (e) on BVH4 and (c)
+meshless and of #4 ``phase18_launches``, phase 18's). Without
 a CUDA card, or without the package beside this file, it exits non-zero
 and prints no result.
 """
@@ -181,6 +204,14 @@ SLICE = 16384
 # phase 17: lanes of each sharded hit's kernel launches held against the
 # plain version (a run of whole 256-ray blocks from the middle of the frame)
 PLAIN_LANES = 65536
+# phase 18: the presplit budget (the twin's measured setting,
+# docs/KERNELS.md "Spatial presplitting") and the mesh-vertex fit's steps
+PRESPLIT = 0.3
+# the order in which phase 18 times the presplit and the unsplit tree
+TURNS = ("presplit", "unsplit", "unsplit", "presplit")
+# (FIT_r05_mesh.json ran 500 on the CPU; a step of its plain per-lane walk
+# took 2.5 s on an H100, so the smoke runs a 25x shorter fit)
+MESH_FIT_STEPS = 20
 BIG = 3.0e38
 KERNEL_SRC = "unity_raytracer_tpu_torch/csrc/mega_segment.cu"
 REPLACES = "unity_raytracer_tpu/ops/pallas/mega.py:459"
@@ -1545,6 +1576,395 @@ def parallel_phase(dev, card, failures, scene, cam, cfg, packed):
     return per_call
 
 
+def live_slice(ins, n):
+    """``n`` lanes of one segment's inputs ``(o, d, thr, tmax)``: evenly
+    spaced live lanes, or every live lane topped up with dead ones."""
+    import torch
+    live_idx = torch.nonzero(ins[3] >= 0).squeeze(1)
+    if live_idx.numel() >= n:
+        pick = live_idx[torch.linspace(0, live_idx.numel() - 1, n,
+                                       device=live_idx.device).long()]
+    else:
+        dead_idx = torch.nonzero(ins[3] < 0).squeeze(1)
+        pick = torch.cat([live_idx, dead_idx[:n - live_idx.numel()]])
+    return [x[pick].contiguous() for x in ins]
+
+
+def presplit_frames(dev, card, failures, scene, cam, cfg, packed, counted):
+    """Phase 18 (a): the flagship on an SBVH-presplit tree, the fused
+    frame on #1 modes (a) and (e) (BVH4) against the plain version on
+    every launch's slice and against the unsplit frame."""
+    import torch
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    from unity_raytracer_tpu_torch.ops.render import render, render_frame
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split = bvhmod.prepare_bvh(scene, cfg.with_(bvh_presplit=PRESPLIT), dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    log(f"phase 18 (a): mesh100k BVH prepare with bvh_presplit={PRESPLIT}: "
+        f"{prep_s:.3f} s; {split.bvh.tri_verts.shape[0]} references of "
+        f"{scene.meshes.count} triangles, {split.nodes.shape[0]} binary "
+        f"nodes, {split.wide.shape[0]} wide rows, stack depths binary "
+        f"{split.stack_binary} / wide {split.stack_wide} (unsplit: "
+        f"{packed.nodes.shape[0]} nodes, {packed.wide.shape[0]} wide rows, "
+        f"{packed.stack_binary} / {packed.stack_wide}; capacities "
+        f"{m3.STACK_BINARY} / {m3._WIDE_STACK}) {card}")
+    aux = mega.build_aux(scene, cfg.background)
+    n_lights = int(scene.lights.valid.sum())
+    issued = cam.width * cam.height * (cfg.max_bounces + 1) * (1 + n_lights)
+    for isect, name in (("bw", "mega_segment/forward"),
+                        ("mt", "mega_segment/forward/mt/wide4")):
+        route = f"{isect}/wide4"
+        fcfg = cfg.with_(kernel="mega", tri_isect=isect, bvh_arity=4)
+        kw = dict(n_lights=scene.lights.positions.shape[0],
+                  n_spheres=scene.spheres.count,
+                  n_tris=scene.triangles.count,
+                  max_bounces=cfg.max_bounces, light_cull=cfg.light_cull,
+                  tri_isect=isect)
+        whole = render(scene, cam, fcfg, bvh=packed)
+        img = counted(f"{name} presplit frame",
+                      lambda: render(scene, cam, fcfg, bvh=split), name)
+        segs = capture_segments(lambda: render(scene, cam, fcfg, bvh=split))
+        bad = lanes = 0
+        err = 0.0
+        for depth, ins in segs:
+            sl = live_slice(ins, PLAIN_LANES)
+            got = mega.trace_segment(split, aux, depth, *sl, **kw)
+            want = mega.trace_segment_plain(split, aux, depth, *sl, **kw)
+            b, n_, e = compare(got, want, torch)
+            bad, lanes, err = bad + b, lanes + n_, max(err, e)
+            log(f"presplit {route} segment {depth} slice: "
+                f"{int((sl[3] >= 0).sum())} live of {n_}, {b} lanes outside "
+                f"rtol=atol=5e-4, max abs err {e:.3g}")
+        if bad > MAX_BAD_FRACTION * lanes:
+            failures.append(f"presplit {route}: {bad} of {lanes} slice "
+                            f"lanes disagree with the plain version")
+        px = img.shape[0] * img.shape[1]
+        off = int((~torch.isclose(img, whole, **TOL).all(-1)).sum())
+        same = int((img == whole).all(-1).sum())
+        # the frame, then its launches alone, timed in turns (presplit,
+        # unsplit, unsplit, presplit); the walk's work on the first two
+        # segments from the counting instance
+        trees = {"presplit": (split, segs), "unsplit": (
+            packed, capture_segments(
+                lambda: render(scene, cam, fcfg, bvh=packed)))}
+        frame_ms = {k: [] for k in trees}
+        alone = {k: [] for k in trees}
+        for what in TURNS:
+            pk, pk_segs = trees[what]
+            frame_ms[what].append(events_ms(
+                lambda: render_frame(scene, cam, fcfg, pk), 5))
+            alone[what].append(sum(events_ms(lambda: mega.trace_segment(
+                pk, aux, depth, *ins, **kw), 5) for depth, ins in pk_segs))
+        for what, (pk, pk_segs) in trees.items():
+            for depth, ins in pk_segs[:2]:
+                log_segment_counts(f"{what} {route} segment {depth}", pk,
+                                   aux, depth, ins, kw)
+        ms = lambda v: " / ".join(f"{x:.3f}" for x in v)
+        log(f"presplit {route} in turns (presplit, unsplit, unsplit, "
+            f"presplit; CUDA events, 1 warm-up + 5 each): frame "
+            f"{ms(frame_ms['presplit'])} ms vs unsplit "
+            f"{ms(frame_ms['unsplit'])} ms; its 5 launches alone "
+            f"{ms(alone['presplit'])} ms vs unsplit {ms(alone['unsplit'])} "
+            f"ms {card}")
+        ms_split, ms_whole = (sum(frame_ms[k]) / len(frame_ms[k])
+                              for k in trees)
+        log(f"mesh100k 1920x1080 presplit frame on {route}: {len(segs)} "
+            f"launches, {ms_split:.3f} ms = {issued / ms_split * 1e3:.4g} "
+            f"issued rays/s; the unsplit frame {ms_whole:.3f} ms = "
+            f"{issued / ms_whole * 1e3:.4g} (means of the turns); "
+            f"vs the unsplit frame: {off} of {px} pixels outside "
+            f"rtol=atol=5e-4, {same} bit for bit, max abs diff "
+            f"{float((img - whole).abs().max()):.3g}; slices {bad} of "
+            f"{lanes} lanes off the plain version, max abs err {err:.3g} "
+            f"{card}")
+        if off > MAX_BAD_FRACTION * px or not bool(torch.isfinite(img).all()):
+            failures.append(f"presplit {route} frame: {off} pixels off the "
+                            f"unsplit frame")
+
+
+def debug_maps_phase(dev, card, failures, scene, cam, packed, counted):
+    """Phase 18 (b): ``debug_maps`` on the flagship (#4 walks) with every
+    walk launch held against the plain version, then ``mesh10k`` 64x64
+    card vs CPU."""
+    import torch
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.debugviz import debug_maps
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    maps = counted("debug_maps", lambda: debug_maps(scene, cam, bvh=packed),
+                   "traverse_packet4")
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = events_ms(lambda: debug_maps(scene, cam, bvh=packed), 3)
+    hit = maps["hit_kind"] > 0
+    finite = all(bool(torch.isfinite(v).all()) for v in maps.values())
+    sh = maps["shadow"]
+    frac = float(hit.float().mean())
+    log(f"phase 18 (b): debug_maps mesh100k {cam.width}x{cam.height}: "
+        f"{ms:.3f} ms (CUDA events, 1 warm-up + 3), peak "
+        f"{peak / 2 ** 30:.3f} GiB; hit fraction {frac:.4f}, shadow mean on "
+        f"hits {float(sh[hit].mean()):.4f}, all finite {finite} {card}")
+    if not finite or float(sh.min()) < 0 or float(sh.max()) > 1 \
+            or not 0.05 < frac <= 1.0:
+        failures.append(f"debug_maps: finite {finite}, shadow in "
+                        f"[{float(sh.min())}, {float(sh.max())}], hit "
+                        f"fraction {frac}")
+    walks = capture_walks(lambda: debug_maps(scene, cam, bvh=packed))
+    for k, (layout, o, d, tmax, any_hit) in enumerate(walks):
+        lo = o.shape[0] // 2
+        sl = (o[lo:lo + PLAIN_LANES], d[lo:lo + PLAIN_LANES],
+              tmax[lo:lo + PLAIN_LANES], any_hit)
+        plain = m3.traverse_plain(packed, *sl)
+        bad, tie, err = check_walk(layout, packed, sl, plain, torch)
+        hits = int((plain[1] >= 0).sum())
+        log(f"debug_maps walk {k} ({layout}, {'any-hit' if any_hit else 'nearest'}"
+            f", {o.shape[0]} lanes): lanes [{lo}, {lo + sl[0].shape[0]}) "
+            f"against the plain version: {bad} off, {tie} tied, {hits} hits, "
+            f"max abs err of t {err:.3g}")
+        if bad or not hits:
+            failures.append(f"debug_maps walk {k}: {bad} lanes off the plain "
+                            f"version, {hits} hits")
+    if not walks or any(w[0] != "mk4" for w in walks):
+        failures.append(f"debug_maps walks {[w[0] for w in walks]}, "
+                        f"expected mk4")
+
+    s_cpu, c_cpu, cfg10 = get_preset("mesh10k", width=64, height=64,
+                                     device="cpu")
+    pk = bvhmod.prepare_bvh(s_cpu, cfg10)
+    cpu = debug_maps(s_cpu, c_cpu, bvh=pk)
+    card_maps = debug_maps(s_cpu.to(dev), c_cpu.to(dev), bvh=pk.to(dev))
+    px = 64 * 64
+    near = {k: int((~torch.isclose(card_maps[k].cpu(), cpu[k], rtol=1e-4,
+                                   atol=1e-4)).reshape(px, -1).any(-1).sum())
+            for k in ("normal", "depth", "shadow")}
+    # the category code and the hashed id as the integers they encode
+    # (the card divides by 255 and 3 as a product with the reciprocal,
+    # one ulp off the CPU's quotient)
+    code = {"hit_kind": 3.0, "hit_id": 255.0}
+    ids = {k: int((torch.round(card_maps[k].cpu() * f)
+                   != torch.round(cpu[k] * f)).reshape(px, -1).any(-1)
+                  .sum()) for k, f in code.items()}
+    log(f"debug_maps mesh10k 64x64 card vs CPU: pixels outside 1e-4 {near}, "
+        f"pixels unequal {ids}")
+    if near["normal"] or near["depth"] or any(
+            v > MAX_BAD_FRACTION * px for v in ids.values()):
+        failures.append(f"debug_maps card vs CPU: {near}, {ids}")
+
+
+def profiling_phase(dev, card, failures, scene, cam, cfg, packed):
+    """Phase 18 (c): ``utils/profiling`` on the fused flagship frame."""
+    import tempfile
+
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.render import render, render_frame
+    from unity_raytracer_tpu_torch.utils import profiling
+
+    fcfg = cfg.with_(kernel="mega")
+    frame = lambda: render_frame(scene, cam, fcfg, packed)
+    ev_ms = events_ms(frame, 5)
+    best_ms = profiling.timed(frame, repeats=5, warmup=1).per_run_s * 1e3
+    rel = abs(best_ms - ev_ms) / ev_ms
+    aux = mega.build_aux(scene, cfg.background)
+    kw = dict(n_lights=scene.lights.positions.shape[0],
+              n_spheres=scene.spheres.count, n_tris=scene.triangles.count,
+              max_bounces=cfg.max_bounces, light_cull=cfg.light_cull)
+    segs = capture_segments(lambda: render(scene, cam, fcfg, bvh=packed))
+    nbytes, _ = segment_work(packed, aux, kw, segs, 52, "bw/wide4")
+    n_lights = int(scene.lights.valid.sum())
+    issued = cam.width * cam.height * (cfg.max_bounces + 1) * (1 + n_lights)
+    log(f"phase 18 (c): profiling.timed on the fused flagship frame "
+        f"{best_ms:.3f} ms (best of 5, synchronized host clock) vs CUDA "
+        f"events {ev_ms:.3f} ms (mean of 5): {rel:.1%} apart {card}")
+    if rel > 0.2:
+        failures.append(f"profiling.timed {best_ms:.3f} ms vs events "
+                        f"{ev_ms:.3f} ms")
+    try:
+        roof = profiling.roofline(issued / ev_ms * 1e3, nbytes / issued)
+        log(f"profiling.roofline ({torch.cuda.get_device_name(0)}, "
+            f"{profiling.device_hbm_gbps()} GB/s; bytes per issued ray from "
+            f"the frame's counted bytes): {json.dumps(roof)} {card}")
+    except ValueError as e:
+        failures.append(f"profiling.roofline: {e}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        with profiling.trace(logdir):
+            frame()
+        files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        sizes = [os.path.getsize(f) for f in files]
+    log(f"profiling.trace: {len(files)} file(s), {sum(sizes)} bytes")
+    if len(files) != 1 or not sizes[0]:
+        failures.append(f"profiling.trace wrote {sizes}")
+
+
+def oracle_phase(dev, card, failures, counted):
+    """Phase 18 (d): the fused cornell tree on the card against the
+    port's scalar oracle, at tests/test_render_golden.py's tolerance."""
+    from unity_raytracer_tpu_torch import oracle
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.ops.render import render, resolve_mode
+
+    scene, cam, cfg = get_preset("cornell_box", width=16, height=16,
+                                 device=dev)
+    cfg = resolve_mode(scene, cfg.with_(kernel="mega", max_bounces=4))
+    img = counted("oracle cornell 16x16",
+                  lambda: render(scene, cam, cfg),
+                  "mega_segment/fork/meshless").cpu().numpy()
+    t0 = time.perf_counter()
+    ref = oracle.render(oracle.from_scene(scene), cam, cfg.max_bounces,
+                        background=cfg.background)
+    osec = time.perf_counter() - t0
+    err = np.abs(img - ref)
+    p999, mean = float(np.quantile(err, 0.999)), float(err.mean())
+    limit = 2e-4 + 1e-3 * float(np.abs(ref).mean())
+    log(f"phase 18 (d): cornell_box 16x16 depth {cfg.max_bounces} fused "
+        f"tree ({cfg.mode}) vs the scalar oracle: p99.9 err {p999:.3g} "
+        f"(< 5e-3), mean err {mean:.3g} (< {limit:.3g}), max "
+        f"{float(err.max()):.3g}; the oracle took {osec:.3f} s on the host "
+        f"{card}")
+    if not p999 < 5e-3 or not mean < limit or not ref.max() > 0.05:
+        failures.append(f"cornell fused tree vs oracle: p99.9 {p999}, mean "
+                        f"{mean}")
+
+
+def mesh_fit_phase(dev, card, failures, steps):
+    """Phase 18 (e): the mesh-vertex fit of ``FIT_r05_mesh.json``
+    (``scripts/meshfit_cpu.py``) on the card: a subdivision-2 icosphere
+    (320 triangles) over a ground plane, 16 camera-facing faces dented
+    (v0 moved 0.6 x the mean edge along the face normal), 96x96, depth 1,
+    ``mesh_verts`` through ``bind_verts`` on the composed path's plain walk
+    (``kernel='xla'``, the twin's), ``bvh_pad`` = 2 x the dent,
+    chunks of 2304 rays with remat. Held only to a falling loss and a
+    falling dented-face normal error."""
+    import torch
+    from unity_raytracer_tpu_torch.fit import FitConfig, fit
+    from unity_raytracer_tpu_torch.models import meshgen
+    from unity_raytracer_tpu_torch.models.camera import Camera
+    from unity_raytracer_tpu_torch.models.scene import (
+        SceneBuilder, make_material)
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.render import render, resolve_mode
+    from unity_raytracer_tpu_torch.utils.config import RenderConfig
+
+    b = SceneBuilder()
+    v, f = meshgen.icosphere(subdivisions=2, radius=2.0, center=(0, 2, 8))
+    b.add_mesh(v, f, make_material(diffuse=(0.7, 0.5, 0.2),
+                                   ambient=(0.7, 0.5, 0.2),
+                                   specular=(0.4, 0.4, 0.4), phong=30.0))
+    g = 30.0
+    gmat = make_material(diffuse=(0.5, 0.5, 0.55), ambient=(0.5, 0.5, 0.55),
+                         phong=1.0)
+    b.add_triangle((-g, 0, -g), (g, 0, -g), (g, 0, g), gmat)
+    b.add_triangle((-g, 0, -g), (g, 0, g), (-g, 0, g), gmat)
+    b.add_point_light((5, 9, 2), 900.0)
+    b.set_ambient((8, 8, 8))
+    scene = b.build(device=dev)
+    cam = Camera.make(position=(0, 2.5, 2), forward=(0, -0.05, 1), dist=1.0,
+                      half_h=0.5, half_v=0.5, width=96, height=96,
+                      device=dev)
+    true_v = scene.meshes.verts.cpu().numpy()
+    valid = scene.meshes.valid.cpu().numpy()
+    edge = np.linalg.norm(true_v[:, 1] - true_v[:, 0], axis=1)
+    amp = 0.6 * float(edge[valid].mean())
+    cfg = resolve_mode(scene, RenderConfig(
+        max_bounces=1, background=(0.04, 0.05, 0.07), use_bvh=True,
+        mode="scan", kernel="xla", block_size=8, ray_chunk=96 * 96 // 4,
+        remat=True, bvh_pad=2.0 * amp))
+    bvh = bvhmod.prepare_bvh(scene, cfg)
+    target = render(scene, cam, cfg, bvh=bvh)
+    cent = true_v.mean(axis=1)
+    to_cam = cam.position.cpu().numpy() - cent
+    to_cam /= np.maximum(np.linalg.norm(to_cam, axis=1, keepdims=True), 1e-9)
+    nrm = scene.meshes.normals.cpu().numpy()
+    facing = np.argsort(-(nrm * to_cam).sum(axis=1) * valid)[:16]
+    dent = np.zeros_like(true_v)
+    dent[facing, 0, :] = amp * nrm[facing]
+    start = true_v + dent
+    fcfg = FitConfig(param_names=("mesh_verts",), learning_rate=0.035 * amp,
+                     steps=steps, soft_shadow_temp=1.0, soft_hit_temp=0.05,
+                     log_every=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(scene, cam, cfg, target, fcfg,
+              init_params={"mesh_verts": torch.as_tensor(start, device=dev)},
+              bvh=bvh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def face_normals(vv):
+        n = -np.cross(vv[:, 2] - vv[:, 0], vv[:, 1] - vv[:, 0])
+        return n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+
+    def normal_err(verts):
+        """1 - cos of the angle to the true normal, mean over the dents."""
+        return float((1 - (face_normals(verts[facing])
+                           * face_normals(true_v[facing])).sum(1)).mean())
+
+    e0 = normal_err(start)
+    e1 = normal_err(res.params["mesh_verts"].detach().cpu().numpy())
+    l0, l1 = float(res.losses[0]), float(res.losses[-1])
+    log(f"phase 18 (e): mesh-vertex fit (FIT_r05_mesh.json's scenario) "
+        f"{steps} steps in {wall:.3f} s ({wall / steps * 1e3:.1f} ms per "
+        f"step): loss {l0:.6g} -> {l1:.6g} (ratio {l1 / l0:.4f}), dented-"
+        f"face normal error {e0:.4f} -> {e1:.4f} (the CPU artifact, 500 "
+        f"steps: 0.175 -> 0.073, loss 2.028e-05 -> 6.063e-06) {card}")
+    if not (l1 < l0 and e1 < e0):
+        failures.append(f"mesh fit: loss {l0} -> {l1}, normal error "
+                        f"{e0} -> {e1}")
+
+
+def rest_phase(dev, card, failures, scene, cam, cfg, packed,
+               fit_steps=MESH_FIT_STEPS):
+    """Phase 18 (module docstring). Returns ``{kernels-line row: {call:
+    launches}}`` for the launches of #1 and #4 it makes."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+
+    per_call = {}
+
+    def counts():
+        c = {"mega_segment/forward": mega.route_launches["forward",
+                                                         "bw/wide4"],
+             "mega_segment/forward/mt/wide4": mega.route_launches[
+                 "forward", "mt/wide4"],
+             "mega_segment/fork/meshless": mega.route_launches["fork",
+                                                               "meshless"]}
+        c.update({WALKS[k][0]: n for k, n in m3.launches.items()})
+        return c
+
+    def counted(call, fn, row):
+        """One call with the counts set to 0 just before it and read just
+        after; it must launch the kernel of ``row``."""
+        torch.cuda.synchronize()
+        reset_mega_counts()
+        for k in m3.launches:
+            m3.launches[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: n for k, n in counts().items() if n}
+        for k, n in got.items():
+            per_call.setdefault(k, {})[call] = n
+        log(f"phase 18 {call}: launches {got}")
+        if row not in got:
+            failures.append(f"phase 18 {call}: no launch of {row}")
+        return out
+
+    t0 = time.perf_counter()
+    presplit_frames(dev, card, failures, scene, cam, cfg, packed, counted)
+    debug_maps_phase(dev, card, failures, scene, cam, packed, counted)
+    profiling_phase(dev, card, failures, scene, cam, cfg, packed)
+    oracle_phase(dev, card, failures, counted)
+    mesh_fit_phase(dev, card, failures, fit_steps)
+    log(f"phase 18: {time.perf_counter() - t0:.3f} s wall")
+    return per_call
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1748,14 +2168,7 @@ def main():
     frame_segs, slice_segs = [], []
     for depth, ins in enumerate(chain_inputs(scene, cam, cfg, packed, aux)):
         frame_segs.append((depth, ins))
-        live_idx = torch.nonzero(ins[3] >= 0).squeeze(1)
-        if live_idx.numel() >= SLICE:
-            pick = live_idx[torch.linspace(0, live_idx.numel() - 1, SLICE,
-                                           device=dev).long()]
-        else:  # every live lane, topped up with dead ones
-            dead_idx = torch.nonzero(ins[3] < 0).squeeze(1)
-            pick = torch.cat([live_idx, dead_idx[:SLICE - live_idx.numel()]])
-        sl = [x[pick].contiguous() for x in ins]
+        sl = live_slice(ins, SLICE)
         slice_segs.append((depth, sl))
         got = mega.trace_segment(packed, aux, depth, *sl, **kw)
         want = mega.trace_segment_plain(packed, aux, depth, *sl, **kw)
@@ -2027,6 +2440,8 @@ def main():
                               packed8, slice_segs, fused_img, frame_ms)
     # ---- the multi-device layer at world size 1: phase 17 --------------------
     sharded = parallel_phase(dev, card, failures, scene, cam, cfg, packed)
+    # ---- the port's last modules: phase 18 ------------------------------------
+    rest = rest_phase(dev, card, failures, scene, cam, cfg, packed)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -2047,9 +2462,11 @@ def main():
             "frame_ms": sum(seg_ms[mode]), "frame_bound_ms": fb,
             "frame_bound_by": fby})
     rows = kernels + walk_rows + new_rows
-    for row in rows:  # launches per call of phase 17's sharded paths
+    for row in rows:  # launches per call of phases 17 and 18
         if row["name"] in sharded:
             row["sharded_launches"] = sharded[row["name"]]
+        if row["name"] in rest:
+            row["phase18_launches"] = rest[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

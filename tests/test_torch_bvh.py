@@ -17,7 +17,8 @@ from unity_raytracer_tpu_torch.models.convert import (
     packed_from_arrays, scene_from_arrays)
 from unity_raytracer_tpu_torch.models.presets import get_preset
 from unity_raytracer_tpu_torch.ops import bvh as t_bvh
-from unity_raytracer_tpu_torch.ops.kernels import mega, traverse_wide
+from unity_raytracer_tpu_torch.ops.kernels import (
+    mega, traverse_mk3, traverse_wide)
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
 
 torch.set_num_threads(1)
@@ -108,12 +109,19 @@ def test_widen_refuses_deep_tree():
 
 
 def test_presplit_and_meshless_raise():
-    """SBVH presplitting raises naming its ROADMAP item; a meshless build
-    is the twin's single empty leaf (it no longer raises)."""
+    """Neither raises any more: SBVH presplitting prepares a packed tree
+    whose leaves hold duplicated triangles (``tests/test_torch_presplit.py``
+    holds it to the twin), and a meshless build is the twin's single
+    empty leaf."""
     from unity_raytracer_tpu.ops import bvh as j_bvh
     scene = small_scene(t_scene, t_meshgen, device="cpu")
-    with pytest.raises(NotImplementedError, match="#14 in ROADMAP"):
-        t_bvh.prepare_bvh(scene, CFG.with_(bvh_presplit=0.3))
+    split = t_bvh.prepare_bvh(scene, CFG.with_(bvh_presplit=0.3))
+    whole = t_bvh.prepare_bvh(scene, CFG)
+    assert split.bvh.tri_verts.shape[0] > whole.bvh.tri_verts.shape[0]
+    np.testing.assert_array_equal(np.unique(split.bvh.prim_index),
+                                  np.unique(whole.bvh.prim_index))
+    assert 0 < split.stack_binary <= traverse_mk3.STACK_BINARY
+    assert 0 < split.stack_wide <= traverse_wide.STACK
     got = t_bvh.build(np.zeros((4, 3, 3), np.float32), np.zeros((4,), bool))
     want = j_bvh.build(np.zeros((4, 3, 3), np.float32), np.zeros((4,), bool))
     for k in ("node_min", "node_max", "first", "count", "miss_next",

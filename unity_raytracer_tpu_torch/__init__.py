@@ -16,9 +16,13 @@ record-replay (``ops/replay.py``) and on the composed path; the fitting
 loop (``fit.py``); chunked frames; the multi-device layer on
 ``torch.distributed`` (``parallel/``: ray-tiled renders, scene-sharded and
 ring hits, the sharded train step, the dry run); the tile orchestrator and
-the metrics log (``utils/``). What is left raises ``NotImplementedError``
-naming the ROADMAP item that ports it. Entry points run on the CUDA card
-unless the caller asks for the CPU.
+the metrics log (``utils/``); the numpy reference BVH builder and SBVH
+presplitting (``ops/bvh.py``, ``cfg.bvh_presplit``), the debug maps
+(``ops/debugviz.py``), profiling (``utils/profiling.py``) and the scalar
+oracle (``oracle.py``). That is every module of the twin; only the CLI's
+``bench`` subcommand, which runs the repo-root ``bench.py``, is not ported
+(ROADMAP Queue A #6). Entry points run on the CUDA card unless the caller
+asks for the CPU.
 
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
     python -m unity_raytracer_tpu_torch fit --preset mesh100k --replay

@@ -1,8 +1,11 @@
-"""BVH: the native SAH build, canonical winding, ``prepare_bvh`` and the walks.
+"""BVH: the SAH builds, SBVH presplitting, canonical winding, ``prepare_bvh`` and the walks.
 
-Twin: ``unity_raytracer_tpu/ops/bvh.py`` — ``MeshBVH``, ``build`` on its
-native path (``:274-327``, with the single empty leaf of a meshless
-scene), ``_slab_enter`` and ``_safe_inv`` (``:498-519``), ``_mt_one``
+Twin: ``unity_raytracer_tpu/ops/bvh.py`` — ``MeshBVH``,
+``_clip_tri_halfspaces`` (``:174-214``), ``presplit_refs`` (``:217-272``),
+``build`` on both backends (``:274-491``: the native builder, the numpy
+reference builder with its binned SAH and midpoint fallback, presplit
+references, the single empty leaf of a meshless scene), ``_slab_enter``
+and ``_safe_inv`` (``:498-519``), ``_mt_one``
 (``:522-538``), ``shading_normal`` (``:541-549``), ``traverse``
 (``:552-629``, the plain per-lane threaded walk: the twin's
 ``kernel='xla'`` route), ``canonical_winding`` (``:632-644``),
@@ -18,8 +21,14 @@ A ``MeshBVH`` holds numpy arrays while the host builds and packs it;
 turns them into tensors on the device, where the walks and the traversal
 epilogue read ``tri_verts``, ``prim_index`` and ``flip``.
 
-Not ported here: the numpy reference builder and SBVH ``presplit_refs``
-(ROADMAP Queue A #14).
+One departure from the twin (ROADMAP Queue C #3): ``presplit_refs``
+rounds each clipped float64 reference box outward to float32, where the
+twin rounds to nearest and a box can lose a sliver of its triangle. The
+numpy builder takes its decisions (centroids, SAH costs) from the
+nearest-rounded boxes, as the twin does, and bounds its nodes with the
+outward ones: the tree is the twin's, and a node box differs from the
+twin's only where an outward-rounded reference box sets it
+(``tests/test_torch_presplit.py``).
 """
 
 from __future__ import annotations
@@ -76,11 +85,265 @@ class MeshBVH:
         return MeshBVH(**kw)
 
 
+def _clip_tri_halfspaces(tri: np.ndarray, axis: np.ndarray,
+                         split: np.ndarray
+                         ) -> Tuple[np.ndarray, np.ndarray,
+                                    np.ndarray, np.ndarray]:
+    """Vectorized Sutherland–Hodgman clip of triangles ``[K,3,3]`` against
+    the plane ``x[axis] = split`` (``axis``, ``split``: ``[K]``) -> the
+    boxes of the two clipped polygons (lo_left, hi_left, lo_right,
+    hi_right). A side with no vertex gets an inverted (empty) box."""
+    k = tri.shape[0]
+    coord = np.take_along_axis(
+        tri, axis[:, None, None].repeat(3, 1), axis=2)[..., 0]  # [K,3]
+    lo_l = np.full((k, 3), np.inf)
+    hi_l = np.full((k, 3), -np.inf)
+    lo_r = np.full((k, 3), np.inf)
+    hi_r = np.full((k, 3), -np.inf)
+
+    def acc(pmask, pts, lo, hi):
+        np.minimum(lo, np.where(pmask[:, None], pts, np.inf), out=lo)
+        np.maximum(hi, np.where(pmask[:, None], pts, -np.inf), out=hi)
+
+    for i in range(3):
+        j = (i + 1) % 3
+        vi, vj = tri[:, i], tri[:, j]
+        ci, cj = coord[:, i], coord[:, j]
+        acc(ci <= split, vi, lo_l, hi_l)
+        acc(ci >= split, vi, lo_r, hi_r)
+        crosses = (ci - split) * (cj - split) < 0
+        denom = np.where(np.abs(cj - ci) < 1e-30, 1e-30, cj - ci)
+        t = np.clip((split - ci) / denom, 0.0, 1.0)
+        pt = vi + t[:, None] * (vj - vi)
+        # the crossing lies on the plane: force its split coordinate so
+        # rounding cannot leak a box across the plane
+        np.put_along_axis(pt, axis[:, None], split[:, None], axis=1)
+        acc(crosses, pt, lo_l, hi_l)
+        acc(crosses, pt, lo_r, hi_r)
+    return lo_l, hi_l, lo_r, hi_r
+
+
+def _presplit_refs64(tris: np.ndarray, budget_frac: float
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The twin's ``presplit_refs`` loop, returning its float64 reference
+    boxes before any rounding: (ref_tri [R] int64, lo [R,3], hi [R,3])."""
+    m = tris.shape[0]
+    budget = int(m * budget_frac)
+    ref_tri = np.arange(m, dtype=np.int64)
+    ref_lo = tris.min(axis=1).astype(np.float64)
+    ref_hi = tris.max(axis=1).astype(np.float64)
+    while budget > 0:
+        ext = ref_hi - ref_lo
+        d = np.maximum(ext, 0)
+        area = d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+        k = min(budget, max(256, budget // 4), len(area))
+        top = np.argpartition(area, -k)[-k:]
+        # refs already degenerate along their longest axis are not split
+        top = top[ext[top].max(axis=1) > 1e-12]
+        if top.size == 0:
+            break
+        axis = np.argmax(ext[top], axis=1)
+        split = 0.5 * (np.take_along_axis(ref_lo[top], axis[:, None], 1)
+                       + np.take_along_axis(ref_hi[top], axis[:, None],
+                                            1))[:, 0]
+        t = tris[ref_tri[top]].astype(np.float64)
+        lo_l, hi_l, lo_r, hi_r = _clip_tri_halfspaces(t, axis, split)
+        # each half within its parent ref box (an earlier split may have
+        # made that tighter than the whole triangle)
+        lo_l = np.maximum(lo_l, ref_lo[top])
+        hi_l = np.minimum(hi_l, ref_hi[top])
+        lo_r = np.maximum(lo_r, ref_lo[top])
+        hi_r = np.minimum(hi_r, ref_hi[top])
+        ok = (hi_l >= lo_l).all(1) & (hi_r >= lo_r).all(1)
+        top, lo_l, hi_l, lo_r, hi_r = (top[ok], lo_l[ok], hi_l[ok],
+                                       lo_r[ok], hi_r[ok])
+        if top.size == 0:
+            break
+        ref_lo[top] = lo_l
+        ref_hi[top] = hi_l
+        ref_tri = np.concatenate([ref_tri, ref_tri[top]])
+        ref_lo = np.concatenate([ref_lo, lo_r])
+        ref_hi = np.concatenate([ref_hi, hi_r])
+        budget -= top.size
+    return ref_tri, ref_lo, ref_hi
+
+
+def round_out(lo: np.ndarray, hi: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Float64 boxes -> the least float32 boxes that contain them: a
+    coordinate whose nearest float32 lies inside the box moves one ulp
+    outward (``np.nextafter``)."""
+    lo32, hi32 = lo.astype(np.float32), hi.astype(np.float32)
+    lo32 = np.where(lo32 > lo, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32 < hi, np.nextafter(hi32, np.float32(np.inf)), hi32)
+    return lo32, hi32
+
+
+def presplit_refs(tris: np.ndarray, budget_frac: float
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """SBVH-style spatial presplitting (Ernst–Greiner early split
+    clipping): build references ``(ref_tri [R] i32, ref_lo [R,3] f32,
+    ref_hi [R,3] f32)`` in which large triangles appear several times,
+    each with the box of one clipped piece, so that the SAH build places
+    each piece in its own subtree. ``R <= len(tris) * (1 + budget_frac)``.
+    The largest-area refs split first, each at the midpoint of its box's
+    longest axis, the triangle clipped to both halves and each half's box
+    kept within its parent's. The float32 boxes contain the float64
+    clipped boxes (``round_out``; the twin rounds to nearest)."""
+    ref_tri, lo, hi = _presplit_refs64(tris, budget_frac)
+    lo32, hi32 = round_out(lo, hi)
+    return ref_tri.astype(np.int32), lo32, hi32
+
+
+def _build_native(tris: np.ndarray, leaf_size: int, use_sah: bool,
+                  sah_bins: int, lib) -> Tuple[np.ndarray, ...]:
+    """The C++ builder's arrays: (node_min, node_max, first, count,
+    miss_next, leaf order)."""
+    m = tris.shape[0]
+    tris_f = np.ascontiguousarray(tris.reshape(m, 9), np.float32)
+    max_nodes = 2 * m - 1
+    node_min = np.empty((max_nodes, 3), np.float32)
+    node_max = np.empty((max_nodes, 3), np.float32)
+    first = np.empty((max_nodes,), np.int32)
+    count = np.empty((max_nodes,), np.int32)
+    miss = np.empty((max_nodes,), np.int32)
+    order = np.empty((m,), np.int32)
+    n = lib.urt_build_bvh_ex(
+        tris_f.ctypes.data, m, leaf_size, int(use_sah), int(sah_bins),
+        node_min.ctypes.data, node_max.ctypes.data, first.ctypes.data,
+        count.ctypes.data, miss.ctypes.data, order.ctypes.data)
+    if n <= 0:
+        raise RuntimeError(f"native BVH build failed (returned {n})")
+    return node_min[:n], node_max[:n], first[:n], count[:n], miss[:n], order
+
+
+def _build_numpy(lo: np.ndarray, hi: np.ndarray, cent: np.ndarray,
+                 blo: np.ndarray, bhi: np.ndarray, leaf_size: int,
+                 use_sah: bool, sah_bins: int) -> Tuple[np.ndarray, ...]:
+    """The twin's numpy reference build over references with boxes
+    ``lo, hi`` and centroids ``cent`` (``[m,3]`` each), which take every
+    decision: top-down binned SAH with a midpoint fallback, nodes in DFS
+    order (the hit successor of an interior node is ``i + 1``) threaded by
+    miss links. Node boxes bound ``blo, bhi``. Returns (node_min,
+    node_max, first, count, miss_next, leaf order)."""
+    m = lo.shape[0]
+    order = np.arange(m, dtype=np.int32)
+    n_min, n_max, n_first, n_count = [], [], [], []
+
+    def area(lo_, hi_):
+        d = np.maximum(hi_ - lo_, 0)
+        return 2 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                    + d[..., 2] * d[..., 0])
+
+    def sah_split(start, end, axis, c, idx):
+        """Binned SAH along ``axis``: the global mid, or None to fall
+        back."""
+        n = end - start
+        cmin, cmax = c[:, axis].min(), c[:, axis].max()
+        if cmax - cmin < 1e-12:
+            return None
+        bins = np.clip(((c[:, axis] - cmin) / (cmax - cmin)
+                        * sah_bins).astype(np.int32), 0, sah_bins - 1)
+        counts = np.zeros(sah_bins, np.int64)
+        b_lo = np.full((sah_bins, 3), np.inf)
+        b_hi = np.full((sah_bins, 3), -np.inf)
+        for b in range(sah_bins):
+            sel = bins == b
+            counts[b] = sel.sum()
+            if counts[b]:
+                b_lo[b] = lo[idx[sel]].min(axis=0)
+                b_hi[b] = hi[idx[sel]].max(axis=0)
+        best_cost, best_b = np.inf, -1
+        for b in range(1, sah_bins):
+            cl, cr = counts[:b].sum(), counts[b:].sum()
+            if cl == 0 or cr == 0:
+                continue
+            llo = b_lo[:b][counts[:b] > 0].min(axis=0)
+            lhi = b_hi[:b][counts[:b] > 0].max(axis=0)
+            rlo = b_lo[b:][counts[b:] > 0].min(axis=0)
+            rhi = b_hi[b:][counts[b:] > 0].max(axis=0)
+            cost = area(llo, lhi) * cl + area(rlo, rhi) * cr
+            if cost < best_cost:
+                best_cost, best_b = cost, b
+        if best_b < 0:
+            return None
+        mask = bins < best_b
+        k = int(mask.sum())
+        if k == 0 or k == n:
+            return None
+        order[start:end] = np.concatenate([idx[mask], idx[~mask]])
+        return start + k
+
+    def build_range(start, end):
+        """DFS build of ``order[start:end]``."""
+        idx = order[start:end]
+        n_min.append(blo[idx].min(axis=0))
+        n_max.append(bhi[idx].max(axis=0))
+        n = end - start
+        if n <= leaf_size:
+            n_first.append(start)
+            n_count.append(n)
+            return
+        n_first.append(-1)
+        n_count.append(0)
+        c = cent[idx]
+        clo, chi = c.min(axis=0), c.max(axis=0)
+        axis = int(np.argmax(chi - clo))
+        if chi[axis] - clo[axis] < 1e-12:
+            mid = start + n // 2  # all centroids coincide: median index
+        else:
+            mid = sah_split(start, end, axis, c, idx) if use_sah else None
+            if mid is None:
+                # midpoint fallback (the reference's intent, BVH.cs:60)
+                mask = c[:, axis] < 0.5 * (clo[axis] + chi[axis])
+                k = int(mask.sum())
+                if 0 < k < n:
+                    order[start:end] = np.concatenate([idx[mask],
+                                                       idx[~mask]])
+                    mid = start + k
+                else:
+                    mid = start + n // 2
+        build_range(start, mid)
+        build_range(mid, end)
+
+    build_range(0, m)
+    count = np.asarray(n_count, np.int32)
+    nn = count.shape[0]
+    # miss links: a node's subtree is a contiguous DFS range, left child
+    # i + 1, right child after the left subtree; left's miss is the
+    # right child, right's miss the parent's
+    subtree = np.ones(nn, np.int64)
+    for i in range(nn - 1, -1, -1):
+        if count[i] == 0:
+            left = i + 1
+            subtree[i] = 1 + subtree[left] + subtree[left + subtree[left]]
+    miss = np.full(nn, -1, np.int32)
+    stack = [(0, -1)]
+    while stack:
+        i, miss_of_i = stack.pop()
+        miss[i] = miss_of_i
+        if count[i] == 0:
+            left = i + 1
+            right = left + int(subtree[left])
+            stack.append((left, right))
+            stack.append((right, miss_of_i))
+    return (np.asarray(n_min, np.float32), np.asarray(n_max, np.float32),
+            np.asarray(n_first, np.int32), count, miss, order)
+
+
 def build(verts: np.ndarray, valid: np.ndarray | None = None,
           leaf_size: int = LEAF_SIZE, use_sah: bool = True,
-          sah_bins: int = SAH_BINS, aabb_pad: float = 0.0) -> MeshBVH:
-    """Binned-SAH build over triangles [M,3,3] with the native builder;
-    invalid rows are excluded. ``aabb_pad`` inflates every node box."""
+          backend: str = "auto", sah_bins: int = SAH_BINS,
+          aabb_pad: float = 0.0, presplit: float = 0.0) -> MeshBVH:
+    """Binned-SAH build over triangles ``[M,3,3]``; invalid rows are
+    excluded. ``backend``: 'native' (the C++ builder; raises where it
+    cannot be built), 'numpy' (the reference builder) or 'auto' (native
+    where it builds, else numpy). Both emit the same threaded layout and
+    equal hits; with ``presplit`` > 0 the build runs on the SBVH
+    references of ``presplit_refs`` (a budget of ``presplit`` x M extra
+    references) and always on numpy, as in the twin. ``aabb_pad``
+    inflates every node box (a tree conservative for vertex moves up to
+    the pad)."""
     verts = np.asarray(verts, np.float32)
     if valid is None:
         valid = np.ones((verts.shape[0],), bool)
@@ -95,29 +358,42 @@ def build(verts: np.ndarray, valid: np.ndarray | None = None,
             miss_next=np.full((1,), -1, np.int32),
             tri_verts=np.zeros((1, 3, 3), np.float32),
             prim_index=np.zeros((1,), np.int32), leaf_size=leaf_size)
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown BVH backend {backend!r}")
 
-    tris_f = np.ascontiguousarray(tris.reshape(m, 9), np.float32)
-    max_nodes = 2 * m - 1
-    node_min = np.empty((max_nodes, 3), np.float32)
-    node_max = np.empty((max_nodes, 3), np.float32)
-    first = np.empty((max_nodes,), np.int32)
-    count = np.empty((max_nodes,), np.int32)
-    miss = np.empty((max_nodes,), np.int32)
-    order = np.empty((m,), np.int32)
-    n = _lib.bvh_lib().urt_build_bvh_ex(
-        tris_f.ctypes.data, m, leaf_size, int(use_sah), int(sah_bins),
-        node_min.ctypes.data, node_max.ctypes.data, first.ctypes.data,
-        count.ctypes.data, miss.ctypes.data, order.ctypes.data)
-    if n <= 0:
-        raise RuntimeError(f"native BVH build failed (returned {n})")
-    node_min, node_max = node_min[:n], node_max[:n]
+    lib = None
+    if backend in ("auto", "native") and not presplit:
+        try:
+            lib = _lib.bvh_lib()
+        except (RuntimeError, OSError):
+            if backend == "native":
+                raise
+    if lib is not None:
+        ref_tri = np.arange(m, dtype=np.int32)
+        node_min, node_max, first, count, miss, order = _build_native(
+            tris, leaf_size, use_sah, sah_bins, lib)
+    else:
+        if presplit:
+            ref_tri, lo64, hi64 = _presplit_refs64(tris, presplit)
+            # decisions on the twin's nearest-rounded boxes (binning keys
+            # off the clipped piece's centre), bounds on outward ones
+            lo, hi = lo64.astype(np.float32), hi64.astype(np.float32)
+            cent = 0.5 * (lo + hi)
+            blo, bhi = round_out(lo64, hi64)
+        else:
+            ref_tri = np.arange(m, dtype=np.int32)
+            lo = blo = tris.min(axis=1)
+            hi = bhi = tris.max(axis=1)
+            cent = tris.mean(axis=1)
+        node_min, node_max, first, count, miss, order = _build_numpy(
+            lo, hi, cent, blo, bhi, leaf_size, use_sah, sah_bins)
     if aabb_pad:
         node_min = node_min - aabb_pad
         node_max = node_max + aabb_pad
-    return MeshBVH(node_min=node_min, node_max=node_max, first=first[:n],
-                   count=count[:n], miss_next=miss[:n],
-                   tri_verts=tris[order], prim_index=orig_idx[order],
-                   leaf_size=leaf_size)
+    rows = ref_tri[order]
+    return MeshBVH(node_min=node_min, node_max=node_max, first=first,
+                   count=count, miss_next=miss, tri_verts=tris[rows],
+                   prim_index=orig_idx[rows], leaf_size=leaf_size)
 
 
 def _slab_enter(o, d_inv, lo, hi, tmax):
@@ -317,12 +593,9 @@ def prepare_bvh(scene, cfg, device=None):
     every device (the twin builds a plain tree on its CPU backend): they
     serve every route, and off the card 'auto' walks their ``bvh`` with
     the plain per-lane walk. Winding is canonicalized against the stored
-    normals so the epilogue re-derives them."""
-    if getattr(cfg, "bvh_presplit", 0.0):
-        raise NotImplementedError(
-            "not ported to unity_raytracer_tpu_torch yet: bvh_presplit "
-            "(SBVH presplitting and the numpy builder) is #14 in ROADMAP.md "
-            "Queue A")
+    normals so the epilogue re-derives them. ``cfg.bvh_presplit`` > 0
+    builds on SBVH references (``presplit_refs``, the numpy builder):
+    leaves then hold duplicated triangles and ``prim_index`` repeats."""
     device = scene.aabb_min.device if device is None else device
     verts, flip = canonical_winding(scene.meshes.verts.cpu().numpy(),
                                     scene.meshes.normals.cpu().numpy(),
@@ -330,13 +603,16 @@ def prepare_bvh(scene, cfg, device=None):
     valid = scene.meshes.valid.cpu().numpy()
     bins = getattr(cfg, "bvh_bins", SAH_BINS) or SAH_BINS
     pad = getattr(cfg, "bvh_pad", 0.0) or 0.0
+    presplit = getattr(cfg, "bvh_presplit", 0.0) or 0.0
     if getattr(cfg, "kernel", "auto") == "xla":
-        b = build(verts, valid, sah_bins=bins, aabb_pad=pad)
+        b = build(verts, valid, sah_bins=bins, aabb_pad=pad,
+                  presplit=presplit)
         return dataclasses.replace(b, canonical=True, flip=flip).to(device)
     if not valid.any():
         return _meshless_packed(getattr(cfg, "bvh_arity", 4)).to(device)
     leaf = getattr(cfg, "bvh_leaf", PALLAS_LEAF) or PALLAS_LEAF
-    b = build(verts, valid, leaf_size=leaf, sah_bins=bins, aabb_pad=pad)
+    b = build(verts, valid, leaf_size=leaf, sah_bins=bins, aabb_pad=pad,
+              presplit=presplit)
     b = dataclasses.replace(b, canonical=True, flip=flip)
     packed = pack_bw(widen(pack_rows(b, leaf_slots=leaf),
                            arity=getattr(cfg, "bvh_arity", 4)))

@@ -5,9 +5,8 @@ codes (``:31-58``), ``ray_aabb`` (``:61-82``), ``ray_spheres`` and
 ``_safe_sqrt`` (``:85-115``), ``ray_triangles`` (``:144-168``),
 ``sphere_margins`` (``:171-194``), ``_best`` (``:197-206``) and
 ``nearest_hit`` (``:209-296``), plus ``dot3``, the 3-vector dot product
-summed left to right as the CUDA kernels sum it. ``ray_spheres_mm``
-(``:118-141``), an MXU reformulation no path calls, is not ported
-(ROADMAP Queue A #14).
+summed left to right as the CUDA kernels sum it, and ``ray_spheres_mm``
+(``:118-141``), the matrix form of ``ray_spheres`` (no path calls it).
 
 Every function is an ``[N rays] x [N prims]`` broadcast with masks for the
 rejects, so branch conditions carry gradients through ``t``. A miss is
@@ -95,6 +94,30 @@ def ray_spheres(o: torch.Tensor, d: torch.Tensor, centers: torch.Tensor,
     oc = o[:, None, :] - centers[None, :, :]            # [N,S,3]
     uoc = dot3(d[:, None, :], oc)                       # [N,S]
     oc_sq = dot3(oc, oc)
+    disc = uoc * uoc - (oc_sq - radius_sq[None, :])
+    sq = _safe_sqrt(disc)
+    big = -uoc + sq
+    small = -uoc - sq
+    t = torch.where(small < 0, big, small)
+    miss = (disc < 0) | (big < 0)
+    if valid is not None:
+        miss = miss | ~valid[None, :]
+    return torch.where(miss, INF, t)
+
+
+def ray_spheres_mm(o: torch.Tensor, d: torch.Tensor, centers: torch.Tensor,
+                   radius_sq: torch.Tensor,
+                   valid: torch.Tensor | None = None) -> torch.Tensor:
+    """``ray_spheres`` with its two inner products as matrix products,
+    for large N x S: ``d.oc = d.o - d @ C^T`` and ``|oc|^2 = |o|^2 - 2 o @
+    C^T + |C|^2``. The same results up to floating-point association."""
+    dC = d @ centers.T                                   # [N,S]
+    oC = o @ centers.T                                   # [N,S]
+    do = (d * o).sum(-1, keepdim=True)                   # [N,1]
+    oo = (o * o).sum(-1, keepdim=True)                   # [N,1]
+    cc = (centers * centers).sum(-1)[None, :]            # [1,S]
+    uoc = do - dC
+    oc_sq = oo - 2.0 * oC + cc
     disc = uoc * uoc - (oc_sq - radius_sq[None, :])
     sq = _safe_sqrt(disc)
     big = -uoc + sq
