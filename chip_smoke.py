@@ -161,7 +161,31 @@ From the root of a checkout, on a machine with a CUDA card, it
     fit of ``FIT_r05_mesh.json`` (``MESH_FIT_STEPS`` steps), held to a
     falling loss and a falling dented-face normal error. Each call that
     launches #1 or #4 has its counts set to 0 just before it and read
-    just after (the kernels line's ``phase18_launches``).
+    just after (the kernels line's ``phase18_launches``);
+19. the probes and the bench: (a) the probes' main path,
+    ``scripts/torch_probes.run_probes`` (the dead kernels at tiles 1024,
+    8192 and 65536 with and without the tables, the persistent grid, the
+    FMA chain at the twin's [131072, 1024]; warm-up launches, then 6
+    launches each, queued behind a spin kernel and taking their inputs
+    from a ring beyond the L2, device and host time per launch),
+    with the counts set to 0 just before it and read just after; then
+    each probe against its plain version on seeded inputs: the dead
+    kernels bit for bit on every lane of every tile, ``fma_chain`` on
+    ``FMA_CHECK_ROWS`` rows at rtol ``FMA_RTOL``, and its SASS read for
+    fused multiply-adds (``cuobjdump``, missing is a failure); each beside
+    its bound (bytes over 3.35 TB/s, FP32 operations over 67 TFLOP/s); (b)
+    ``bench.run_once('mesh100k')`` with gradients at full size, its record
+    printed and held to the twin's keys, finite positive times and rates,
+    41,472,000 issued rays, phase 9's live rays, phase 4's frame timed
+    again just before it within 1.5x and every roofline fraction at or
+    below 1.05, with the
+    launches of #1 (a), (b), (d), #4 and the FMA chain in the call
+    (counts set to 0 just before it; the kernels line's
+    ``bench_launches``); (c) the ``--all`` presets without gradients,
+    ``cornell_box`` losing no lane to ``tree_cap``; (d)
+    ``bench.run_sharded('mesh100k', counts=(1,))`` twice, as the CLI runs
+    it (a spawned one-rank NCCL group) and on a one-rank group this process
+    joins: one row each, efficiency 1.0.
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
@@ -172,13 +196,17 @@ fused kernel's rows: modes (a), (b), (d) on Baldwin–Weber BVH4, the fork
 (c) meshless and on BVH4, and the forward (e) instances; the rows of #1
 mode (a), #3, #4 and #5 also carry ``sharded_launches``, phase 17's
 launches per call, and those of #1 modes (a), (e) on BVH4 and (c)
-meshless and of #4 ``phase18_launches``, phase 18's). Without
+meshless and of #4 ``phase18_launches``, phase 18's; those of #1
+(a), (b), (d) and #4 ``bench_launches``, phase 19 (b)'s; the four probe
+rows follow, ``launches`` the probe run's, the FMA chain's the bench's).
+Without
 a CUDA card, or without the package beside this file, it exits non-zero
 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -242,16 +270,6 @@ ALL_MODES = MODES + ("fork",)
 # stack or spill
 FORWARD_PTXAS = {4: dict(registers=64, stack=2120, spill=104),
                  8: dict(registers=72, stack=2120, spill=116)}
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 operations/s
-HBM_BPS, FP32_OPS = 3.35e12, 67e12
-# FP32 operations per test, read off csrc/mega_segment.cu (a divide or a
-# square root counts as one): slab test 12 sub/mul + 10 min/max + clamp
-# + 2 compares; Baldwin-Weber slot 5 (n.d) + 2 (parallel) + 5 (n.o) + 2
-# (t) + 6 (hit point) + 12 (u, v) + 5 compares + the caller's t < best;
-# sphere 3 + 5 + 5 + 3 + 2 (sqrt) + 4 (roots) + 5 compares + 1; MT 6
-# (edges) + 9 (cross) + 5 (det) + 4 + 3 + 6 (u) + 9 (cross) + 6 (v) + 6
-# (t) + 6 compares + 2 (caller)
-OPS_PER_TEST = (25, 39, 28, 62)   # slab, leaf slot, sphere, MT
 # the walks' counting instance: slab tests, MT tests (csrc/traverse.cu
 # computes both as the fused kernel does)
 WALK_OPS = (25, 62)
@@ -269,17 +287,33 @@ CULL_OPS = 66
 # count, miss link, right child) and per leaf slot (one 9-float triangle);
 # a wide row is read whole
 NODE_ROW_BYTES, SLOT_BYTES = 48, 36
+# phase 19: the probes (csrc/probes.cu) and the TPU sites they replace
+PROBES_SRC = "unity_raytracer_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {"dead_tables": "scripts/tpu_probe2.py:151",
+                  "dead_nob": "scripts/tpu_probe2.py:161",
+                  "dead_persistent": "scripts/tpu_probe2.py:181",
+                  "fma_chain": "scripts/tpu_r2_session.py:80"}
+# rows of the FMA chain held against the plain version, and the tolerance
+# (the value grows to ~1025 v; the plain version rounds each step once
+# from float64, the kernel once from the fused product)
+FMA_CHECK_ROWS, FMA_RTOL = 4096, 1e-6
+# the bench's flagship and its issued rays (1920 x 1080 x 5 x 4)
+BENCH_PRESET, BENCH_RAYS = "mesh100k", 41472000
+# the twin's run_once record (bench.py:314-345)
+TWIN_RECORD_KEYS = (
+    "preset", "width", "height", "depth", "lights", "mesh_tris", "kernel",
+    "use_bvh", "bvh_build_s", "compile_s", "frame_s", "grad_s",
+    "grad_composed_s", "grad_soft_s", "rays_issued", "rays_live",
+    "tree_truncated", "rays_per_s_fwd", "rays_per_s_fwd_bwd",
+    "rays_per_s_fwd_bwd_composed", "rays_per_s_fwd_bwd_soft",
+    "rays_per_s_live", "fraction_of_hbm_roofline", "hbm_bound_rays_per_s",
+    "fraction_of_compute_roofline", "fraction_of_compute_roofline_fwd_bwd",
+    "fraction_of_compute_roofline_fwd_bwd_soft", "compute_bound_rays_per_s",
+    "compute_model_gflop_frame", "device")
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def nvidia_smi(query):
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
 
 
 def compare(got, want, torch):
@@ -344,21 +378,14 @@ def ptxas_table(log_text):
 
 def events_ms(fn, repeats):
     """Mean ms of ``repeats`` calls after one warm-up, by CUDA events."""
-    import torch
-    fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(repeats):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / repeats
+    from unity_raytracer_tpu_torch.utils.profiling import events_mean_s
+    return events_mean_s(fn, repeats) * 1e3
 
 
 def bound(nbytes, ops):
     """(ms, 'bytes' | 'operations'): the larger of bytes / HBM rate and
-    FP32 operations / FP32 rate."""
+    FP32 operations / FP32 rate (``profiling.HBM_BPS``, ``FP32_OPS``)."""
+    from unity_raytracer_tpu_torch.utils.profiling import FP32_OPS, HBM_BPS
     tb, to = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -590,6 +617,7 @@ def nearest_work(o, d, verts, valid, kept):
     counting instance). The cull tests (every block with a ray that can
     hit tests each valid triangle's ball against its cone) are the
     design's own stream, not work the function needs: counted apart."""
+    from unity_raytracer_tpu_torch.utils.profiling import OPS_PER_TEST
     import torch
     from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
     n = o.shape[0]
@@ -607,6 +635,8 @@ def nearest_phase(dev, card, failures):
     kernels-line row (``launches`` is filled in by the caller)."""
     import torch
     from scripts.torch_nearest_census import nearest_launches
+    from unity_raytracer_tpu_torch.utils.profiling import (
+        FP32_OPS, OPS_PER_TEST)
     from unity_raytracer_tpu_torch.ops.kernels import intersect_mk as imk
 
     runs, v10, ok10 = nearest_launches(dev)
@@ -698,7 +728,8 @@ def nearest_phase(dev, card, failures):
 def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
                     fused_img, fused_live, issued, names):
     """Phases 8-12 (module docstring); returns the kernels-line rows of
-    the four walks and the nearest-triangle kernel."""
+    the four walks and the nearest-triangle kernel, and phase 9's live
+    rays (``trace_radiance_stats``: nearest and shadow lanes summed)."""
     import torch
     from unity_raytracer_tpu_torch.__main__ import run_fit
     from unity_raytracer_tpu_torch.fit import (
@@ -948,26 +979,8 @@ def composed_phases(dev, card, failures, scene, cam, cfg, packed, packed8,
         if not ok or not a.losses[-1] < a.losses[0]:
             failures.append(f"composed {preset} fit: card disagrees with "
                             f"the CPU or the loss did not fall")
-    return [rows[k] for k in ("mk4", "wide4", "wide8", "mk3", "nearest")]
-
-
-def capture_segments(fn):
-    """Run ``fn`` with every fused-segment launch's inputs recorded: a
-    list of (depth, (o, d, thr, tmax)) in launch order. The launches run
-    (and count) as usual."""
-    from unity_raytracer_tpu_torch.ops.kernels import mega
-    seen, seg = [], mega.trace_segment
-
-    def spy(packed, aux, depth, o, d, thr, tmax, **kw):
-        seen.append((depth, (o, d, thr, tmax)))
-        return seg(packed, aux, depth, o, d, thr, tmax, **kw)
-
-    mega.trace_segment = spy
-    try:
-        fn()
-    finally:
-        mega.trace_segment = seg
-    return seen
+    return ([rows[k] for k in ("mk4", "wide4", "wide8", "mk3", "nearest")],
+            sum(live) + sum(shadow))
 
 
 def reset_mega_counts():
@@ -1003,32 +1016,6 @@ def compare_fork(got, want, live, torch):
                 ("delta", "ro", "rd", "w_refl", "tm_refl", "to", "td",
                  "w_refr", "tm_refr"), got, want)))
     return int(bad.sum()), int(live.sum()), float(err)
-
-
-def segment_work(packed, aux, route_kw, segs, out_bytes, route):
-    """(bytes, FP32 operations) of one launch per (depth, inputs) in
-    ``segs`` on a route: 40 B of inputs and ``out_bytes`` of outputs per
-    lane, the route's tables (node rows, leaf rows, leafmeta, leaf-group
-    boxes) and the aux
-    block once per launch with a live lane; operations from the route's
-    counting instance (its tests x OPS_PER_TEST)."""
-    import torch
-    from unity_raytracer_tpu_torch.ops.kernels import mega
-    tables = aux.numel() * 4
-    if route != "meshless":
-        table, leaf = mega._tables(packed, route)
-        tables += sum(t.numel() * 4 for t in (table, leaf, packed.leafmeta,
-                                              packed.leafbox))
-    counts = torch.zeros(len(mega.COUNTS), dtype=torch.int64,
-                         device=aux.device)
-    lanes = live_launches = 0
-    for depth, ins in segs:
-        mega.trace_segment(packed, aux, depth, *ins, counts=counts,
-                           **route_kw)
-        lanes += ins[0].shape[0]
-        live_launches += bool((ins[3] >= 0).any())
-    ops = sum(n * k for n, k in zip(counts.tolist(), OPS_PER_TEST))
-    return lanes * (40 + out_bytes) + tables * live_launches, ops
 
 
 def glass_mesh_scene(dev, width, height):
@@ -1085,6 +1072,8 @@ def tree_phases(dev, card, failures):
     (Baldwin–Weber BVH4, Möller–Trumbore BVH4 and binary), the 512x512
     cornell frames on both tree routes. Returns the kernels-line rows of
     the meshless and the mesh fork."""
+    from unity_raytracer_tpu_torch.utils.profiling import (
+        capture_segments, segment_work)
     import torch
     from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
     from unity_raytracer_tpu_torch.models.presets import get_preset
@@ -1237,6 +1226,8 @@ def mode_e_phases(dev, card, failures, scene, cam, cfg, packed4, packed8,
     BVH8 and the binary layout against the plain version on the flagship
     slices in the three modes, then the flagship fused frame on each,
     against the Baldwin–Weber frame. Returns their kernels-line rows."""
+    from unity_raytracer_tpu_torch.utils.profiling import (
+        capture_segments, segment_work)
     import torch
     from unity_raytracer_tpu_torch.ops import bvh as bvhmod
     from unity_raytracer_tpu_torch.ops.kernels import mega
@@ -1331,13 +1322,30 @@ def mode_e_phases(dev, card, failures, scene, cam, cfg, packed4, packed8,
     return rows
 
 
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL group of this process on the card, opened through a
+    file store (NCCL's bootstrap on the loopback), left on exit."""
+    import tempfile
+
+    import torch
+    from unity_raytracer_tpu_torch.parallel import bootstrap
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: loopback
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    bootstrap.maybe_initialize(f"file://{store}/store", 1, 0, device="cuda",
+                               timeout_s=300)
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def parallel_phase(dev, card, failures, scene, cam, cfg, packed):
     """Phase 17: the multi-device layer at world size 1 on the card — a
     one-rank NCCL group opened in this process through a file store — on
     the flagship frame. Returns ``{kernel: {call: launches per call}}``
     for kernels #1, #3, #4 and #5."""
-    import tempfile
-
     import torch
 
     from unity_raytracer_tpu_torch.fit import FitConfig, fit, get_params
@@ -1399,11 +1407,7 @@ def parallel_phase(dev, card, failures, scene, cam, cfg, packed):
             profile_once(fn, f"sharded {name}", ms, card)
         return out
 
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: loopback
-    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
-    bootstrap.maybe_initialize(f"file://{store}/store", 1, 0, device="cuda",
-                               timeout_s=300)
-    try:
+    with one_rank_group():
         mesh = make_mesh(device="cuda")
         log(f"phase 17: one-rank NCCL group {bootstrap.world()}, mesh "
             f"{tuple(mesh.mesh.shape)} {card}")
@@ -1570,9 +1574,6 @@ def parallel_phase(dev, card, failures, scene, cam, cfg, packed):
         log(f"sharded make_sharded_train_step: "
             f"{events_ms(one_step, 3):.3f} ms (CUDA events, 1 warm-up + 3) "
             f"{card}")
-    finally:
-        torch.distributed.destroy_process_group()
-        shutil.rmtree(store, ignore_errors=True)
     return per_call
 
 
@@ -1594,6 +1595,7 @@ def presplit_frames(dev, card, failures, scene, cam, cfg, packed, counted):
     """Phase 18 (a): the flagship on an SBVH-presplit tree, the fused
     frame on #1 modes (a) and (e) (BVH4) against the plain version on
     every launch's slice and against the unsplit frame."""
+    from unity_raytracer_tpu_torch.utils.profiling import capture_segments
     import torch
     from unity_raytracer_tpu_torch.ops import bvh as bvhmod
     from unity_raytracer_tpu_torch.ops.kernels import mega
@@ -1759,6 +1761,8 @@ def debug_maps_phase(dev, card, failures, scene, cam, packed, counted):
 
 def profiling_phase(dev, card, failures, scene, cam, cfg, packed):
     """Phase 18 (c): ``utils/profiling`` on the fused flagship frame."""
+    from unity_raytracer_tpu_torch.utils.profiling import (
+        capture_segments, segment_work)
     import tempfile
 
     import torch
@@ -1965,6 +1969,236 @@ def rest_phase(dev, card, failures, scene, cam, cfg, packed,
     return per_call
 
 
+def fma_sass(path):
+    """FP32 multiply-add instructions of ``fma_chain_kernel`` in the built
+    library's SASS (``cuobjdump -sass``, which ships with the ``nvcc``
+    that built it): ``{'FFMA': n, 'FMUL': n, 'FADD': n}``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise FileNotFoundError(f"no cuobjdump beside nvcc ({tool})")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    body = next((part for part in sass.split("Function : ")[1:]
+                 if part.split("\n", 1)[0].find("fma_chain_kernel") >= 0),
+                "")
+    return {op: len(re.findall(rf"\b{op}\b", body))
+            for op in ("FFMA", "FMUL", "FADD")}
+
+
+def probe_phase(dev, card, failures):
+    """Phase 19 (a): the probes' main path (``scripts/torch_probes.
+    run_probes``, counts set to 0 just before it and read just after),
+    then each kernel against its plain version on seeded inputs (the dead
+    kernels bit for bit on every lane of every tile, ``fma_chain`` on
+    ``FMA_CHECK_ROWS`` rows at rtol ``FMA_RTOL``); the dead kernels' plain
+    versions and ``torch.mul`` timed as the probes are (``torch_probes.
+    time_launches``: over a ring of inputs beyond the L2, queued behind a
+    spin kernel). Returns the four kernels-line rows (``launches``: the
+    probe run's; ``fma_chain``'s is set by the caller from phase 19
+    (b))."""
+    import torch
+    from scripts.torch_probes import dead_ring, run_probes, time_launches
+    from unity_raytracer_tpu_torch.ops.kernels import _lib
+    from unity_raytracer_tpu_torch.utils import probes
+
+    for k in probes.launches:
+        probes.launches[k] = 0
+    recs = {r["step"]: r for r in run_probes(
+        dev, lambda r: log(f"phase 19 (a) probe {json.dumps(r)}"))}
+    torch.cuda.synchronize()
+    launched = dict(probes.launches)
+    log(f"phase 19 (a) probe launches {launched}")
+    for k, n in launched.items():
+        if not n:
+            failures.append(f"probe run made no {k} launch")
+
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal(probes.PROBE_N).astype(
+        np.float32)).to(dev)
+    nodes, tris = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev) for s in probes.TABLE_SHAPES)
+    tables = lambda xp: probes.dead_tables_plain(xp, nodes, tris)
+    steps = {"dead_tables": [(f"pallas_repblocks_tile{t}", t,
+                              lambda xp, t=t: probes.dead_tables(
+                                  xp, nodes, tris, t), tables)
+                             for t in probes.TILES],
+             "dead_nob": [(f"pallas_noblocks_tile{t}", t,
+                           lambda xp, t=t: probes.dead_nob(xp, t),
+                           probes.dead_nob_plain)
+                          for t in probes.TILES],
+             "dead_persistent": [("pallas_repblocks_tile1024_arbitrary",
+                                  probes.PERSISTENT_TILE,
+                                  lambda xp: probes.dead_persistent(
+                                      xp, nodes, tris), tables)]}
+    rows = {}
+    for name, runs in steps.items():
+        off = lanes = 0
+        plain_ms = lib_ms = err = 0.0
+        for _, tile, kernel, plain in runs:
+            ring = dead_ring(x, tile)
+            xp = ring[0][0]
+            if name == "dead_nob":
+                lib_ms += time_launches(
+                    lambda xp: torch.mul(xp, 2.0), ring)[1] * 1e3
+            got, want = kernel(xp), plain(xp)
+            n_off = int((got.view(torch.int32) != want.view(torch.int32))
+                        .sum())
+            off, lanes = off + n_off, lanes + xp.shape[0]
+            err = max(err, float((got - want).abs().max()))
+            plain_ms += time_launches(plain, ring)[1] * 1e3
+            del ring, got, want
+        if off:
+            failures.append(f"{name}: {off} of {lanes} lanes differ from "
+                            f"the plain version")
+        sel = [recs[step] for step, *_ in runs]
+        ms = sum(r["time_s"] for r in sel) * 1e3
+        b = sum(r["bound_s"] for r in sel) * 1e3
+        rows[name] = dict(
+            name=f"probe_{name}", route="cuda", source=PROBES_SRC,
+            replaces=PROBE_REPLACES[name], launches=launched[name],
+            max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b, bound_by="bytes",
+            library_ms=lib_ms if name == "dead_nob" else None,
+            steps={step: dict(tile=tile, grid=recs[step]["grid"],
+                              ms=recs[step]["time_s"] * 1e3,
+                              host_ms=recs[step]["host_s"] * 1e3,
+                              bound_ms=recs[step]["bound_s"] * 1e3)
+                   for step, tile, *_ in runs})
+        log(f"phase 19 (a) {name}: {off} of {lanes} lanes off the plain "
+            f"version (bit for bit, {len(runs)} tile(s)); "
+            + "; ".join(f"{step} {recs[step]['time_s'] * 1e3:.4f} ms "
+                        f"device, {recs[step]['host_s'] * 1e3:.4f} ms host "
+                        f"per launch, {recs[step]['grid']} blocks, bound "
+                        f"{recs[step]['bound_s'] * 1e3:.4f} ms (bytes)"
+                        for step, *_ in runs)
+            + f"; plain {plain_ms:.4f} ms summed {card}")
+
+    # the FMA chain: kernel vs plain on FMA_CHECK_ROWS rows, SASS, times
+    xf = torch.from_numpy(rng.uniform(0.5, 1.5, (
+        FMA_CHECK_ROWS, probes.FMA_SHAPE[1])).astype(np.float32)).to(dev)
+    got, want = probes.fma_chain(xf), probes.fma_chain_plain(xf)
+    n_bad = int((~torch.isclose(got, want, rtol=FMA_RTOL, atol=0)).sum())
+    err = float((got - want).abs().max())
+    same = float((got == want).double().mean())
+    if n_bad:
+        failures.append(f"fma_chain: {n_bad} of {got.numel()} values "
+                        f"outside rtol {FMA_RTOL}")
+    sass = fma_sass(_lib.probes_lib().build["path"])
+    if not sass["FFMA"] or sass["FMUL"]:
+        failures.append(f"fma_chain_kernel SASS is not a fused chain: "
+                        f"{sass}")
+    full = torch.ones(probes.FMA_SHAPE, dtype=torch.float32, device=dev)
+    plain_ms = events_ms(lambda: probes.fma_chain_plain(full), 1)
+    del full
+    r = recs["vpu_fma"]
+    log(f"phase 19 (a) fma_chain: {n_bad} of {got.numel()} values outside "
+        f"rtol {FMA_RTOL} ({same:.6f} bit for bit), max abs err {err:.3g}; "
+        f"SASS of fma_chain_kernel {sass}; "
+        f"{r['time_s'] * 1e3:.4f} ms per launch ({r['tflops']:.2f} "
+        f"TFLOP/s, host {r['host_s'] * 1e3:.4f} ms), bound "
+        f"{r['bound_s'] * 1e3:.4f} ms (operations); plain "
+        f"{plain_ms:.1f} ms {card}")
+    rows["fma_chain"] = dict(
+        name="probe_fma_chain", route="cuda", source=PROBES_SRC,
+        replaces=PROBE_REPLACES["fma_chain"], launches=0,
+        probe_launches=launched["fma_chain"], max_abs_err=err,
+        ms=r["time_s"] * 1e3, plain_ms=plain_ms, bound_ms=r["bound_s"] * 1e3,
+        bound_by="operations", library_ms=None, tflops=r["tflops"],
+        host_ms=r["host_s"] * 1e3, sass=sass)
+    return rows
+
+
+def bench_phase(dev, card, failures, frame, frame_ms, stats_live):
+    """Phase 19 (b)-(d): the port's bench at full size. ``frame`` renders
+    phase 4's fused flagship frame, whose time ``frame_ms`` phase 4 read;
+    it is timed again the same way just before (b), and (b)'s ``frame_s``
+    is held to that time: the frame is host-bound (48-73% busy), so a time
+    taken minutes earlier can differ by more than the tolerance. Returns
+    the launches of (b)'s call (counts set to 0 just before it) per
+    kernels-line row."""
+    import torch
+    from unity_raytracer_tpu_torch import bench
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    from unity_raytracer_tpu_torch.utils import probes
+
+    # ---- (b) run_once on the flagship, with gradients
+    ref_ms = events_ms(frame, 3)
+    torch.cuda.synchronize()
+    reset_mega_counts()
+    for counts in (m3.launches, probes.launches):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    r = bench.run_once(BENCH_PRESET, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {
+        "mega_segment/forward": mega.route_launches["forward", "bw/wide4"],
+        "mega_segment/record": mega.route_launches["record", "bw/wide4"],
+        "mega_segment/record_soft": mega.route_launches["record_soft",
+                                                        "bw/wide4"],
+        "traverse_packet4": m3.launches["mk4"],
+        "probe_fma_chain": probes.launches["fma_chain"]}
+    log(f"phase 19 (b) bench.run_once({BENCH_PRESET!r}): {json.dumps(r)}; "
+        f"{wall:.3f} s wall {card}")
+    log(f"phase 19 (b) launches in the call: {launched}")
+    for k, n in launched.items():
+        if not n:
+            failures.append(f"bench.run_once made no {k} launch")
+    missing = [k for k in TWIN_RECORD_KEYS if k not in r]
+    timed = [k for k in r if k.endswith("_s") or "per_s" in k]
+    bad = [k for k in timed if r[k] is None or not math.isfinite(r[k])
+           or r[k] <= 0]
+    fracs = {k: v for k, v in r.items() if k.startswith("fraction_")}
+    over = [k for k, v in fracs.items() if v is None or not v <= 1.05]
+    ratio = r["frame_s"] * 1e3 / ref_ms
+    log(f"phase 19 (b) checks: missing keys {missing}; times and rates not "
+        f"finite or not > 0: {bad}; fractions {fracs} (above 1.05 or null: "
+        f"{over}); rays_issued {r['rays_issued']} (want {BENCH_RAYS}); "
+        f"rays_live {r['rays_live']} (phase 9: {stats_live}); frame_s "
+        f"{r['frame_s'] * 1e3:.3f} ms vs phase 4's frame timed just before "
+        f"{ref_ms:.3f} ms (x{ratio:.3f}; phase 4 read {frame_ms:.3f} ms)")
+    if missing or bad or over:
+        failures.append(f"bench record: missing {missing}, bad {bad}, "
+                        f"fractions {over}")
+    if r["rays_issued"] != BENCH_RAYS or r["rays_live"] != stats_live:
+        failures.append(f"bench rays: issued {r['rays_issued']}, live "
+                        f"{r['rays_live']} vs phase 9's {stats_live}")
+    if not 1 / 1.5 <= ratio <= 1.5:
+        failures.append(f"bench frame_s {r['frame_s']} vs phase 4's "
+                        f"frame {ref_ms} ms")
+
+    # ---- (c) the --all presets, no gradients; the tree loses no lane
+    for p in bench.ALL_PRESETS:
+        rp_ = bench.run_once(p, repeats=2, grad=False, device=dev)
+        log(f"phase 19 (c) bench.run_once({p!r}, grad=False): "
+            f"{json.dumps(rp_)} {card}")
+        if not (math.isfinite(rp_["frame_s"]) and rp_["frame_s"] > 0):
+            failures.append(f"bench {p}: frame_s {rp_['frame_s']}")
+        if p == "cornell_box" and rp_["tree_truncated"] != 0:
+            failures.append(f"bench cornell_box: {rp_['tree_truncated']} "
+                            f"truncated lanes")
+
+    # ---- (d) run_sharded as the CLI's `bench --sharded` runs it (a spawned
+    # one-rank NCCL group, the row back through a file), then on phase 17's
+    # one-rank group joined by this process
+    torch.cuda.empty_cache()
+    for how, group in (("spawned rank", contextlib.nullcontext()),
+                       ("joined group", one_rank_group())):
+        t0 = time.perf_counter()
+        with group:
+            out = bench.run_sharded(BENCH_PRESET, counts=(1,), device=dev)
+        log(f"phase 19 (d) bench.run_sharded({BENCH_PRESET!r}, counts=(1,)) "
+            f"on a {how}: {json.dumps(out)}; "
+            f"{time.perf_counter() - t0:.3f} s wall {card}")
+        rows = out["table"]
+        if [x["devices"] for x in rows] != [1] \
+                or rows[0]["efficiency"] != 1.0:
+            failures.append(f"run_sharded on a {how}: rows {rows}")
+    return launched
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1981,6 +2215,8 @@ def main():
     from unity_raytracer_tpu_torch.ops.render import (
         check_supported, render, render_frame, resolve_mode, trace_radiance)
     from unity_raytracer_tpu_torch.utils.config import DiffConfig
+    from unity_raytracer_tpu_torch.utils.profiling import (
+        OPS_PER_TEST, nvidia_smi)
 
     dev = torch.device("cuda:0")
     smi = nvidia_smi("name,power.limit")
@@ -2015,6 +2251,11 @@ def main():
             log(f"  ptxas: {what}: {v.get('registers')} registers, "
                 f"{v.get('stack')} bytes stack, {v.get('spill')} bytes "
                 f"spill")
+    for entry, v in sorted(entries(libs["probes"].build["log"]).items()):
+        what = re.search(r"([a-z_]+_kernel)E", entry)
+        log(f"  ptxas: probes {what.group(1) if what else entry}: "
+            f"{v.get('registers')} registers, {v.get('stack')} bytes stack, "
+            f"{v.get('spill')} bytes spill")
     ptx = ptxas_table(mega_log)
     layouts = {0: "meshless", 1: "binary", 4: "wide4", 8: "wide8"}
     for (layout, isect, mode, counting), v in sorted(ptx.items()):
@@ -2432,8 +2673,9 @@ def main():
     # ---- the composed path: phases 8-12 --------------------------------------
     fused_live = [int((ins[3] >= 0).sum()) for _, ins in frame_segs]
     packed8 = bvhmod.prepare_bvh(scene, cfg.with_(bvh_arity=8), dev)
-    walk_rows = composed_phases(dev, card, failures, scene, cam, cfg, packed,
-                                packed8, fused_img, fused_live, issued, names)
+    walk_rows, stats_live = composed_phases(
+        dev, card, failures, scene, cam, cfg, packed, packed8, fused_img,
+        fused_live, issued, names)
     # ---- the tree and mode (e): phases 13-16 ---------------------------------
     new_rows = tree_phases(dev, card, failures)
     new_rows += mode_e_phases(dev, card, failures, scene, cam, cfg, packed,
@@ -2442,6 +2684,15 @@ def main():
     sharded = parallel_phase(dev, card, failures, scene, cam, cfg, packed)
     # ---- the port's last modules: phase 18 ------------------------------------
     rest = rest_phase(dev, card, failures, scene, cam, cfg, packed)
+    # ---- the probes and the bench: phase 19 ---------------------------------
+    t19 = time.perf_counter()
+    probe_rows = probe_phase(dev, card, failures)
+    bench_launches = bench_phase(
+        dev, card, failures, lambda: render_frame(scene, cam, cfg_m, packed),
+        frame_ms, stats_live)
+    probe_rows["fma_chain"]["launches"] = bench_launches.pop(
+        "probe_fma_chain")
+    log(f"phase 19: {time.perf_counter() - t19:.3f} s wall")
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -2461,12 +2712,14 @@ def main():
             "bound_by": by, "library_ms": None,
             "frame_ms": sum(seg_ms[mode]), "frame_bound_ms": fb,
             "frame_bound_by": fby})
-    rows = kernels + walk_rows + new_rows
-    for row in rows:  # launches per call of phases 17 and 18
+    rows = kernels + walk_rows + new_rows + list(probe_rows.values())
+    for row in rows:  # launches per call of phases 17, 18 and 19 (b)
         if row["name"] in sharded:
             row["sharded_launches"] = sharded[row["name"]]
         if row["name"] in rest:
             row["phase18_launches"] = rest[row["name"]]
+        if row["name"] in bench_launches:
+            row["bench_launches"] = bench_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

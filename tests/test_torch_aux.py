@@ -92,6 +92,38 @@ def test_timed_and_trace_on_cpu(tmp_path):
     assert os.path.getsize(tmp_path / "tr" / files[0]) > 0
 
 
+@pytest.mark.parametrize("ring", [False, True])
+def test_call_times_on_cpu(ring):
+    """``call_times`` on the CPU: a first call, ``warmup - 1`` more, then
+    ``repeats``; a ring of inputs is taken in turn across both loops and
+    every result is held until its loop ends, otherwise each is dropped."""
+    class Out:
+        live = 0
+
+        def __init__(self):
+            Out.live += 1
+
+        def __del__(self):
+            Out.live -= 1
+
+    calls, live = [], []
+
+    def fn(*a):
+        calls.append(a)
+        live.append(Out.live)
+        return Out()
+
+    inputs = [(i,) for i in range(3)] if ring else None
+    t = profiling.call_times(fn, 4, warmup=3, inputs=inputs, device="cpu")
+    if ring:
+        assert calls == [(0,), (1,), (2,), (0,), (1,), (2,), (0,)]
+        assert live == [0, 1, 2, 0, 1, 2, 3]
+    else:
+        assert calls == [()] * 7 and live == [0] * 7
+    assert Out.live == 0
+    assert t.first_s > 0 and t.mean_s == t.host_s > 0
+
+
 @pytest.mark.parametrize("name,gbps", [
     ("NVIDIA H100 80GB HBM3", 3350.0), ("NVIDIA H100 PCIe", 2000.0),
     ("NVIDIA H100 NVL", 3900.0), ("Tesla V100-SXM2-16GB", None),

@@ -19,15 +19,17 @@ ring hits, the sharded train step, the dry run); the tile orchestrator and
 the metrics log (``utils/``); the numpy reference BVH builder and SBVH
 presplitting (``ops/bvh.py``, ``cfg.bvh_presplit``), the debug maps
 (``ops/debugviz.py``), profiling (``utils/profiling.py``) and the scalar
-oracle (``oracle.py``). That is every module of the twin; only the CLI's
-``bench`` subcommand, which runs the repo-root ``bench.py``, is not ported
-(ROADMAP Queue A #6). Entry points run on the CUDA card unless the caller
-asks for the CPU.
+oracle (``oracle.py``); the benchmark harness (``bench.py``, the twin of
+the repo-root ``bench.py`` and the CLI's ``bench``) with the dispatch and
+FP32-rate probes (``utils/probes.py``, ``csrc/probes.cu``). That is every
+module of the twin and every ``pallas_call`` of the repo. Entry points run
+on the CUDA card unless the caller asks for the CPU.
 
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
     python -m unity_raytracer_tpu_torch fit --preset mesh100k --replay
     python -m unity_raytracer_tpu_torch fit            # composed, three_spheres
     python -m unity_raytracer_tpu_torch dryrun         # one rank per card
+    python -m unity_raytracer_tpu_torch bench          # mesh100k, one JSON line
 """
 
 __version__ = "0.1.0"

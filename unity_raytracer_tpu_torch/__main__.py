@@ -1,8 +1,9 @@
-"""CLI entry points: the ``render``, ``fit`` and ``dryrun`` subcommands.
+"""CLI: the ``render``, ``bench``, ``fit`` and ``dryrun`` subcommands.
 
 Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``),
-``cmd_fit`` (``:63-134``, arguments ``:171-185``) and ``cmd_dryrun``
-(``:137-147``, ``:187-190``). Usage::
+``cmd_bench`` (``:56-60``, arguments ``:166-169``), ``cmd_fit``
+(``:63-134``, arguments ``:171-185``) and ``cmd_dryrun`` (``:137-147``,
+``:187-190``). Usage::
 
     python -m unity_raytracer_tpu_torch render --preset mesh100k --out f.png
     python -m unity_raytracer_tpu_torch render --preset mesh100k \
@@ -15,6 +16,9 @@ Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``),
     python -m unity_raytracer_tpu_torch fit --size 48 --steps 300
     python -m unity_raytracer_tpu_torch dryrun
     python -m unity_raytracer_tpu_torch dryrun --device cpu --devices 4
+    python -m unity_raytracer_tpu_torch bench --preset mesh100k
+    python -m unity_raytracer_tpu_torch bench --preset mesh10k \
+        --width 16 --height 16 --device cpu
 
 Runs on the CUDA card (``--device`` picks another device; ``cpu`` runs the
 plain PyTorch versions). Without a card the command stops and says so; it
@@ -31,7 +35,10 @@ record-replay path, which needs the mirror chain: on a tree scene it
 fails with the twin's ``ValueError``. ``dryrun`` (the twin's ``:137-147``)
 runs the multi-device dry run (``parallel/dryrun.py``): one NCCL process
 per visible card, or ``--devices N`` gloo processes with ``--device
-cpu``. The twin's ``bench`` subcommand is Queue A #6.
+cpu``. ``bench`` runs the port's harness (``bench.py`` in this package,
+the twin of the repo-root ``bench.py``), with the twin's ``--preset`` and
+``--all`` and the rest of that harness's arguments; it prints one JSON
+line.
 """
 
 from __future__ import annotations
@@ -184,6 +191,16 @@ def cmd_fit(args):
                           target.cpu().numpy())
 
 
+def cmd_bench(args):
+    """The port's benchmark harness (``bench.run``); ``--virtual`` runs on
+    the CPU."""
+    import torch
+
+    from unity_raytracer_tpu_torch import bench
+
+    bench.run(args, torch.device("cpu") if args.virtual else _device(args))
+
+
 def cmd_dryrun(args):
     """The multi-device dry run (``parallel/dryrun.py``): one NCCL process
     per card, or ``--devices`` gloo processes with ``--device cpu``."""
@@ -218,6 +235,11 @@ def main():
     r.add_argument("--device", default="cuda", help=dev_help)
     r.add_argument("--out", default=None)
     r.set_defaults(fn=cmd_render)
+
+    from unity_raytracer_tpu_torch.bench import add_arguments
+    b = sub.add_parser("bench", help="run the benchmark harness")
+    add_arguments(b)
+    b.set_defaults(fn=cmd_bench)
 
     f = sub.add_parser("fit", help="inverse-rendering demo (config 4)")
     f.add_argument("--preset", default="three_spheres",

@@ -17,7 +17,9 @@ rewrites that file. At first use it compiles, into ``build/torch_kernels/``
   the BVH4 rows, the BVH8 rows, or the binary nodes and the meshless
   fork), ``libtraverse-<key>.so`` from ``csrc/traverse.cu`` (the BVH
   walks) and ``libnearest_tri-<key>.so`` from ``csrc/nearest_tri.cu``
-  (the brute-force nearest triangle), each with ``nvcc -gencode
+  (the brute-force nearest triangle) and ``libprobes-<key>.so`` from
+  ``csrc/probes.cu`` (the dispatch-cost and FP32-rate probes of
+  ``utils/probes.py``), each with ``nvcc -gencode
   arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false -shared
   -Xcompiler -fPIC`` (plain C entry points, bound with ctypes). The two
   walk sources share ``csrc/bvh_walk.cuh``.
@@ -55,10 +57,11 @@ MEGA_SRC = CSRC / "mega_segment.cu"
 MEGA_GROUPS = {"wide4": 4, "wide8": 8, "binary": 0}
 TRAVERSE_SRC = CSRC / "traverse.cu"
 NEAREST_TRI_SRC = CSRC / "nearest_tri.cu"
+PROBES_SRC = CSRC / "probes.cu"
 
 _libs: dict = {}  # the loaded library handles
 _locks = {name: threading.Lock()
-          for name in ("bvh", "traverse", "nearest_tri",
+          for name in ("bvh", "traverse", "nearest_tri", "probes",
                        *(f"mega_{g}" for g in MEGA_GROUPS))}
 
 
@@ -193,13 +196,34 @@ def nearest_tri_lib() -> ctypes.CDLL:
         return _libs["nearest_tri"]
 
 
+def probes_lib() -> ctypes.CDLL:
+    """The dispatch-cost and FP32-rate probes (``urt_dead_tables``,
+    ``urt_dead_nob``, ``urt_dead_persistent``, ``urt_fma_chain``)."""
+    with _locks["probes"]:
+        if "probes" not in _libs:
+            lib = _build("probes", PROBES_SRC,
+                         lambda out: nvcc_cmd(PROBES_SRC, out))
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            ll = ctypes.c_longlong
+            for fn, args in (
+                    ("urt_dead_tables", [p, p, p, p, ll, i, p]),
+                    ("urt_dead_nob", [p, p, ll, i, p]),
+                    ("urt_dead_persistent", [p, p, p, p, ll, i, i, p]),
+                    ("urt_fma_chain", [p, p, ll, p])):
+                getattr(lib, fn).restype = i
+                getattr(lib, fn).argtypes = args
+            _libs["probes"] = lib
+        return _libs["probes"]
+
+
 def build_all() -> dict:
     """Build (or load) every library at once, one compiler process per
     library started together; returns {name: handle}. Raises the first
     failure after all have finished."""
     from concurrent.futures import ThreadPoolExecutor
     fns = {"bvh": bvh_lib, "traverse": traverse_lib,
-           "nearest_tri": nearest_tri_lib,
+           "nearest_tri": nearest_tri_lib, "probes": probes_lib,
            **{f"mega_{g}": (lambda g=g: mega_lib(g)) for g in MEGA_GROUPS}}
     with ThreadPoolExecutor(len(fns)) as ex:
         futs = {name: ex.submit(fn) for name, fn in fns.items()}
