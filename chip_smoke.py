@@ -167,7 +167,8 @@ From the root of a checkout, on a machine with a CUDA card, it
     8192 and 65536 with and without the tables, the persistent grid, the
     FMA chain at the twin's [131072, 1024]; warm-up launches, then 6
     launches each, queued behind a spin kernel and taking their inputs
-    from a ring beyond the L2, device and host time per launch),
+    from a ring beyond the L2, device and host time per launch, blocks
+    and threads a block, and ``torch.mul`` on the same ring per tile),
     with the counts set to 0 just before it and read just after; then
     each probe against its plain version on seeded inputs: the dead
     kernels bit for bit on every lane of every tile, ``fma_chain`` on
@@ -185,7 +186,13 @@ From the root of a checkout, on a machine with a CUDA card, it
     ``cornell_box`` losing no lane to ``tree_cap``; (d)
     ``bench.run_sharded('mesh100k', counts=(1,))`` twice, as the CLI runs
     it (a spawned one-rank NCCL group) and on a one-rank group this process
-    joins: one row each, efficiency 1.0.
+    joins: one row each, efficiency 1.0;
+20. the walks' widened boxes (ROADMAP Queue C #14): 16,384 rays aimed
+    near ``mesh100k``'s triangle corners and edges (``corner_rays``, the
+    recipe of tests/test_torch_walk.py): walks #4, #5 and #2 (arity 4 and
+    8), nearest and any-hit, and kernel #1's forward mode (Baldwin–Weber
+    BVH4, Möller–Trumbore binary) against their brute-force plain
+    versions, 0 lanes off apart from the counted tie lanes.
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
@@ -287,6 +294,9 @@ CULL_OPS = 66
 # count, miss link, right child) and per leaf slot (one 9-float triangle);
 # a wide row is read whole
 NODE_ROW_BYTES, SLOT_BYTES = 48, 36
+# phase 20: rays aimed at triangle corners and edges (ROADMAP Queue C #14),
+# as tests/test_torch_walk.py builds them
+CORNER_RAYS, CORNER_SEED = 16384, 14
 # phase 19: the probes (csrc/probes.cu) and the TPU sites they replace
 PROBES_SRC = "unity_raytracer_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {"dead_tables": "scripts/tpu_probe2.py:151",
@@ -421,7 +431,7 @@ def log_walk_counts(what, layout, packed, ins):
     work, with the slot tests the passes ran) and the deepest stack."""
     import torch
     from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
-    table = packed.nodes if layout in ("mk3", "mk4") else packed.wide
+    table = m3.walk_table(packed, layout)
     counts = torch.zeros(len(m3.COUNTS), dtype=torch.int64,
                          device=table.device)
     seen = tuple(torch.zeros(k, dtype=torch.uint8, device=table.device)
@@ -552,7 +562,7 @@ def walk_work(layout, packed, launches):
     cooperative leaf phase's extra tests are not work the walk needs)."""
     import torch
     from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
-    table = packed.nodes if layout in ("mk3", "mk4") else packed.wide
+    table = m3.walk_table(packed, layout)
     row_bytes = NODE_ROW_BYTES if layout in ("mk3", "mk4") else \
         table.shape[1] * 4
     counts = torch.zeros(len(m3.COUNTS), dtype=torch.int64,
@@ -607,6 +617,121 @@ def check_walk(layout, packed, ins, plain, torch, got=None):
     bad |= other & ~tie
     err = float((t - plain[0])[hit].abs().max()) if bool(hit.any()) else 0.0
     return int(bad.sum()), int(tie.sum()), err
+
+
+def corner_rays(packed, n, seed):
+    """Rays built as tests/test_torch_walk.py's ``_rays`` builds them, on
+    the card: from seeded points around the tree's box, half toward random
+    points of the box, half toward points of random live triangles near
+    their corners and edges (Dirichlet weights 0.05), where their hits
+    lie on the faces of the node boxes that bound those triangles."""
+    import torch
+    rng = np.random.default_rng(seed)
+    nodes = packed.nodes.cpu().numpy()
+    lo, hi = nodes[0, 0:3], nodes[0, 3:6]
+    span = hi - lo
+    o = lo - 0.5 * span + rng.random((n, 3)) * 2.0 * span
+    tgt = lo + rng.random((n, 3)) * span
+    live = packed.leaf_prim.cpu().numpy().reshape(-1) >= 0
+    tri = packed.tris.cpu().numpy()[:, :126].reshape(-1, 3, 3)[live]
+    pick = rng.integers(0, tri.shape[0], n // 2)
+    w = rng.dirichlet([0.05] * 3, n // 2)
+    tgt[:n // 2] = (w[:, :, None] * tri[pick]).sum(axis=1)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dev = packed.tris.device
+    return (torch.from_numpy(o.astype(np.float32)).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def tied_lanes(packed, o, d, isect):
+    """Lanes whose nearest leaf-slot hit under the leaf test ``isect``
+    ('mt' on ``tris``, 'bw' on ``tris_bw``: the plain versions' brute
+    force) is met by two or more slots at exactly its t: the tie lanes of
+    ROADMAP Queue C #8, where a walk in another order keeps another
+    triangle."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    rec, _ = mega._leaf_slots(packed, isect)
+    o3, d3 = o.unbind(-1), d.unbind(-1)
+    n = o.shape[0]
+    best = torch.full((n,), torch.inf, device=o.device)
+    n_eq = torch.zeros(n, dtype=torch.int64, device=o.device)
+    for _, ok, t in mega._slot_chunks(o3, d3, rec):
+        t = torch.where(ok, t, torch.inf)
+        tmin = t.amin(dim=1)
+        k = (t == tmin[:, None]).sum(dim=1)
+        n_eq = torch.where(tmin < best, k, torch.where(tmin == best,
+                                                       n_eq + k, n_eq))
+        best = torch.minimum(best, tmin)
+    return torch.isfinite(best) & (n_eq >= 2)
+
+
+def corner_phase(dev, card, failures, scene, cfg, packed, packed8):
+    """Phase 20 (ROADMAP Queue C #14): ``CORNER_RAYS`` rays aimed near the
+    corners and edges of ``mesh100k``'s triangles (``corner_rays``), on
+    which exact node boxes cull hits. Walks #4 (mk4), #5 (mk3) and #2
+    (wide4, wide8), nearest (t_max _BIG) and any-hit (t_max just above
+    the brute-force nearest t, so that only that hit or a tie occludes),
+    against their brute-force plain version (``check_walk``); kernel #1's
+    forward mode on Baldwin–Weber BVH4 and Möller–Trumbore binary at
+    depth 0 against its plain version (``compare``'s criterion). 0 lanes
+    off are allowed beside the tie lanes (``check_walk``'s; for #1 the
+    lanes ``tied_lanes`` finds under the route's leaf test), which are
+    counted."""
+    import torch
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    t0 = time.perf_counter()
+    o, d = corner_rays(packed, CORNER_RAYS, CORNER_SEED)
+    n = o.shape[0]
+    big = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    near = m3.traverse_plain(packed, o, d, big)
+    hit = near[1] >= 0
+    ties = {isect: tied_lanes(packed, o, d, isect) for isect in ("mt", "bw")}
+    t_any = torch.where(hit, near[0] * (1.0 + 1e-3), big)
+    log(f"phase 20: {n} corner- and edge-aimed rays on mesh100k, "
+        f"{int(hit.sum())} hit the mesh, at an exact tie "
+        f"{int(ties['mt'].sum())} (Möller–Trumbore) and "
+        f"{int(ties['bw'].sum())} (Baldwin–Weber)")
+    for layout, pk in (("mk4", packed), ("mk3", packed), ("wide4", packed),
+                       ("wide8", packed8)):
+        for any_hit, tmax in ((False, big), (True, t_any)):
+            plain = near if not any_hit else m3.traverse_plain(
+                pk, o, d, tmax, True)
+            bad, tie, _ = check_walk(layout, pk, (o, d, tmax, any_hit),
+                                     plain, torch)
+            what = f"{layout} {'any-hit' if any_hit else 'nearest'}"
+            log(f"phase 20 walk {what}: {bad} lanes off the brute force, "
+                f"{tie} tie lanes")
+            if bad:
+                failures.append(f"phase 20 walk {what}: {bad} lanes off "
+                                f"the brute force")
+    aux = mega.build_aux(scene, cfg.background)
+    thr = torch.ones_like(o)
+    kw = dict(n_lights=scene.lights.positions.shape[0],
+              n_spheres=scene.spheres.count, n_tris=scene.triangles.count,
+              max_bounces=cfg.max_bounces, light_cull=cfg.light_cull)
+    for isect, wide in (("bw", True), ("mt", False)):
+        rk = dict(kw, tri_isect=isect, use_wide=wide)
+        got = mega.trace_segment(packed, aux, 0, o, d, thr, big, **rk)
+        want = mega.trace_segment_plain(packed, aux, 0, o, d, thr, big,
+                                        **rk)
+        cont = want[4] >= 0
+        close = lambda a, b: torch.isclose(a, b, **TOL).all(-1)
+        off = ~close(got[0], want[0]) | ((got[4] >= 0) != cont)
+        for a, b in zip(got[1:4], want[1:4]):
+            off |= cont & ~close(a, b)
+        route = mega.segment_route(packed, isect, wide)
+        tie = ties[isect]
+        n_off, n_tie = int((off & ~tie).sum()), int((off & tie).sum())
+        log(f"phase 20 kernel #1 forward {route}: {n_off} lanes off the "
+            f"plain version, {n_tie} tie lanes off")
+        if n_off:
+            compare(got, want, torch)  # logs the first lanes off
+            failures.append(f"phase 20 kernel #1 forward {route}: {n_off} "
+                            f"lanes off the plain version")
+    log(f"phase 20: {time.perf_counter() - t0:.3f} s wall {card}")
 
 
 def nearest_work(o, d, verts, valid, kept):
@@ -1991,11 +2116,11 @@ def probe_phase(dev, card, failures):
     then each kernel against its plain version on seeded inputs (the dead
     kernels bit for bit on every lane of every tile, ``fma_chain`` on
     ``FMA_CHECK_ROWS`` rows at rtol ``FMA_RTOL``); the dead kernels' plain
-    versions and ``torch.mul`` timed as the probes are (``torch_probes.
-    time_launches``: over a ring of inputs beyond the L2, queued behind a
-    spin kernel). Returns the four kernels-line rows (``launches``: the
-    probe run's; ``fma_chain``'s is set by the caller from phase 19
-    (b))."""
+    versions timed as the probes are (``torch_probes.time_launches``: over
+    a ring of inputs beyond the L2, queued behind a spin kernel), and
+    ``torch.mul`` per tile from the probe run (``torch_mul_tile*``).
+    Returns the four kernels-line rows (``launches``: the probe run's;
+    ``fma_chain``'s is set by the caller from phase 19 (b))."""
     import torch
     from scripts.torch_probes import dead_ring, run_probes, time_launches
     from unity_raytracer_tpu_torch.ops.kernels import _lib
@@ -2034,12 +2159,13 @@ def probe_phase(dev, card, failures):
     for name, runs in steps.items():
         off = lanes = 0
         plain_ms = lib_ms = err = 0.0
-        for _, tile, kernel, plain in runs:
+        tile_lib = {}
+        for step, tile, kernel, plain in runs:
             ring = dead_ring(x, tile)
             xp = ring[0][0]
             if name == "dead_nob":
-                lib_ms += time_launches(
-                    lambda xp: torch.mul(xp, 2.0), ring)[1] * 1e3
+                tile_lib[step] = recs[f"torch_mul_tile{tile}"]["time_s"] * 1e3
+                lib_ms += tile_lib[step]
             got, want = kernel(xp), plain(xp)
             n_off = int((got.view(torch.int32) != want.view(torch.int32))
                         .sum())
@@ -2060,15 +2186,20 @@ def probe_phase(dev, card, failures):
             plain_ms=plain_ms, bound_ms=b, bound_by="bytes",
             library_ms=lib_ms if name == "dead_nob" else None,
             steps={step: dict(tile=tile, grid=recs[step]["grid"],
+                              threads=recs[step]["threads"],
                               ms=recs[step]["time_s"] * 1e3,
                               host_ms=recs[step]["host_s"] * 1e3,
-                              bound_ms=recs[step]["bound_s"] * 1e3)
+                              bound_ms=recs[step]["bound_s"] * 1e3,
+                              library_ms=tile_lib.get(step))
                    for step, tile, *_ in runs})
+        lib = lambda step: (f", torch.mul {tile_lib[step]:.4f} ms"
+                            if step in tile_lib else "")
         log(f"phase 19 (a) {name}: {off} of {lanes} lanes off the plain "
             f"version (bit for bit, {len(runs)} tile(s)); "
             + "; ".join(f"{step} {recs[step]['time_s'] * 1e3:.4f} ms "
                         f"device, {recs[step]['host_s'] * 1e3:.4f} ms host "
-                        f"per launch, {recs[step]['grid']} blocks, bound "
+                        f"per launch{lib(step)}, {recs[step]['grid']} "
+                        f"blocks of {recs[step]['threads']} threads, bound "
                         f"{recs[step]['bound_s'] * 1e3:.4f} ms (bytes)"
                         for step, *_ in runs)
             + f"; plain {plain_ms:.4f} ms summed {card}")
@@ -2693,6 +2824,8 @@ def main():
     probe_rows["fma_chain"]["launches"] = bench_launches.pop(
         "probe_fma_chain")
     log(f"phase 19: {time.perf_counter() - t19:.3f} s wall")
+    # ---- corner- and edge-aimed rays (Queue C #14): phase 20 -------------------
+    corner_phase(dev, card, failures, scene, cfg, packed, packed8)
     if failures:
         raise AssertionError("; ".join(failures))
 

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_kernel_ab.py LABEL=ROOT [LABEL=ROOT ...] \\
         [--order 0,1,1,0] [--only nearest] [--device-time] \\
-        [--out build/ab.json]
+        [--out build/ab.json] [--frames DIR]
 
 Each ROOT is a directory holding a revision's ``unity_raytracer_tpu_torch/``
 and ``native/`` (``.`` for this checkout; an earlier commit unpacked with
@@ -29,10 +29,20 @@ launch alone (1 warm-up + 5):
   proxy launches (i)-(iv) that no path makes
   (``scripts/torch_nearest_census.py``, which builds them).
 
+The fused frame is timed as a launch is (1 warm-up + 5, its image
+hashed).
+
 ``--only`` times some of these families alone (``fused``, ``fork``,
 ``walks``, ``nearest``; default all). ``--device-time`` also reads each
 launch's device busy time (its kernels and memsets in a torch.profiler
 trace of 5 calls), which leaves out the host's part of a launch.
+
+Each walk launch and each Baldwin–Weber BVH4 forward segment also runs
+once on its counting instance; the summary prints its slab tests (node,
+child and group boxes) and leaf-slot tests per label. With ``--frames``
+each run writes its fused frame (``render_frame``) to ``DIR`` as .npy,
+and the summary counts the pixels of each label's frame that differ from
+the first label's (any bit, and outside rtol = atol = 5e-4).
 
 Each launch's outputs are hashed (sha256 of their bytes), so the summary
 says whether every root computes the same bits. It prints one line per
@@ -75,7 +85,8 @@ def device_ms(fn) -> float:
     return busy / 1e3 / REPEATS
 
 
-def worker(root: str, only=FAMILIES, device_time=False) -> dict:
+def worker(root: str, only=FAMILIES, device_time=False,
+           frame_path=None) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from unity_raytracer_tpu_torch.ops.kernels import _lib
@@ -84,7 +95,8 @@ def worker(root: str, only=FAMILIES, device_time=False) -> dict:
     t0 = time.perf_counter()
     _lib.build_all()
     out = {"root": root, "build_s": time.perf_counter() - t0, "ms": {},
-           "device_ms": {}, "hash": {}}
+           "device_ms": {}, "hash": {}, "counts": {},
+           "frame_path": frame_path}
 
     def timed(name, fn):
         res = fn()
@@ -155,7 +167,8 @@ def mesh100k(dev, only, timed, out):
     if "fused" in only:
         fused(scene, cam, cfg, aux, kw, packs, segs, m3, ctl, timed, out)
     if "walks" in only:
-        walks(scene, cam, cfg, pk4, packs["mt/wide8"][0], m3, ctl, timed)
+        walks(scene, cam, cfg, pk4, packs["mt/wide8"][0], m3, ctl, timed,
+              out)
 
 
 def fused(scene, cam, cfg, aux, kw, packs, segs, m3, ctl, timed, out):
@@ -176,16 +189,18 @@ def fused(scene, cam, cfg, aux, kw, packs, segs, m3, ctl, timed, out):
                           pk, aux, depth, *x, tri_isect=isect,
                           use_wide=arity != 0, overflow=ctl, **mkw, **kw))
     m3.check_overflow(ctl)
+    for depth, x in segs:
+        c = torch.zeros(len(mega.COUNTS), dtype=torch.int64,
+                        device=aux.device)
+        mega.trace_segment(pk4, aux, depth, *x, counts=c, **kw)
+        out["counts"][f"fused bw/wide4 forward segment {depth}"] = dict(
+            zip(mega.COUNTS, c.tolist()))
     cfg_m = cfg.with_(kernel="mega")
-    render_frame(scene, cam, cfg_m, pk4)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(3):
-        render_frame(scene, cam, cfg_m, pk4)
-    b.record()
-    torch.cuda.synchronize()
-    out["ms"]["fused frame bw/wide4 (render_frame)"] = a.elapsed_time(b) / 3
+    frame = lambda: render_frame(scene, cam, cfg_m, pk4)
+    if out["frame_path"]:
+        import numpy as np
+        np.save(out["frame_path"], frame().cpu().numpy())
+    timed("fused frame bw/wide4 (render_frame)", frame)
 
 
 def fork_levels(dev, timed):
@@ -219,8 +234,10 @@ def fork_levels(dev, timed):
               lambda: mega.trace_segment(None, caux, depth, *x, **ckw))
 
 
-def walks(scene, cam, cfg, pk4, pk8, m3, ctl, timed):
-    """The four launches of each walk in the composed mesh100k frame."""
+def walks(scene, cam, cfg, pk4, pk8, m3, ctl, timed, out):
+    """The four launches of each walk in the composed mesh100k frame,
+    each also counted once."""
+    import torch
     from unity_raytracer_tpu_torch.ops.render import render_frame
     walk_raw = m3.walk_raw
     for layout, kernel, pk in (("mk4", "pallas", pk4), ("mk3", "pallas3", pk4),
@@ -237,9 +254,17 @@ def walks(scene, cam, cfg, pk4, pk8, m3, ctl, timed):
             render_frame(scene, cam, cfg.with_(kernel=kernel), pk)
         finally:
             m3.walk_raw = walk_raw
+        rows = (pk.nodes if layout in ("mk3", "mk4") else pk.wide).shape[0]
         for k, x in enumerate(seen):
             timed(f"walk {layout} frame launch {k}",
                   lambda: walk_raw(layout, pk, *x, overflow=ctl))
+            c = torch.zeros(len(m3.COUNTS), dtype=torch.int64,
+                            device=pk.tris.device)
+            walk_raw(layout, pk, *x, counts=c, seen=tuple(
+                torch.zeros(r, dtype=torch.uint8, device=pk.tris.device)
+                for r in (rows, pk.tris.shape[0] * m3.PALLAS_LEAF)))
+            out["counts"][f"walk {layout} frame launch {k}"] = dict(
+                zip(m3.COUNTS, c.tolist()))
     m3.check_overflow(ctl)
 
 
@@ -262,11 +287,13 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", default=None)
     ap.add_argument("--only", default=",".join(FAMILIES))
     ap.add_argument("--device-time", action="store_true")
+    ap.add_argument("--frames", default=None)
+    ap.add_argument("--frame-path", default=None)
     args = ap.parse_args(argv)
     only = tuple(args.only.split(","))
     if args.worker is not None:
-        print("AB " + json.dumps(worker(args.worker, only, args.device_time)),
-              flush=True)
+        print("AB " + json.dumps(worker(args.worker, only, args.device_time,
+                                        args.frame_path)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -283,9 +310,14 @@ def main(argv=None) -> int:
     for k in order:
         label, root = labels[k]
         t0 = time.perf_counter()
+        frame = [] if not args.frames else [
+            "--frame-path", os.path.join(os.path.abspath(args.frames),
+                                         f"frame_{label}_{len(runs)}.npy")]
+        if frame:
+            os.makedirs(args.frames, exist_ok=True)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--worker", root, "--only", args.only]
-                              + ["--device-time"] * args.device_time,
+                              + ["--device-time"] * args.device_time + frame,
                               capture_output=True, text=True, timeout=900)
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
         if proc.returncode or not line:
@@ -321,6 +353,32 @@ def main(argv=None) -> int:
             + (f"; device {dev[label]:.4f} ms" if dev else "")
             + f"{'' if same[label] else ', BITS DIFFER'})"
             for label, _ in labels))
+    for name in runs[0]["counts"]:
+        row = {label: next(r["counts"][name] for r in runs
+                           if r["label"] == label) for label, _ in labels}
+        ref = row[first]
+        print(f"  counts {name}: " + ", ".join(
+            f"{label} slab {c['slab']} (x{c['slab'] / max(ref['slab'], 1):.4f})"
+            + "".join(f", {k} {c[k]}" for k in ("mt", "bw_slot", "groups",
+                                                "nearest_groups",
+                                                "shadow_groups") if k in c)
+            for label, c in row.items()))
+    frames = [(r["label"], r["frame_path"]) for r in runs
+              if r.get("frame_path")]
+    if frames:
+        import numpy as np
+        ref = np.load(next(p for lab, p in frames if lab == first))
+        for label, path in frames:
+            img = np.load(path)
+            px = (img != ref).any(-1)
+            far = ~np.isclose(img, ref, rtol=5e-4, atol=5e-4).all(-1)
+            summary.setdefault("frames", {})[path] = dict(
+                label=label, pixels_differ=int(px.sum()),
+                pixels_outside_tol=int(far.sum()))
+            print(f"  fused frame {os.path.basename(path)}: {int(px.sum())} "
+                  f"of {px.size} pixels differ from {first}'s first frame, "
+                  f"{int(far.sum())} outside rtol = atol = 5e-4, max abs "
+                  f"diff {float(np.abs(img - ref).max()):.4g}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(dict(card=card, order=[labels[k][0] for k in order],

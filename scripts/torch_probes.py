@@ -12,7 +12,10 @@ dead kernels over 1920 x 1080 float32 padded to each tile, with and
 without the flagship's node and triangle tables, the persistent grid in
 place of the ``arbitrary`` one, and the chain of 1024 fused multiply-adds
 per element over [131072, 1024] float32. The inputs are the twin's: ones,
-tables of zeros.
+tables of zeros. Beside each tile, ``torch_mul_tile*`` times one PyTorch
+call computing ``dead_nob``'s function, ``torch.mul(x, 2.0)``, on the
+same ring: the library yardstick (its ``grid`` and ``threads`` are
+PyTorch's own, not recorded).
 
 Each step is timed as the twin's ``timed(reps=6)`` was, with
 ``profiling.call_times``: a first launch (``compile_s``, host clock, the
@@ -28,7 +31,8 @@ cost. The launches take their inputs in turn from a ring of ``RING``
 copies and every output is held to the end of the loop, so each launch
 reads and writes HBM: the dead kernels' ring (2 x 8 x 16.6 MB) is well
 beyond the 50 MB L2, where the same ``x`` and ``o`` launched again would
-be served from the L2. ``bound_s`` is the least time the card could
+be served from the L2. ``grid`` and ``threads`` are the launch's blocks
+and threads per block. ``bound_s`` is the least time the card could
 take (``profiling.HBM_BPS`` and ``FP32_OPS``: bytes over 3.35 TB/s for
 the dead kernels, FP32 operations over 67 TFLOP/s for the chain). Each
 record carries the card's name and power limit. Appends to
@@ -81,11 +85,11 @@ def run_probes(device, emit):
     x1 = torch.ones(probes.PROBE_N, dtype=torch.float32, device=device)
     recs = []
 
-    def step(name, fn, ring, nbytes, ops, grid, **extra):
+    def step(name, fn, ring, nbytes, ops, grid, threads, **extra):
         c, t, h = time_launches(fn, ring)
         rec = dict(step=name, compile_s=c, time_s=t, host_s=h,
                    bound_s=max(nbytes / HBM_BPS, ops / FP32_OPS), grid=grid,
-                   ring=len(ring), card=card, **extra)
+                   threads=threads, ring=len(ring), card=card, **extra)
         if ops:
             rec["tflops"] = ops / t / 1e12
         recs.append(rec)
@@ -94,22 +98,26 @@ def run_probes(device, emit):
     for tile in probes.TILES:
         ring = dead_ring(x1, tile)
         n = ring[0][0].shape[0]
+        threads = probes.block_threads(tile)
         step(f"pallas_repblocks_tile{tile}",
              lambda x: probes.dead_tables(x, nodes, tris, tile), ring,
-             2 * 4 * n + 8, 0, n // tile)
+             2 * 4 * n + 8, 0, n // tile, threads)
         step(f"pallas_noblocks_tile{tile}",
              lambda x: probes.dead_nob(x, tile), ring, 2 * 4 * n, 0,
-             n // tile)
+             n // tile, threads)
+        step(f"torch_mul_tile{tile}", lambda x: torch.mul(x, 2.0), ring,
+             2 * 4 * n, 0, None, None)
     ring = dead_ring(x1, probes.PERSISTENT_TILE)
     n = ring[0][0].shape[0]
     step("pallas_repblocks_tile1024_arbitrary",
          lambda x: probes.dead_persistent(x, nodes, tris), ring,
-         2 * 4 * n + 8, 0, probes.persistent_blocks(device),
+         2 * 4 * n + 8, 0, probes.persistent_blocks(device), probes.THREADS,
          tiles=n // probes.PERSISTENT_TILE)
     del ring
     xf = torch.ones(probes.FMA_SHAPE, dtype=torch.float32, device=device)
     step("vpu_fma", probes.fma_chain, [(xf,)], 2 * 4 * xf.numel(),
-         probes.fma_ops(xf), -(-xf.numel() // probes.THREADS))
+         probes.fma_ops(xf), -(-xf.numel() // probes.THREADS),
+         probes.THREADS)
     return recs
 
 

@@ -69,11 +69,17 @@ def test_prepare_bvh_equal(name, leaf, arity):
 
 @pytest.mark.parametrize("name", ["small", "mesh10k"])
 def test_build_aux_equal(name):
+    """The twin's aux block, but for its scene box (row 0, lanes 0-5),
+    which the port widens as it widens every box a walk tests
+    (``traverse_mk3.pad_box``; ROADMAP Queue C #14)."""
     from unity_raytracer_tpu.ops.pallas import mega as j_mega
     js, cfg = _jax_scene(name)
-    np.testing.assert_array_equal(
-        mega.build_aux(_port_scene(name), cfg.background).numpy(),
-        np.asarray(j_mega.build_aux(js, cfg.background)))
+    got = mega.build_aux(_port_scene(name), cfg.background).numpy()
+    want = np.asarray(j_mega.build_aux(js, cfg.background)).copy()
+    lo, hi = want[0, 0:3].copy(), want[0, 3:6].copy()
+    want[0, 0:3], want[0, 3:6] = traverse_mk3.pad_box(lo, hi)
+    np.testing.assert_array_equal(got, want)
+    assert (got[0, 0:3] < lo).all() and (got[0, 3:6] > hi).all()
 
 
 def test_packed_from_arrays_roundtrip():

@@ -11,6 +11,9 @@ tests/test_render_golden.py's criteria. The port's fused frame is held
 against its composed frame at the same 5e-4 (tests/test_mega.py:211
 holds the Baldwin–Weber leaf test against Möller–Trumbore there), and
 ``trace_radiance_stats``' per-segment live counts equal JAX's exactly.
+With ``light_cull`` at 3 and 20 (``torch_goldens.LIGHT_CULLS``) the
+composed frames (``'xla'``, ``'pallas'``) and the fused frame's plain
+version are held to JAX's composed frame at the same 5e-4.
 """
 
 from pathlib import Path
@@ -19,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_goldens import LIGHT_CULLS
 from torch_parity import CAMERA, cuda, small_scene  # noqa: F401
 from unity_raytracer_tpu_torch.fit import set_params
 from unity_raytracer_tpu_torch.models import meshgen as t_meshgen
@@ -56,6 +60,18 @@ def jax_image():
     return np.asarray(j_render(js, jc, CFG.with_(kernel="xla")))
 
 
+@pytest.fixture(scope="module")
+def jax_cull_images():
+    """JAX's composed frame with ``light_cull`` at each of LIGHT_CULLS."""
+    from unity_raytracer_tpu.models import camera, meshgen, scene
+    from unity_raytracer_tpu.ops.render import render as j_render
+    js = small_scene(scene, meshgen)
+    jc = camera.Camera.make(width=SIZE, height=SIZE, **CAMERA)
+    return {lc: np.asarray(j_render(js, jc, CFG.with_(kernel="xla",
+                                                      light_cull=lc)))
+            for lc in LIGHT_CULLS}
+
+
 def _port(kernel, size=SIZE, device="cpu", **kw):
     ts = small_scene(t_scene, t_meshgen, device=device)
     tc = Camera.make(width=size, height=size, device=device, **CAMERA)
@@ -69,6 +85,18 @@ def test_composed_render_matches_jax(jax_image, kernel):
     assert got.shape == (SIZE, SIZE, 3) and np.isfinite(got).all()
     assert _bad(got, jax_image) <= MAX_BAD * SIZE * SIZE
     assert jax_image.std() > 0.01  # hits, shadows and mirror bounces
+
+
+@pytest.mark.parametrize("lc", LIGHT_CULLS)
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "mega"])
+def test_light_cull_matches_jax(jax_image, jax_cull_images, kernel, lc):
+    """``light_cull`` skips the shadow query of a light whose attenuated
+    contribution falls below it: the composed frames and the fused
+    frame's plain version (``'mega'``) against JAX's composed frame."""
+    want = jax_cull_images[lc]
+    got = _port(kernel, light_cull=lc)
+    assert _bad(got, want) <= MAX_BAD * SIZE * SIZE
+    assert _bad(want, jax_image) > 0  # the cull changes the frame
 
 
 def test_composed_binary_and_arity8_match_jax(jax_image):

@@ -13,8 +13,9 @@ bit for bit and the FMA chain at rtol 1e-6 (the plain chain rounds each
 step once from float64, the interpreter's fused multiply-add once: they
 differ only on a double-rounding tie). On the CPU each wrapper runs its
 plain version and counts no launch; on a card (``gpu``) it launches its
-kernel, which must agree with the plain version the same way (JAX is
-imported only where the twin runs, so the card's cases run without it).
+kernel, which must agree with the plain version the same way, and a
+misaligned ``x`` raises (JAX is imported only where the twin runs, so the
+card's cases run without it).
 """
 
 import numpy as np
@@ -174,6 +175,16 @@ def test_counts_and_shapes():
     assert grids == [2025, 254, 32]
 
 
+def test_block_shapes():
+    """``dead_tables`` and ``dead_nob`` run clamp(tile / 32, 64, 1024)
+    threads a block on the twin's grid: 4, 8 and 16 float4 words a
+    thread, and one word a thread on the smallest tile."""
+    threads = [probes.block_threads(t) for t in probes.TILES]
+    assert threads == [64, 256, 1024]
+    assert [t // 4 // b for t, b in zip(probes.TILES, threads)] == [4, 8, 16]
+    assert probes.block_threads(probes.THREADS) == 64
+
+
 @pytest.mark.parametrize("call", ["dead_tables", "dead_nob",
                                   "dead_persistent", "fma_chain"])
 def test_wrappers_raise_off_the_cpu_and_card(call):
@@ -203,6 +214,21 @@ def test_dead_kernels_equal_plain_on_card(cuda, tile):
         out = got()
         assert probes.launches[name] == before + 1
         assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["dead_tables", "dead_nob"])
+def test_misaligned_view_raises_on_card(cuda, call):
+    """The float4 kernels take a 16-byte aligned ``x`` only: a view 4
+    bytes into its storage raises ``ValueError`` before any launch."""
+    x = torch.zeros(2 * 1024 + 1, device=cuda)[1:]
+    assert x.data_ptr() % 16 == 4
+    nodes, tris = (torch.zeros(s, device=cuda) for s in probes.TABLE_SHAPES)
+    args = (x, nodes, tris, 1024) if call == "dead_tables" else (x, 1024)
+    before = dict(probes.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        getattr(probes, call)(*args)
+    assert probes.launches == before
 
 
 @pytest.mark.gpu

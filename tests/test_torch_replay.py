@@ -14,7 +14,11 @@ Pallas interpreter and eager autodiff, ``tests/goldens/torch/replay.npz``):
   (tests/test_replay.py:75), the MSE at rtol 1e-4, and the gradients of
   all nine parameter classes of tests/test_replay.py:86-88 at rtol 5e-3,
   atol 5e-4 * max|g| (:106-109);
-* the soft replay's bias counts, the chunked step, the live prefix.
+* the soft replay's bias counts, the chunked step, the live prefix;
+* with ``light_cull`` (the per-light attenuation cull of the shadow
+  queries) at 3 and 20 (``LIGHT_CULLS``, ``light_cull.npz``): the hard and
+  soft records as above, and at 3 the replay radiance, MSE and the nine
+  gradient classes at the same tolerances.
 
 Nothing here imports JAX, so the ``gpu`` case also runs where only
 PyTorch is installed (``pytest --noconftest -m gpu``).
@@ -27,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_goldens import CFG, NAMES, SIZE, SOFT, load
+from torch_goldens import CFG, LIGHT_CULLS, NAMES, SIZE, SOFT, load
 from torch_parity import CAMERA, cuda, record_bad_lanes, replay_scene
 from unity_raytracer_tpu_torch.fit import get_params, set_params
 from unity_raytracer_tpu_torch.models import meshgen as t_meshgen
@@ -47,11 +51,24 @@ RAD_TOL = dict(rtol=2e-4, atol=2e-4)
 @pytest.fixture(scope="module")
 def jx():
     """JAX's side, frozen (tests/torch_goldens.py)."""
-    g = load("replay")
+    return _golden_records(load("replay"))
+
+
+def _golden_records(g, prefix=""):
     for kind in ("hard", "soft"):
         n = 5 if kind == "soft" else 4
-        g[kind] = (g[f"{kind}_acc"],
-                   tuple(g[f"{kind}_rec{i}"] for i in range(n)))
+        g[prefix + kind] = (g[f"{prefix}{kind}_acc"],
+                            tuple(g[f"{prefix}{kind}_rec{i}"]
+                                  for i in range(n)))
+    return g
+
+
+@pytest.fixture(scope="module")
+def jx_lc():
+    """JAX's records and replay with ``light_cull`` (light_cull.npz)."""
+    g = load("light_cull")
+    for lc in LIGHT_CULLS:
+        _golden_records(g, f"lc{lc:g}/")
     return g
 
 
@@ -63,35 +80,67 @@ def port():
     return scene, t_bvh.prepare_bvh(scene, CFG), o, d
 
 
-@pytest.mark.parametrize("soft", [False, True])
-def test_trace_records_match_jax(jx, port, soft):
+def _check_records(jx, port, soft, cfg=CFG, prefix=""):
+    """The port's trace_records on ``cfg`` against JAX's (keys under
+    ``prefix``): the radiance at 5e-4 and 0 bad record lanes."""
     scene, packed, o, d = port
-    np.testing.assert_array_equal(o.numpy(), jx["o"])
-    np.testing.assert_array_equal(d.numpy(), jx["d"])
-    acc, recs = rp.trace_records(scene, o, d, CFG, packed, soft=soft)
-    want_acc, want = jx["soft" if soft else "hard"]
+    np.testing.assert_array_equal(o.numpy(), jx[prefix + "o"])
+    np.testing.assert_array_equal(d.numpy(), jx[prefix + "d"])
+    acc, recs = rp.trace_records(scene, o, d, cfg, packed, soft=soft)
+    want_acc, want = jx[prefix + ("soft" if soft else "hard")]
     np.testing.assert_allclose(acc.numpy(), want_acc, rtol=5e-4, atol=5e-4)
     assert len(recs) == len(want) == (5 if soft else 4)
-    B, N = CFG.max_bounces + 1, o.shape[0]
+    B, N = cfg.max_bounces + 1, o.shape[0]
     assert recs[0].shape == (B, N) and recs[1].shape == (B, N, 3)
     for s in range(B):
         bad = record_bad_lanes([r[s] for r in recs], [r[s] for r in want])
         assert not bad.any(), (s, np.nonzero(bad))
     assert not any(r.requires_grad for r in recs)  # facts, no gradient
+    return recs
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_trace_records_match_jax(jx, port, soft):
+    recs = _check_records(jx, port, soft)
     # segment 0 holds winners of every kind and occluded lights
+    scene = port[0]
     S, T = scene.spheres.count, scene.triangles.count
     m0 = recs[2][0].numpy()
     assert ((m0 >= 0) & (m0 < S)).any() and ((m0 >= S) & (m0 < S + T)).any()
     assert (m0 >= S + T).any() and (recs[3].numpy() > 0).any()
 
 
+@pytest.mark.parametrize("lc", LIGHT_CULLS)
+@pytest.mark.parametrize("soft", [False, True])
+def test_trace_records_light_cull_match_jax(jx, jx_lc, port, soft, lc):
+    """``light_cull`` > 0 skips the shadow query of a light whose
+    attenuated contribution is below the cull, in the records pass
+    (the fused kernel's plain version here) as in JAX's."""
+    _check_records(jx_lc, port, soft, CFG.with_(light_cull=lc),
+                   f"lc{lc:g}/")
+    kind = "soft" if soft else "hard"
+    assert not np.array_equal(jx_lc[f"lc{lc:g}/{kind}"][0], jx[kind][0])
+
+
 @pytest.mark.parametrize("soft", [False, True])
 def test_replay_value_and_grads_match_jax(jx, port, soft):
     """The replay on JAX's own records: radiance, MSE and the gradients
     of all nine parameter classes."""
+    _check_replay(jx, port, soft)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_replay_light_cull_value_and_grads_match_jax(jx_lc, port, soft):
+    """As test_replay_value_and_grads_match_jax, with ``light_cull`` at
+    LIGHT_CULLS[0]."""
+    lc = LIGHT_CULLS[0]
+    _check_replay(jx_lc, port, soft, CFG.with_(light_cull=lc), f"lc{lc:g}/")
+
+
+def _check_replay(jx, port, soft, base=CFG, prefix=""):
     scene, _, o, d = port
-    cfg = CFG.with_(diff=SOFT) if soft else CFG
-    kind = "soft" if soft else "hard"
+    cfg = base.with_(diff=SOFT) if soft else base
+    kind = prefix + ("soft" if soft else "hard")
     rad_j, target = jx[f"{kind}_rad"], jx[f"{kind}_target"]
     loss_j = float(jx[f"{kind}_loss"])
     g_j = {k: jx[f"{kind}_grad/{k}"] for k in NAMES}

@@ -9,6 +9,12 @@ against the port's plain code on seeded numpy inputs:
 * each group box holds all 9 coordinates of each of its live slots, is
   widened outward by GROUP_MARGIN of its largest coordinate and one ulp,
   and dead slots do not widen it;
+* the walk rows (ROADMAP Queue C #14): every leaf-slot hit of such rays
+  passes the kernels' slab test at its own t on every binary node and wide
+  child box of its path (``nodes_walk``, ``wide_walk``) and on the fused
+  kernel's scene box, and the plain walk ``ops/bvh.traverse`` misses no
+  hit of the brute force on 16,000 of them; the walk rows differ from the
+  twin's ``nodes`` and ``wide`` in their (wider) boxes alone;
 * culling drops no hit: every leaf-slot hit (Möller–Trumbore on ``tris``,
   Baldwin–Weber on ``tris_bw``) of seeded rays, half of them aimed near
   triangle corners and edges, lies in a group whose box passes the plain
@@ -52,18 +58,29 @@ TREES = {"small-14": ("small", 14, 4), "small-28-bvh8": ("small", 28, 8),
          "mesh10k-98": ("mesh10k", 98, 4)}
 
 
-def _tree(name, leaf, arity):
+def _scene(name):
     if name == "small":
-        scene = small_scene(t_scene, t_meshgen, device="cpu")
-    else:
-        scene = get_preset(name, width=8, height=8, device="cpu")[0]
+        return small_scene(t_scene, t_meshgen, device="cpu")
+    return get_preset(name, width=8, height=8, device="cpu")[0]
+
+
+def _tree(name, leaf, arity, scene=None):
+    scene = _scene(name) if scene is None else scene
     return t_bvh.prepare_bvh(scene, CFG.with_(bvh_leaf=leaf,
                                               bvh_arity=arity), "cpu")
 
 
 @pytest.fixture(scope="module", params=list(TREES))
-def packed(request):
-    return _tree(*TREES[request.param])
+def tree(request):
+    """(scene, its packed BVH) of a TREES entry."""
+    name, leaf, arity = TREES[request.param]
+    scene = _scene(name)
+    return scene, _tree(name, leaf, arity, scene)
+
+
+@pytest.fixture(scope="module")
+def packed(tree):
+    return tree[1]
 
 
 def _groups(packed):
@@ -176,6 +193,163 @@ def test_culling_drops_no_hit(packed, isect, seed):
         assert bool((passes | ~ok).all())
         hits += int(ok.sum())
     assert hits > 100
+
+
+def _slot_hits(packed, o, d, isect):
+    """Every leaf-slot hit of rays ``o, d`` (Möller–Trumbore on ``tris``,
+    Baldwin–Weber on ``tris_bw``): (ray [H], global slot [H], t [H])."""
+    rows = packed.tris.shape[0]
+    slot = np.arange(rows * t_mk3.PALLAS_LEAF)
+    slot = slot[packed.leaf_prim.numpy().reshape(-1) >= 0]
+    if isect == "mt":
+        rec = packed.tris[:, :9 * t_mk3.PALLAS_LEAF].reshape(-1, 9)[
+            torch.from_numpy(slot)]
+    else:
+        rpl, bw_rpl = packed.rows_per_leaf, packed.bw_rows_per_leaf
+        per_leaf = rpl * t_mk3.PALLAS_LEAF
+        bw = packed.tris_bw.reshape(-1, bw_rpl, 128)[:, :, :120].reshape(
+            -1, bw_rpl * t_mk3.BW_PER_ROW, 12)
+        rec = bw[torch.from_numpy(slot // per_leaf),
+                 torch.from_numpy(slot % per_leaf)]
+    out = []
+    for s0, ok, t in mega._slot_chunks(o.unbind(-1), d.unbind(-1), rec):
+        ray, k = torch.nonzero(ok, as_tuple=True)
+        out.append((ray, torch.from_numpy(slot)[s0 + k], t[ray, k]))
+    return tuple(torch.cat(x) for x in zip(*out))
+
+
+def _binary_paths(nodes):
+    """Per tris row, the binary nodes on the path from the root to its
+    leaf, as a [rows, depth] index array padded with -1."""
+    parent = np.full(nodes.shape[0], -1, np.int64)
+    for i in np.nonzero(nodes[:, 7] <= 0)[0]:
+        parent[i + 1] = parent[int(nodes[i, 9])] = i
+    leaves = np.nonzero(nodes[:, 7] > 0)[0]
+    rows = int(nodes[leaves, 6].max()) + 1
+    paths = [[] for _ in range(rows)]
+    for leaf in leaves:
+        path, i = [], leaf
+        while i >= 0:
+            path.append(i)
+            i = parent[i]
+        paths[int(nodes[leaf, 6])] = path
+    return paths
+
+
+def _wide_paths(wide):
+    """Per tris row, the (wide row, child slot) boxes the wide walk tests
+    from row 0 (the root's children) down to its leaf child."""
+    cnt, meta = wide[:, 7::8], wide[:, 6::8].astype(np.int64)
+    up = {}
+    for r, c in zip(*np.nonzero(cnt == 0)):
+        up[int(meta[r, c])] = (int(r), int(c))
+    paths = {}
+    for r, c in zip(*np.nonzero(cnt > 0)):
+        path, node = [(int(r), int(c))], int(r)
+        while node in up:
+            path.append(up[node])
+            node = up[node][0]
+        paths[int(meta[r, c])] = path
+    return paths
+
+
+def _boxes_pass(o, d, ray, boxes, bound):
+    """The kernels' slab test (``mega._slab``, over [0, bound]) of rays
+    ``ray`` against ``boxes [H, 6]``."""
+    inv = 1.0 / mega._fix(d[ray])
+    return mega._slab(o[ray].unbind(-1), inv.unbind(-1), boxes.T, bound)
+
+
+@pytest.mark.parametrize("isect", ["mt", "bw"])
+def test_walk_boxes_keep_every_hit(tree, isect):
+    """ROADMAP Queue C #14: every slot hit of seeded rays, half of them
+    aimed at triangle corners and edges, passes the kernels' slab test
+    at its own t as the bound (a walk's bound never falls below the hit
+    it ends with) on every box a walk tests on its way to that hit: the
+    binary nodes of its path (``nodes_walk``), the wide rows' child boxes
+    of its path (``wide_walk``) and the fused kernel's scene box (aux row
+    0, bound _BIG). The margins live in the boxes (``pad_box``); the walk
+    rows differ from the twin's ``nodes`` and ``wide`` in the boxes
+    alone, each strictly wider."""
+    scene, packed = tree
+    o, d = _rays(packed, 4096, seed=21)
+    ray, slot, t = _slot_hits(packed, o, d, isect)
+    assert ray.numel() > 1000
+    rpl = packed.rows_per_leaf
+    leaf_row = (slot // t_mk3.PALLAS_LEAF).numpy() // rpl * rpl
+    bpaths = _binary_paths(packed.nodes.numpy())
+    wpaths = _wide_paths(packed.wide.numpy())
+    culled = {}
+    for name, walk, exact, paths in (
+            ("binary", packed.nodes_walk, packed.nodes,
+             [[(n, 0) for n in bpaths[r]] for r in leaf_row]),
+            ("wide", packed.wide_walk, packed.wide,
+             [wpaths[int(r)] for r in leaf_row])):
+        hit = torch.from_numpy(np.repeat(np.arange(len(paths)),
+                                         [len(p) for p in paths]))
+        box = torch.from_numpy(np.array([e for p in paths for e in p]))
+        assert max(len(p) for p in paths) > 1
+        for tab in (walk, exact):
+            boxes = tab.reshape(tab.shape[0], -1, 8)[box[:, 0], box[:, 1],
+                                                      0:6]
+            ok = _boxes_pass(o, d, ray[hit], boxes, t[hit])
+            if tab is walk:
+                assert bool(ok.all()), (name, int((~ok).sum()))
+            else:
+                culled[name] = int((~ok).sum())
+    aux = mega.build_aux(scene, CFG.background)
+    ok = _boxes_pass(o, d, ray, aux[0, :6].expand(ray.numel(), 6),
+                     torch.full_like(t, mega._BIG))
+    assert bool(ok.all()), int((~ok).sum())
+    nw, n = packed.nodes_walk, packed.nodes
+    np.testing.assert_array_equal(nw[:, 6:], n[:, 6:])
+    assert bool((nw[:, 0:3] < n[:, 0:3]).all())
+    assert bool((nw[:, 3:6] > n[:, 3:6]).all())
+    ww, w = (x.reshape(x.shape[0], -1, 8) for x in (packed.wide_walk,
+                                                    packed.wide))
+    live = w[..., 7] >= 0
+    np.testing.assert_array_equal(ww[..., 6:], w[..., 6:])
+    np.testing.assert_array_equal(ww[~live], w[~live])
+    assert bool((ww[..., 0:3][live] < w[..., 0:3][live]).all())
+    assert bool((ww[..., 3:6][live] > w[..., 3:6][live]).all())
+    print(f"the exact boxes would cull {culled} of {ray.numel()} hits")
+
+
+# (scene, leaf size): the trees of ROADMAP Queue C #14's count
+PLAIN_TREES = [("small", 4), ("small", 14), ("mesh10k", 4),
+               ("mesh10k", 14)]
+
+
+@pytest.mark.parametrize("name,leaf", PLAIN_TREES)
+def test_plain_walk_misses_no_hit(name, leaf, monkeypatch):
+    """ROADMAP Queue C #14: ``ops/bvh.traverse`` (the plain threaded walk
+    on ``MeshBVH``, its node boxes widened by ``pad_box``) finds on 16,000
+    seeded rays, half aimed at triangle corners and edges, every hit the
+    brute force over all triangles (the walk's own ``_mt_one``) finds: no
+    lane's t above the brute force's by more than 1e-4 relative. With the
+    twin's exact boxes (``pad_box`` replaced by the identity) the same
+    walk misses 9 / 2 / 1 / 0 of these lanes (printed with ``-s``)."""
+    packed = _tree(name, leaf, 4)
+    bvh = packed.bvh
+    o, d = _rays(packed, 16000, seed=14)
+    t_walk = t_bvh.traverse(bvh, o, d)[0]
+    tv = bvh.tri_verts
+    want = torch.full((o.shape[0],), torch.inf)
+    step = max(1, (1 << 21) // tv.shape[0])
+    for r0 in range(0, o.shape[0], step):
+        t = t_bvh._mt_one(o[r0:r0 + step, None], d[r0:r0 + step, None],
+                          tv[None, :, 0], tv[None, :, 1], tv[None, :, 2])
+        want[r0:r0 + step] = t.amin(dim=1)
+    hits = torch.isfinite(want)
+    missed = hits & ~(t_walk <= want * (1.0 + 1e-4))
+    assert int(hits.sum()) > 4000
+    assert int(missed.sum()) == 0, torch.nonzero(missed).squeeze(1)
+    assert bool((t_walk[~hits] == torch.inf).all())
+    monkeypatch.setattr(t_bvh, "pad_box", lambda lo, hi: (lo, hi))
+    t_exact = t_bvh.traverse(bvh, o, d)[0]
+    exact = int((hits & ~(t_exact <= want * (1.0 + 1e-4))).sum())
+    print(f"{name} leaf {leaf}: the exact boxes miss {exact} of "
+          f"{int(hits.sum())} hits")
 
 
 def _binary_worst(nodes, i=0):

@@ -1,10 +1,11 @@
 """Frozen JAX references for the port's replay and fit parity tests.
 
     python tests/torch_goldens.py [replay] [fit] [composed] [tree] [parallel]
+                                  [light_cull]
 
-rewrites (all five, or the ones named) ``tests/goldens/torch/replay.npz``,
-``fit.npz``, ``composed.npz``, ``tree.npz`` and ``parallel.npz`` from the
-JAX package. The first two are on
+rewrites (all six, or the ones named) ``tests/goldens/torch/replay.npz``,
+``fit.npz``, ``composed.npz``, ``tree.npz``, ``parallel.npz`` and
+``light_cull.npz`` from the JAX package. The first two are on
 tests/test_replay.py's scene (``torch_parity.replay_scene``) at 16x16
 through ``torch_parity.CAMERA``:
 
@@ -13,6 +14,10 @@ through ``torch_parity.CAMERA``:
   replay radiance, MSE against radiance x 0.9 and the gradients of
   ``NAMES`` on those records, hard and soft; the soft replay's diagnostic
   counts; ``live_depth``;
+* ``light_cull.npz``: ``replay.npz``'s hard and soft records and
+  radiance with ``cfg.light_cull`` at each of ``LIGHT_CULLS``, and the
+  eager replay radiance, MSE and gradients of ``NAMES`` at
+  ``LIGHT_CULLS[0]``, hard and soft, keys prefixed ``lc<value>/``;
 * ``fit.npz``: a 3-step JAX ``fit(use_replay=True)`` from ``fit_inputs``'
   seeded start and target image — its losses and final parameters, and
   its checkpoint after step 2 (parameters and optax's Adam count and
@@ -40,7 +45,7 @@ through ``torch_parity.CAMERA``:
 
 Computing these live costs ~80 s (replay, fit), ~95 s (composed) and
 ~100 s (tree) and ~150 s (parallel) of CPU per test run, so
-tests/test_torch_replay.py, tests/test_torch_fit.py,
+tests/test_torch_replay.py (``replay``, ``light_cull``), tests/test_torch_fit.py,
 tests/test_torch_grad.py, tests/test_torch_tree.py and
 tests/test_torch_parallel.py load them. The constants below are those
 tests' recipe: change one, rerun the script. Nothing here imports JAX
@@ -75,6 +80,9 @@ SOFT = DiffConfig(soft_shadow_temp=1.0, soft_hit_temp=0.1,
 NAMES = ("sphere_centers", "sphere_radius_sq", "sphere_diffuse",
          "sphere_specular", "sphere_mirror", "tri_verts", "tri_diffuse",
          "light_positions", "light_intensities")
+# light_cull values the replay tests run (ROADMAP Queue C's coverage gap;
+# tests/test_torch_composed.py runs its composed frames at both)
+LIGHT_CULLS = (3.0, 20.0)
 FIT_NAMES = ("sphere_centers", "sphere_diffuse")
 FCFG = dict(param_names=FIT_NAMES, learning_rate=0.02, soft_shadow_temp=1.0,
             soft_hit_temp=0.1, log_every=0, use_replay=True)
@@ -321,7 +329,10 @@ def _composed_arrays() -> dict:
     return out
 
 
-def _replay_arrays() -> dict:
+def _replay_arrays(base=CFG, grads=True, diag=True) -> dict:
+    """``replay.npz`` on config ``base``; ``grads=False`` keeps the
+    records and their radiance only, ``diag=False`` drops the soft
+    replay's counts and ``live_depth``."""
     import jax
     import jax.numpy as jnp
     from unity_raytracer_tpu import fit as j_fit
@@ -331,15 +342,17 @@ def _replay_arrays() -> dict:
 
     js = replay_scene(scene, meshgen)
     jc = camera.Camera.make(width=SIZE, height=SIZE, **CAMERA)
-    jp = j_bvh.prepare_bvh(js, CFG)
-    o, d = camera.generate_rays_blocks(jc, CFG.block_size)
+    jp = j_bvh.prepare_bvh(js, base)
+    o, d = camera.generate_rays_blocks(jc, base.block_size)
     out = {"o": np.asarray(o), "d": np.asarray(d)}
     for kind, soft in (("hard", False), ("soft", True)):
-        acc, recs = j_rp.trace_records(js, o, d, CFG, jp, soft=soft)
+        acc, recs = j_rp.trace_records(js, o, d, base, jp, soft=soft)
         out[f"{kind}_acc"] = np.asarray(acc)
         for i, r in enumerate(recs):
             out[f"{kind}_rec{i}"] = np.asarray(r)
-        cfg = CFG.with_(diff=SOFT) if soft else CFG
+        if not grads:
+            continue
+        cfg = base.with_(diff=SOFT) if soft else base
         fn = j_rp.replay_radiance_soft if soft else j_rp.replay_radiance
         rad = fn(js, o, d, recs, cfg)
         target = jax.lax.stop_gradient(rad) * 0.9
@@ -351,19 +364,30 @@ def _replay_arrays() -> dict:
         # eager: jit's reassociation alone moves the mirror sphere's
         # gradient by ~1% on this scene (phong-200 highlights); the port
         # follows the eager op order
-        val, grads = jax.value_and_grad(loss)(j_fit.get_params(js, NAMES))
+        val, g_all = jax.value_and_grad(loss)(j_fit.get_params(js, NAMES))
         out[f"{kind}_rad"] = np.asarray(rad)
         out[f"{kind}_target"] = np.asarray(target)
         out[f"{kind}_loss"] = np.asarray(val)
-        for k, g in grads.items():
+        for k, g in g_all.items():
             out[f"{kind}_grad/{k}"] = np.asarray(g)
+        if not diag:
+            continue
         if soft:
-            _, diag = j_rp.replay_radiance_soft(js, o, d, recs, cfg,
-                                                with_diag=True)
-            for k, v in diag.items():
+            _, counts = j_rp.replay_radiance_soft(js, o, d, recs, cfg,
+                                                  with_diag=True)
+            for k, v in counts.items():
                 out[f"bias/{k}"] = np.asarray(v)
         else:
             out["live_depth"] = np.asarray(j_rp.live_depth(recs))
+    return out
+
+
+def _light_cull_arrays() -> dict:
+    out = {}
+    for i, lc in enumerate(LIGHT_CULLS):
+        arrays = _replay_arrays(CFG.with_(light_cull=lc), grads=i == 0,
+                                diag=False)
+        out.update({f"lc{lc:g}/{k}": v for k, v in arrays.items()})
     return out
 
 
@@ -490,7 +514,7 @@ def _parallel_arrays() -> dict:
 
 def main():
     which = sys.argv[1:] or ["replay", "fit", "composed", "tree",
-                             "parallel"]
+                             "parallel", "light_cull"]
     if "parallel" in which:  # the twin's meshes: 4 fake CPU devices
         import os
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
@@ -502,7 +526,8 @@ def main():
     GOLDEN_DIR.mkdir(parents=True, exist_ok=True)
     makers = {"replay": _replay_arrays, "fit": _fit_arrays,
               "composed": _composed_arrays, "tree": _tree_arrays,
-              "parallel": _parallel_arrays}
+              "parallel": _parallel_arrays,
+              "light_cull": _light_cull_arrays}
     for name in which:
         np.savez_compressed(GOLDEN_DIR / f"{name}.npz", **makers[name]())
         print(GOLDEN_DIR / f"{name}.npz")

@@ -204,6 +204,10 @@ __device__ __forceinline__ Node load_node(const float* nodes, int i) {
   return Node{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
 
+// The node rows the wrappers pass are the walk rows (PackedBVH.
+// nodes_walk): each box widened on the host as the group boxes are
+// (ops/kernels/traverse_mk3.pad_box), so a hit at a box face is not culled
+// by rounding, with no extra work per test.
 __device__ __forceinline__ bool node_slab(const Node& nd, const Ray& r,
                                           float best, float& tn) {
   return slab(nd.a.x, nd.a.y, nd.a.z, nd.a.w, nd.b.x, nd.b.y, r, best, tn);

@@ -32,11 +32,13 @@
 //                mega.py:594-604), or Baldwin–Weber on the `tris_bw`
 //                records (wide layouts only) whose stored plane normal is
 //                the shading normal.
-// It reads the host-built arrays unchanged (wide rows or binary nodes,
-// tris or tris_bw rows with a 128-float stride, leafmeta, the aux block of
-// ops/kernels/mega.build_aux) plus the port's own leafbox rows (one box per
-// 7-slot group of leaf slots), and writes the five outputs of one segment,
-// plus the records or the refract child.
+// It reads the host-built arrays (the walk rows of the wide or binary
+// layout, PackedBVH.wide_walk / nodes_walk, whose boxes are widened on the
+// host by ops/kernels/traverse_mk3.pad_box; tris or tris_bw rows with a
+// 128-float stride, leafmeta, the aux block of ops/kernels/mega.build_aux,
+// whose scene box is widened the same way) plus the port's own leafbox
+// rows (one box per 7-slot group of leaf slots), and writes the five
+// outputs of one segment, plus the records or the refract child.
 //
 // Semantics: a lane walks its own ray with pops pruned by its own best t.
 // The TPU kernel's per-tile union walk, scalar SMEM cursor, shared stale

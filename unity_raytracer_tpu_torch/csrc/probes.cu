@@ -23,10 +23,34 @@
 // the two table reads are 8 B per launch) and compute nothing: a bytes
 // bound, 2,073,600 elements = 16.6 MB = 5 us at 3.35 TB/s. What they
 // measure is the launch: its host enqueue and the device's block
-// dispatch, so each block covers `tile` elements with 256 threads striding
-// over it, which keeps the TPU probe's grid (2025, 254 and 32 blocks).
-// The TPU's re-fetch of a replicated block per grid step has no
-// counterpart: a block reads nodes[0] and tris[0] once, from L2.
+// dispatch, so each block covers `tile` elements, which keeps the TPU
+// probe's grid (2025, 254 and 32 blocks). The TPU's re-fetch of a
+// replicated block per grid step has no counterpart: a block reads
+// nodes[0] and tris[0] once, from L2.
+//
+// What held them back, and the design of dead_tables and dead_nob: by
+// Little's law the card's 3.35 TB/s at ~1 us of loaded latency needs ~3
+// MB of loads in flight. 256 threads making scalar 4-byte loads one at a
+// time kept ~1 MB in flight at tile 1024 (8 blocks an SM) and 32 KB at
+// tile 65536 (32 blocks): 56% and 14% of the bound. Now each thread moves
+// 16-byte float4 words (neighbouring threads on neighbouring words) and
+// issues a batch of up to kBatch loads before its first store, with the
+// streaming cache hints (__ldcs, __stcs: every byte is touched once). A
+// block has clamp(tile / 32, 64, 1024) threads, up to 8 words each: 64
+// at tile 1024 (4 words each; the 2025 blocks, 16 an SM, fit in one wave
+// where 256-thread blocks took two), 256 at 8192 (8 words), 1024 at 65536
+// (16 words in two batches, 128 KB in flight on each of the 32 SMs the
+// grid reaches). dead_tables reads its two table elements on one lane of
+// each warp once the first batch is in flight (dead_tile_vec). On an H100
+// (PERF.md) these shapes ran level with torch.mul at tiles 1024 and 8192,
+// where min(tile / 4, 1024) threads with __ldg ran ~0.0005-0.0008 ms
+// slower; at 65536 a ring of 1-D TMA bulk copies (global -> shared ->
+// global under mbarriers, up to 7 stages of 32 KB) was no faster (0.0103
+// against 0.0100 ms), so it is not used. x and o must be 16-byte aligned
+// (the wrappers check); a tile is a multiple of 256 elements, so every
+// block starts on a 16-byte word.
+// dead_persistent keeps the scalar body (dead_tile_scalar): one block per
+// SM of 256 threads striding over each tile in order.
 //
 // fma_chain is operations-bound: 2 FP32 operations per FMA (as the data
 // sheet's 67 TFLOP/s counts them), 1024 per element, against 8 B of
@@ -42,33 +66,89 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;    // dead_persistent's and fma_chain's blocks
+constexpr int kMinThreads = 64;  // dead_tables / dead_nob blocks: tile / 32
+constexpr int kMaxThreads = 1024;  // threads, clamped to these
+constexpr int kBatch = 8;        // float4 loads a thread holds at once
 constexpr int kFmaSteps = 1024;            // scripts/tpu_r2_session.py K
 constexpr float kFmaScale = 1.000000119f;  // 1 + 2^-23
 
-__device__ __forceinline__ void dead_tile(const float* __restrict__ x,
-                                          float* __restrict__ o,
-                                          long long base, int tile,
-                                          float n0, float t0) {
+// threads of a dead_tables / dead_nob block over `tile` elements
+int vec_threads(int tile) {
+  const int t = tile / 32;
+  return t < kMinThreads ? kMinThreads : t > kMaxThreads ? kMaxThreads : t;
+}
+
+// o = (x + nodes[0]) + tris[0], or x * 2 with NOB, over the block's
+// tile: float4 word w = threadIdx.x + k * blockDim.x of the tile, k = 0,
+// 1, ...; a batch of kBatch words is loaded before any of them is stored.
+// Every thread runs the first batch (a block has at most tile / 4
+// threads), after whose loads one lane of each warp reads the two table
+// elements and shuffles them to the others: the x loads are already in
+// flight while the warp waits for the table (measured level with
+// dead_nob; a read by every thread, or before the x loads, was
+// 0.0003-0.0005 ms slower at tiles 1024 and 8192).
+template <bool NOB>
+__device__ __forceinline__ void dead_tile_vec(const float4* __restrict__ x,
+                                              const float* __restrict__ nodes,
+                                              const float* __restrict__ tris,
+                                              float4* __restrict__ o,
+                                              int words) {
+  const unsigned warp = __activemask();
+  const long long base = static_cast<long long>(blockIdx.x) * words;
+  const int step = blockDim.x;
+  float n0 = 0.f, t0 = 0.f;
+  for (int w0 = threadIdx.x; w0 < words; w0 += kBatch * step) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (w0 + k * step < words) v[k] = __ldcs(x + base + w0 + k * step);
+    if (!NOB && w0 == static_cast<int>(threadIdx.x)) {
+      if ((threadIdx.x & 31) == 0) {
+        n0 = __ldg(nodes);
+        t0 = __ldg(tris);
+      }
+      n0 = __shfl_sync(warp, n0, 0);
+      t0 = __shfl_sync(warp, t0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (w0 + k * step < words) {
+        float4 r = v[k];
+        if (NOB) {
+          r.x = r.x * 2.0f; r.y = r.y * 2.0f;
+          r.z = r.z * 2.0f; r.w = r.w * 2.0f;
+        } else {
+          r.x = (r.x + n0) + t0; r.y = (r.y + n0) + t0;
+          r.z = (r.z + n0) + t0; r.w = (r.w + n0) + t0;
+        }
+        __stcs(o + base + w0 + k * step, r);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    dead_tables_kernel(const float4* __restrict__ x,
+                       const float* __restrict__ nodes,
+                       const float* __restrict__ tris,
+                       float4* __restrict__ o, int words) {
+  dead_tile_vec<false>(x, nodes, tris, o, words);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    dead_nob_kernel(const float4* __restrict__ x, float4* __restrict__ o,
+                    int words) {
+  dead_tile_vec<true>(x, nullptr, nullptr, o, words);
+}
+
+// the scalar body of the first port: kThreads threads striding a tile
+__device__ __forceinline__ void dead_tile_scalar(const float* __restrict__ x,
+                                                 float* __restrict__ o,
+                                                 long long base, int tile,
+                                                 float n0, float t0) {
   for (int i = threadIdx.x; i < tile; i += kThreads)
     o[base + i] = (x[base + i] + n0) + t0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    dead_tables_kernel(const float* __restrict__ x,
-                       const float* __restrict__ nodes,
-                       const float* __restrict__ tris, float* __restrict__ o,
-                       int tile) {
-  dead_tile(x, o, static_cast<long long>(blockIdx.x) * tile, tile, nodes[0],
-            tris[0]);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    dead_nob_kernel(const float* __restrict__ x, float* __restrict__ o,
-                    int tile) {
-  const long long base = static_cast<long long>(blockIdx.x) * tile;
-  for (int i = threadIdx.x; i < tile; i += kThreads)
-    o[base + i] = x[base + i] * 2.0f;
 }
 
 // gridDim.x blocks (one per SM) take tiles blockIdx.x, + gridDim.x, ...
@@ -80,7 +160,7 @@ __global__ void __launch_bounds__(kThreads)
                            int tile) {
   const float n0 = nodes[0], t0 = tris[0];
   for (long long b = blockIdx.x; b < n_tiles; b += gridDim.x)
-    dead_tile(x, o, b * tile, tile, n0, t0);
+    dead_tile_scalar(x, o, b * tile, tile, n0, t0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -101,6 +181,10 @@ bool bad_tiling(long long n, int tile) {
          n / tile > 0x7fffffffLL;
 }
 
+bool misaligned(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 != 0;
+}
+
 int launched() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
@@ -110,22 +194,28 @@ extern "C" {
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue, without a launch, for an n that
 // is not a positive multiple of `tile` or a tile that is not a multiple of
-// 256). x and o hold n floats; nodes and tris are read at element 0.
+// 256, and for dead_tables and dead_nob an x or o that is not 16-byte
+// aligned). x and o hold n floats; nodes and tris are read at element 0.
 
 int urt_dead_tables(const float* x, const float* nodes, const float* tris,
                     float* o, long long n, int tile, void* stream) {
-  if (bad_tiling(n, tile)) return static_cast<int>(cudaErrorInvalidValue);
-  dead_tables_kernel<<<static_cast<unsigned>(n / tile), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, nodes, tris,
-                                                            o, tile);
+  if (bad_tiling(n, tile) || misaligned(x) || misaligned(o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dead_tables_kernel<<<static_cast<unsigned>(n / tile), vec_threads(tile),
+                       0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), nodes, tris,
+      reinterpret_cast<float4*>(o), tile / 4);
   return launched();
 }
 
 int urt_dead_nob(const float* x, float* o, long long n, int tile,
                  void* stream) {
-  if (bad_tiling(n, tile)) return static_cast<int>(cudaErrorInvalidValue);
-  dead_nob_kernel<<<static_cast<unsigned>(n / tile), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x, o, tile);
+  if (bad_tiling(n, tile) || misaligned(x) || misaligned(o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dead_nob_kernel<<<static_cast<unsigned>(n / tile), vec_threads(tile), 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o),
+      tile / 4);
   return launched();
 }
 

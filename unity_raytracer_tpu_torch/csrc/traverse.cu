@@ -40,7 +40,10 @@
 // order. Every walk stops at the leaf's triangle count (the wide walk
 // carries it in its stack code, WideStack). The box test is the
 // kernels' slab test: 1/d clamped to +-1e-30, entry distance clamped at
-// 0, hit when tn <= tf and tn <= the running best t.
+// 0, hit when tn <= tf and tn <= the running best t. The table is the
+// walk rows (PackedBVH.nodes_walk / wide_walk): every node and child box
+// widened on the host by the group boxes' rule (traverse_mk3.pad_box), so
+// a ray aimed at a triangle's corner or edge keeps its hit.
 //
 // What bounds it on this card: divergent pointer chasing, not bytes or
 // FP32 (PERF.md: the walks ran at 4-7% of their bound). The 32 rays of a

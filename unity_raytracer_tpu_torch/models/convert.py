@@ -83,12 +83,13 @@ def packed_from_arrays(obj, device="cuda") -> PackedBVH:
     attributes, its ``MeshBVH`` too (the traversal epilogue reads its
     ``tri_verts`` and ``prim_index`` on the device). The rows-per-leaf
     counts come from the shape tags (``leaf_tag``, ``bw_tag``) the JAX
-    layout carries them in; the port's own group boxes and stack depths
-    are computed from the arrays."""
+    layout carries them in; the port's own group boxes, walk rows and stack
+    depths are computed from the arrays."""
     opt = lambda k: (None if getattr(obj, k, None) is None
                      else _t(getattr(obj, k), device))
     from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-        binary_stack_depth, group_boxes, wide_stack_depth)
+        binary_stack_depth, group_boxes, node_walk_rows, wide_stack_depth,
+        wide_walk_rows)
     leaf_tag = getattr(obj, "leaf_tag", None)
     bw_tag = getattr(obj, "bw_tag", None)
     wide = getattr(obj, "wide", None)
@@ -101,6 +102,8 @@ def packed_from_arrays(obj, device="cuda") -> PackedBVH:
         tris_bw=opt("tris_bw"),
         bw_rows_per_leaf=0 if bw_tag is None else int(np.shape(bw_tag)[0]),
         leafbox=_t(group_boxes(obj.tris, obj.leaf_prim), device),
+        nodes_walk=_t(node_walk_rows(obj.nodes), device),
+        wide_walk=None if wide is None else _t(wide_walk_rows(wide), device),
         stack_binary=binary_stack_depth(obj.nodes),
         stack_wide=-1 if wide is None else wide_stack_depth(wide))
 

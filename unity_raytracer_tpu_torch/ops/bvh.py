@@ -29,6 +29,13 @@ nearest-rounded boxes, as the twin does, and bounds its nodes with the
 outward ones: the tree is the twin's, and a node box differs from the
 twin's only where an outward-rounded reference box sets it
 (``tests/test_torch_presplit.py``).
+
+Another (ROADMAP Queue C #14): a ray aimed at a triangle's corner or edge
+hits it at a point a few ulps off the node boxes that bound the triangle
+exactly, and the twin's walks can cull that hit. ``MeshBVH.node_min`` /
+``node_max`` stay the twin's arrays; every walk tests them widened by
+``traverse_mk3.pad_box``: ``traverse`` here, and the kernels through the
+packed walk rows (``PackedBVH.nodes_walk`` / ``wide_walk``).
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ import torch
 from unity_raytracer_tpu_torch.ops.intersect import EPS, dot3
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    PALLAS_LEAF, PackedBVH, pack_bw, pack_rows)
+    PALLAS_LEAF, PackedBVH, node_walk_rows, pack_bw, pack_rows, pad_box,
+    wide_walk_rows)
 from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import widen
 
 LEAF_SIZE = 4
@@ -467,6 +475,9 @@ def traverse(bvh: MeshBVH, o: torch.Tensor, d: torch.Tensor,
     od, dd = o.detach(), d.detach()
     d_inv = _safe_inv(dd)
     tv = bvh.tri_verts.detach()
+    # the node boxes widened as the kernels' walk rows are (pad_box)
+    box_lo, box_hi = pad_box(torch.as_tensor(bvh.node_min),
+                             torch.as_tensor(bvh.node_max))
     best_t = (torch.full((n,), torch.inf, dtype=torch.float32,
                          device=o.device) if t_max is None
               else t_max.detach().to(torch.float32).clone())
@@ -480,8 +491,8 @@ def traverse(bvh: MeshBVH, o: torch.Tensor, d: torch.Tensor,
         node = cursor[lanes]
         ol, dl, bt = od[lanes], dd[lanes], best_t[lanes]
         bi = best_i[lanes]
-        box_hit, _ = _slab_enter(ol, d_inv[lanes], bvh.node_min[node],
-                                 bvh.node_max[node], bt)
+        box_hit, _ = _slab_enter(ol, d_inv[lanes], box_lo[node],
+                                 box_hi[node], bt)
         count = bvh.count[node].long()
         first = bvh.first[node].long()
         is_leaf = count > 0
@@ -574,7 +585,10 @@ def _meshless_packed(arity: int) -> PackedBVH:
         bvh=build(np.zeros((0, 3, 3), np.float32)),
         leafmeta=torch.zeros((1, 16)), wide=torch.from_numpy(wide),
         tris_bw=torch.zeros((1, 128)), bw_rows_per_leaf=1,
-        leafbox=torch.zeros((1, 16)), stack_binary=0, stack_wide=0)
+        leafbox=torch.zeros((1, 16)),
+        nodes_walk=torch.from_numpy(node_walk_rows(nodes)),
+        wide_walk=torch.from_numpy(wide_walk_rows(wide)),
+        stack_binary=0, stack_wide=0)
 
 
 def prepare_bvh(scene, cfg, device=None):

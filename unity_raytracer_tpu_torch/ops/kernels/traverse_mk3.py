@@ -16,13 +16,18 @@ the CUDA kernels read the same layout on either device:
 * ``tris_bw [n_leaves*bw_rpl, 128] f32`` — Baldwin–Weber records, 10 per
   row x 12 floats (unit normal, plane offset, two barycentric rows).
 
-Two more pieces belong to the port alone (the JAX package has no
+More pieces belong to the port alone (the JAX package has no
 counterpart): ``leafbox [n_leaves*rpl, 16] f32``, per ``tris`` row the
 boxes of its two 7-slot groups (``group_boxes``), which the kernels' leaf
-tests slab-test before testing a group's slots; and the worst push depth
-of each walk's stack (``binary_stack_depth``, ``wide_stack_depth``), which
-the wrappers hold to the kernels' stack capacities before a launch
-(``check_stack`` raises for a deeper tree).
+tests slab-test before testing a group's slots; ``nodes_walk`` and
+``wide_walk``, the copies of ``nodes`` and ``wide`` whose boxes are
+widened outward (``node_walk_rows``, ``wide_walk_rows``), which the
+kernels walk instead of the exact boxes, so that a hit a ray finds at a
+triangle's corner or edge is not culled by rounding (``pad_box``: one
+rule for every box a walk tests); and the worst push depth of each walk's
+stack (``binary_stack_depth``, ``wide_stack_depth``), which the wrappers
+hold to the kernels' stack capacities before a launch (``check_stack``
+raises for a deeper tree). ``nodes`` and ``wide`` stay the twin's arrays.
 
 The host stage works on CPU tensors (zero-copy numpy views);
 ``PackedBVH.to(device)`` moves the finished arrays.
@@ -57,10 +62,10 @@ PALLAS_LEAF = 14  # 14 tris x 9 floats = 126 lanes <= 128
 BW_PER_ROW = 10   # 10 tris x 12 floats = 120 lanes <= 128
 GROUP = 7         # leaf slots per group box (csrc/bvh_walk.cuh kGroup)
 # a triangle's hit is computed off the triangle by a few ulps of the
-# coordinates (more for a grazing ray) and of t: group_boxes widens a box
-# by GROUP_MARGIN of its largest |coordinate|, and the kernels test a group
+# coordinates (more for a grazing ray) and of t: pad_box widens a box by
+# GROUP_MARGIN of its largest |coordinate|, and the kernels test a group
 # up to the walk's bound x (1 + GROUP_MARGIN) (kGroupMargin), so that
-# culling errs only towards testing a group
+# culling errs only towards testing a box
 GROUP_MARGIN = 2.0 ** -16
 # stack entries per lane of the kernels' wide walks (traverse_wide.STACK
 # is this value) and of the ordered binary walk (the twin's
@@ -85,6 +90,10 @@ class PackedBVH:
     bw_rows_per_leaf: int = 0
     # [n_leaves*rpl, 16] f32 group boxes of the tris rows (group_boxes)
     leafbox: Optional[torch.Tensor] = None
+    # the rows the kernels walk: ``nodes`` and ``wide`` with every box
+    # widened (node_walk_rows, wide_walk_rows)
+    nodes_walk: Optional[torch.Tensor] = None
+    wide_walk: Optional[torch.Tensor] = None
     # worst push depth of the ordered binary walk (binary_stack_depth) and
     # of the wide walk of ``wide`` (wide_stack_depth); -1: not computed
     stack_binary: int = -1
@@ -157,7 +166,46 @@ def pack_rows(bvh, leaf_slots: int = PALLAS_LEAF) -> PackedBVH:
                      leaf_prim=torch.from_numpy(leaf_prim), bvh=bvh,
                      rows_per_leaf=rpl,
                      leafbox=torch.from_numpy(group_boxes(tris, leaf_prim)),
+                     nodes_walk=torch.from_numpy(node_walk_rows(nodes)),
                      stack_binary=binary_stack_depth(nodes))
+
+
+def pad_box(lo, hi):
+    """The box ``lo, hi [..., 3]`` (float32 numpy arrays, or tensors on
+    any device) widened outward by GROUP_MARGIN times its largest
+    |coordinate| and then by one ulp (``nextafter``): the rule of every box
+    that a walk or the fused kernel's scene gate tests (group boxes, the
+    node and wide rows' walk copies, the aux scene box), so that it holds
+    every hit its triangles report, which lie a few ulps off the exact
+    box. An infinite coordinate (an empty box) keeps its pad at 0."""
+    as_np = isinstance(lo, np.ndarray)
+    lo, hi = torch.as_tensor(lo), torch.as_tensor(hi)
+    pad = torch.nan_to_num(GROUP_MARGIN * torch.maximum(
+        lo.abs(), hi.abs()).amax(dim=-1, keepdim=True), posinf=0.0)
+    inf = torch.full_like(lo, torch.inf)
+    out = torch.nextafter(lo - pad, -inf), torch.nextafter(hi + pad, inf)
+    return tuple(t.numpy() for t in out) if as_np else out
+
+
+def node_walk_rows(nodes) -> np.ndarray:
+    """A copy of the binary node rows [Nn,16] with each box (lanes 0-5)
+    widened by ``pad_box``: the rows the kernels walk."""
+    out = np.array(nodes, np.float32, copy=True)
+    out[:, 0:3], out[:, 3:6] = pad_box(out[:, 0:3], out[:, 3:6])
+    return out
+
+
+def wide_walk_rows(wide) -> np.ndarray:
+    """A copy of the wide rows [Nw, 8*arity] with each present child's box
+    (lanes 8c..8c+5, count >= 0) widened by ``pad_box``; absent slots stay
+    as they are."""
+    out = np.array(wide, np.float32, copy=True)
+    v = out.reshape(out.shape[0], -1, 8)
+    present = v[..., 7:8] >= 0
+    lo, hi = pad_box(v[..., 0:3], v[..., 3:6])
+    v[..., 0:3] = np.where(present, lo, v[..., 0:3])
+    v[..., 3:6] = np.where(present, hi, v[..., 3:6])
+    return out
 
 
 def group_boxes(tris, leaf_prim) -> np.ndarray:
@@ -165,9 +213,8 @@ def group_boxes(tris, leaf_prim) -> np.ndarray:
     (two) groups of GROUP slots -> [R,16] f32: group g at lanes 8g..8g+5
     (min xyz, max xyz), the rest 0. A box is the exact min and max of the
     float32 vertices of the group's live slots (``leaf_prim >= 0``), as the
-    builder bounds a node, widened by GROUP_MARGIN times its largest
-    |coordinate| and then by one ulp (``np.nextafter``), outward, so that
-    it holds every hit its triangles report; dead slots do not widen it,
+    builder bounds a node, widened by ``pad_box``, so that it holds every
+    hit its triangles report; dead slots do not widen it,
     and a group with no live slot gets zeros (no leaf test reaches it: the
     slots fill from 0)."""
     tris = np.asarray(tris, np.float32)
@@ -179,11 +226,10 @@ def group_boxes(tris, leaf_prim) -> np.ndarray:
     used = live.any(axis=2)[..., None]
     lo = np.where(used, np.where(keep, v, inf).min(axis=(2, 3)), 0.0)
     hi = np.where(used, np.where(keep, v, -inf).max(axis=(2, 3)), 0.0)
-    pad = np.float32(GROUP_MARGIN) * np.maximum(
-        np.abs(lo), np.abs(hi)).max(axis=-1, keepdims=True)
+    lo, hi = pad_box(lo.astype(np.float32), hi.astype(np.float32))
     out = np.zeros((rows, 2, 8), np.float32)
-    out[:, :groups, 0:3] = np.where(used, np.nextafter(lo - pad, -inf), 0.0)
-    out[:, :groups, 3:6] = np.where(used, np.nextafter(hi + pad, inf), 0.0)
+    out[:, :groups, 0:3] = np.where(used, lo, 0.0)
+    out[:, :groups, 3:6] = np.where(used, hi, 0.0)
     return out.reshape(rows, 16)
 
 
@@ -355,12 +401,16 @@ def traverse_plain(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
     return best_t, slot, leaf
 
 
-def _layout_table(packed: PackedBVH, layout: str) -> torch.Tensor:
-    if layout in ("mk3", "mk4"):
-        return packed.nodes
-    if packed.wide is None:
-        raise ValueError("PackedBVH.wide missing — call widen() first")
-    return packed.wide
+def walk_table(packed: PackedBVH, layout: str) -> torch.Tensor:
+    """The rows a kernel of ``layout`` walks: ``nodes_walk`` for the
+    binary layouts ('mk3', 'mk4', the fused kernel's 'binary'), else
+    ``wide_walk``."""
+    table = packed.nodes_walk if layout in ("mk3", "mk4", "binary") \
+        else packed.wide_walk
+    if table is None:
+        raise ValueError(f"PackedBVH has no walk rows for {layout!r} — "
+                         f"build it with pack_rows / widen / prepare_bvh")
+    return table
 
 
 def check_overflow(overflow: torch.Tensor,
@@ -394,7 +444,7 @@ def walk_raw(layout: str, packed: PackedBVH, o: torch.Tensor,
     one per leaf slot of ``tris``: ``tris`` rows x 14) that it reads."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; have {LAYOUTS}")
-    table = _layout_table(packed, layout)
+    table = walk_table(packed, layout)
     if layout.startswith("wide") and table.shape[1] != 8 * int(layout[4:]):
         raise ValueError(f"layout {layout} needs a wide BVH of arity "
                          f"{layout[4:]}, got {table.shape[1] // 8}")

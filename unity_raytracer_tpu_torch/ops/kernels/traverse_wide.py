@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    _WIDE_STACK, PackedBVH, walk, wide_stack_depth)
+    _WIDE_STACK, PackedBVH, walk, wide_stack_depth, wide_walk_rows)
 
 # up to (arity-1) residual pushes per tree level plus arity at the
 # deepest expansion; the wide-tree depth stays far below this
@@ -41,7 +41,8 @@ DEFAULT_ARITY = 4
 
 def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
     """Collapse the packed binary tree into an arity-wide tree (numpy).
-    Returns ``packed`` with the ``wide`` field and its worst push depth
+    Returns ``packed`` with the ``wide`` field, the copy the kernels walk
+    (``wide_walk``, its boxes widened) and its worst push depth
     (``stack_wide``) filled.
 
     Collapse rule: start from a binary interior node's two children and
@@ -121,6 +122,7 @@ def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
                 out[r, b0 + 6] = float(widx[k])
                 out[r, b0 + 7] = 0.0
     return packed.replace(wide=torch.from_numpy(out),
+                          wide_walk=torch.from_numpy(wide_walk_rows(out)),
                           stack_wide=wide_stack_depth(out))
 
 

@@ -18,7 +18,11 @@ measured the TPU rather than render anything —
   element ``acc = v`` then ``FMA_STEPS`` times ``acc = acc * FMA_SCALE +
   v``, on a ``FMA_SHAPE`` float32 array -> ``fma_chain``.
 
-The kernels are ``csrc/probes.cu`` (``_lib.probes_lib``). Each wrapper
+The kernels are ``csrc/probes.cu`` (``_lib.probes_lib``): ``dead_tables``
+and ``dead_nob`` run ``block_threads(tile)`` threads a block, each moving
+16-byte float4 words, so ``x`` and the output must be 16-byte aligned (a
+misaligned ``x`` raises ``ValueError``); ``dead_persistent`` and
+``fma_chain`` run ``THREADS`` threads a block on scalars. Each wrapper
 launches its kernel for a CUDA tensor and runs its plain version
 (``*_plain``) for a CPU tensor, nothing else; it adds one to
 ``launches`` where it launches. The plain FMA chain takes each step in
@@ -42,7 +46,10 @@ KERNELS = ("dead_tables", "dead_nob", "dead_persistent", "fma_chain")
 # kernel launches since the counts were last reset (set them to 0 to start
 # a count); only the wrappers' CUDA branches add to them
 launches = dict.fromkeys(KERNELS, 0)
-THREADS = 256                  # threads per block (csrc/probes.cu)
+THREADS = 256                  # tile granularity; threads per block of
+                               # dead_persistent and fma_chain
+# dead_tables / dead_nob: clamp(tile / 32, MIN_THREADS, MAX_THREADS)
+MIN_THREADS, MAX_THREADS = 64, 1024
 TILES = (1024, 8192, 65536)    # elements per block (tpu_probe2.py:140)
 PERSISTENT_TILE = 1024         # tpu_probe2.py:168
 PROBE_N = 2073600              # 1920 x 1080 (tpu_probe2.py:56)
@@ -77,8 +84,15 @@ def fma_chain_plain(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def block_threads(tile: int) -> int:
+    """Threads per block of ``dead_tables`` and ``dead_nob`` at ``tile``
+    (``csrc/probes.cu``): up to 8 float4 words each, 64 to 1024 of
+    them."""
+    return min(max(tile // 32, MIN_THREADS), MAX_THREADS)
+
+
 def _check(name: str, x: torch.Tensor, tile: int | None = None,
-           tables=()) -> None:
+           tables=(), aligned: bool = False) -> None:
     for t in (x, *tables):
         if t.device != x.device or t.dtype != torch.float32 \
                 or not t.is_contiguous() or t.numel() == 0:
@@ -91,6 +105,10 @@ def _check(name: str, x: torch.Tensor, tile: int | None = None,
                          f"{tuple(x.shape)}, tile {tile})")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    if aligned and x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned (the kernel "
+                         f"moves float4 words); got a view at offset "
+                         f"{x.data_ptr() % 16} bytes")
 
 
 def _raise_if(err: int, name: str) -> None:
@@ -102,14 +120,23 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _aligned_out(x: torch.Tensor) -> torch.Tensor:
+    o = torch.empty_like(x)
+    if o.data_ptr() % 16:
+        raise ValueError("the output of a float4 kernel must be 16-byte "
+                         "aligned")
+    return o
+
+
 def dead_tables(x: torch.Tensor, nodes: torch.Tensor, tris: torch.Tensor,
                 tile: int) -> torch.Tensor:
     """``x + nodes[0, 0] + tris[0, 0]``, one block per ``tile`` elements
-    of ``x`` (1-D, a whole number of tiles)."""
+    of ``x`` (1-D, a whole number of tiles, 16-byte aligned on a card),
+    ``block_threads(tile)`` threads a block."""
     if x.device.type == "cpu":
         return dead_tables_plain(x, nodes, tris)
-    _check("dead_tables", x, tile, (nodes, tris))
-    o = torch.empty_like(x)
+    _check("dead_tables", x, tile, (nodes, tris), aligned=True)
+    o = _aligned_out(x)
     _raise_if(_lib.probes_lib().urt_dead_tables(
         x.data_ptr(), nodes.data_ptr(), tris.data_ptr(), o.data_ptr(),
         x.shape[0], tile, _stream(x)), "dead_tables")
@@ -118,11 +145,11 @@ def dead_tables(x: torch.Tensor, nodes: torch.Tensor, tris: torch.Tensor,
 
 
 def dead_nob(x: torch.Tensor, tile: int) -> torch.Tensor:
-    """``2x``, one block per ``tile`` elements."""
+    """``2x``, one block per ``tile`` elements (as ``dead_tables``)."""
     if x.device.type == "cpu":
         return dead_nob_plain(x)
-    _check("dead_nob", x, tile)
-    o = torch.empty_like(x)
+    _check("dead_nob", x, tile, aligned=True)
+    o = _aligned_out(x)
     _raise_if(_lib.probes_lib().urt_dead_nob(
         x.data_ptr(), o.data_ptr(), x.shape[0], tile, _stream(x)),
         "dead_nob")
