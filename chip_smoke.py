@@ -168,10 +168,13 @@ From the root of a checkout, on a machine with a CUDA card, it
     FMA chain at the twin's [131072, 1024]; warm-up launches, then 6
     launches each, queued behind a spin kernel and taking their inputs
     from a ring beyond the L2, device and host time per launch, blocks
-    and threads a block, and ``torch.mul`` on the same ring per tile),
+    and threads a block — for the persistent grid also its float4 words
+    a thread and tiles a block — and ``torch.mul`` on the same ring per
+    tile),
     with the counts set to 0 just before it and read just after; then
     each probe against its plain version on seeded inputs: the dead
-    kernels bit for bit on every lane of every tile, ``fma_chain`` on
+    kernels bit for bit on every lane of every tile (the persistent grid
+    on all 2,073,600), ``fma_chain`` on
     ``FMA_CHECK_ROWS`` rows at rtol ``FMA_RTOL``, and its SASS read for
     fused multiply-adds (``cuobjdump``, missing is a failure); each beside
     its bound (bytes over 3.35 TB/s, FP32 operations over 67 TFLOP/s); (b)
@@ -192,7 +195,22 @@ From the root of a checkout, on a machine with a CUDA card, it
     recipe of tests/test_torch_walk.py): walks #4, #5 and #2 (arity 4 and
     8), nearest and any-hit, and kernel #1's forward mode (Baldwin–Weber
     BVH4, Möller–Trumbore binary) against their brute-force plain
-    versions, 0 lanes off apart from the counted tie lanes.
+    versions, 0 lanes off apart from the counted tie lanes; then the
+    scene-box gates (Queue C #15): 16,384 rays aimed at ``mesh100k``'s
+    scene box (``utils/boxes.box_rays``, as tests/test_torch_gates.py
+    makes them: its corners, edges, face-setting vertices and face
+    planes):
+    ``nearest_hit`` on the composed routes 'auto', 'pallas', 'pallas3'
+    and 'wide' (BVH4, BVH8) with the widened gate box, and kernel #1's
+    forward mode (BW BVH4, MT binary), against the gate-free brute force
+    (an infinite gate box, the walks' plain version), 0 lanes off apart
+    from the counted tie lanes, with the lanes the exact box culls
+    counted;
+21. the single-device entry (``graft_entry.entry()``, the twin of
+    ``__graft_entry__.entry``): its inputs on the card, its step launching
+    walk #4 (counts set to 0 just before, read just after: the #4 row's
+    ``entry_launches``), its radiance against ``entry("cpu")``'s at
+    rtol = atol = 5e-4 on every ray, timed.
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
@@ -204,7 +222,8 @@ fused kernel's rows: modes (a), (b), (d) on Baldwin–Weber BVH4, the fork
 mode (a), #3, #4 and #5 also carry ``sharded_launches``, phase 17's
 launches per call, and those of #1 modes (a), (e) on BVH4 and (c)
 meshless and of #4 ``phase18_launches``, phase 18's; those of #1
-(a), (b), (d) and #4 ``bench_launches``, phase 19 (b)'s; the four probe
+(a), (b), (d) and #4 ``bench_launches``, phase 19 (b)'s; #4
+``entry_launches``, phase 21's; the four probe
 rows follow, ``launches`` the probe run's, the FMA chain's the bench's).
 Without
 a CUDA card, or without the package beside this file, it exits non-zero
@@ -297,6 +316,9 @@ NODE_ROW_BYTES, SLOT_BYTES = 48, 36
 # phase 20: rays aimed at triangle corners and edges (ROADMAP Queue C #14),
 # as tests/test_torch_walk.py builds them
 CORNER_RAYS, CORNER_SEED = 16384, 14
+# phase 20: the seed of the scene-box rays (ROADMAP Queue C #15,
+# utils/boxes.box_rays), the gate tests' seed
+BOX_SEED = 15
 # phase 19: the probes (csrc/probes.cu) and the TPU sites they replace
 PROBES_SRC = "unity_raytracer_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {"dead_tables": "scripts/tpu_probe2.py:151",
@@ -732,6 +754,156 @@ def corner_phase(dev, card, failures, scene, cfg, packed, packed8):
             failures.append(f"phase 20 kernel #1 forward {route}: {n_off} "
                             f"lanes off the plain version")
     log(f"phase 20: {time.perf_counter() - t0:.3f} s wall {card}")
+
+
+def box_phase(dev, card, failures, scene, cfg, packed, packed8):
+    """Phase 20 (ROADMAP Queue C #15): ``CORNER_RAYS`` rays aimed at
+    ``mesh100k``'s scene box (``utils/boxes.box_rays``). ``nearest_hit`` on the
+    composed routes ('auto', 'pallas', 'pallas3', 'wide' on BVH4 and
+    BVH8), with the scene's widened gate box, against the gate-free brute
+    force: ``nearest_hit`` on a scene whose gate box is infinite, its
+    walk replaced by the walks' plain version (``traverse_plain``, every
+    leaf slot); kernel #1's forward mode (Baldwin–Weber BVH4,
+    Möller–Trumbore binary) against its plain version on the infinite
+    box. ``nearest_hit``: t within ``TOL`` on every lane (a culled hit is
+    a miss there). A lane whose kind or index differs at that t is a tie
+    (the second mesh's pole touches the ground, and rays at shared
+    vertices meet several triangles) only if the route's mesh walk
+    (``traverse_any`` on the route) finds the reference walk's mesh t
+    within ``TOL`` there, both missing or both hitting; else it is off,
+    so a mesh hit the walk missed behind a ground triangle at the same t
+    cannot pass as a tie. #1: ``compare``'s criterion, ties
+    (``tied_lanes``) counted. 0 lanes off allowed. Also counts the lanes
+    the exact box culls."""
+    import dataclasses
+
+    import torch
+    from unity_raytracer_tpu_torch.ops.bvh import traverse_any
+    from unity_raytracer_tpu_torch.ops.intersect import nearest_hit
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    from unity_raytracer_tpu_torch.utils.boxes import box_rays
+    t0 = time.perf_counter()
+    o, d, _ = (torch.from_numpy(a).to(dev)
+               for a in box_rays(scene, CORNER_RAYS, BOX_SEED))
+    n = o.shape[0]
+    inf = torch.full((3,), torch.inf, device=dev)
+    free = dataclasses.replace(scene, gate_min=-inf, gate_max=inf)
+    exact = dataclasses.replace(scene, gate_min=scene.aabb_min,
+                                gate_max=scene.aabb_max)
+    walk_raw = m3.walk_raw
+    m3.walk_raw = lambda layout, pk, o_, d_, tmax, any_hit=False, **k: \
+        m3.traverse_plain(pk, o_, d_, tmax, any_hit)
+    try:
+        want = nearest_hit(free, o, d, bvh=packed, kernel="pallas")
+        want_mesh = traverse_any(packed, o, d, kernel="pallas")[0]
+    finally:
+        m3.walk_raw = walk_raw
+    hits = int((want.kind != 0).sum())
+    ties = {isect: tied_lanes(packed, o, d, isect) for isect in ("mt", "bw")}
+    ex = nearest_hit(exact, o, d, bvh=packed, kernel="pallas")
+    culled = int(((ex.kind == 0) & (want.kind != 0)).sum())
+    log(f"phase 20 box: {n} rays aimed at the mesh100k scene box's "
+        f"corners, edges, face-setting vertices and face planes; {hits} "
+        f"hit by the gate-free brute force, {culled} of them culled by the "
+        f"exact box; at an exact tie {int(ties['mt'].sum())} (Möller–"
+        f"Trumbore) and {int(ties['bw'].sum())} (Baldwin–Weber)")
+    for route, pk in (("auto", packed), ("pallas", packed),
+                      ("pallas3", packed), ("wide", packed),
+                      ("wide", packed8)):
+        got = nearest_hit(scene, o, d, bvh=pk, kernel=route)
+        got_mesh = traverse_any(pk, o, d, kernel=route)[0]
+        agree = lambda a, b: ((torch.isinf(a) & torch.isinf(b))
+                              | torch.isclose(a, b, **TOL))
+        off_t = ~agree(got.t, want.t)
+        differ = ~off_t & ((got.kind != want.kind)
+                           | (got.index != want.index))
+        walk_off = differ & ~agree(got_mesh, want_mesh)
+        tie = differ & ~walk_off
+        off = off_t | walk_off
+        n_off = int(off.sum())
+        what = route + (f"/arity{pk.wide.shape[1] // 8}"
+                        if route == "wide" else "")
+        log(f"phase 20 box nearest_hit {what}: {n_off} lanes off the "
+            f"gate-free brute force ({int(off_t.sum())} on t, "
+            f"{int(walk_off.sum())} on the mesh walk's t where kind or "
+            f"index differ), {int(tie.sum())} tie lanes (kind "
+            f"{int((tie & (got.kind != want.kind)).sum())}, index only "
+            f"{int((tie & (got.kind == want.kind)).sum())}) with the mesh "
+            f"walk's t within tolerance")
+        if walk_off.any():
+            i = torch.nonzero(walk_off)[:4, 0]
+            log(f"  first lanes off on the mesh walk: {i.tolist()} kind "
+                f"{got.kind[i].tolist()} vs {want.kind[i].tolist()}, mesh "
+                f"t {got_mesh[i].tolist()} vs {want_mesh[i].tolist()}")
+        if n_off:
+            failures.append(f"phase 20 box nearest_hit {what}: {n_off} "
+                            f"lanes off the gate-free brute force")
+    big = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    thr = torch.ones_like(o)
+    aux, aux_free = (mega.build_aux(sc, cfg.background)
+                     for sc in (scene, free))
+    kw = dict(n_lights=scene.lights.positions.shape[0],
+              n_spheres=scene.spheres.count, n_tris=scene.triangles.count,
+              max_bounces=cfg.max_bounces, light_cull=cfg.light_cull)
+    for isect, wide in (("bw", True), ("mt", False)):
+        rk = dict(kw, tri_isect=isect, use_wide=wide)
+        got = mega.trace_segment(packed, aux, 0, o, d, thr, big, **rk)
+        ref = mega.trace_segment_plain(packed, aux_free, 0, o, d, thr, big,
+                                       **rk)
+        cont = ref[4] >= 0
+        close = lambda a, b: torch.isclose(a, b, **TOL).all(-1)
+        off = ~close(got[0], ref[0]) | ((got[4] >= 0) != cont)
+        for a, b in zip(got[1:4], ref[1:4]):
+            off |= cont & ~close(a, b)
+        route = mega.segment_route(packed, isect, wide)
+        tie = ties[isect]
+        n_off, n_tie = int((off & ~tie).sum()), int((off & tie).sum())
+        log(f"phase 20 box kernel #1 forward {route}: {n_off} lanes off "
+            f"the gate-free plain version, {n_tie} tie lanes off")
+        if n_off:
+            compare(got, ref, torch)  # logs the first lanes off
+            failures.append(f"phase 20 box kernel #1 forward {route}: "
+                            f"{n_off} lanes off the gate-free plain version")
+    log(f"phase 20 box: {time.perf_counter() - t0:.3f} s wall {card}")
+
+
+def entry_phase(dev, card, failures):
+    """Phase 21: ``graft_entry.entry()`` (the twin's ``__graft_entry__``
+    forward step) on the card: its inputs on the card, ``fn(*args)``
+    launching the ordered binary walk (#4, counts set to 0 just before,
+    read just after), its radiance against ``entry("cpu")``'s at
+    ``TOL`` on every ray, 1 warm-up + 3 steps timed with CUDA events."""
+    import torch
+    from unity_raytracer_tpu_torch.graft_entry import entry
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    t0 = time.perf_counter()
+    fn, args = entry()
+    scene, o, d, bvh = args
+    on_card = all(t.is_cuda for t in (o, d, scene.meshes.verts,
+                                      bvh.nodes_walk))
+    for k in m3.launches:
+        m3.launches[k] = 0
+    got = fn(*args)
+    torch.cuda.synchronize()
+    walks = dict(m3.launches)
+    fn_c, args_c = entry("cpu")
+    want = fn_c(*args_c)
+    off = int((~torch.isclose(got.cpu(), want, **TOL).all(-1)).sum())
+    err = float((got.cpu() - want).abs().max())
+    ms = events_ms(lambda: fn(*args), 3)
+    log(f"phase 21 entry(): {tuple(got.shape)} radiance, inputs on the "
+        f"card {on_card}; walk launches {walks}; {off} of {got.shape[0]} "
+        f"rays outside rtol = atol = 5e-4 of entry('cpu'), max abs err "
+        f"{err:.3g}; {ms:.3f} ms a step; {time.perf_counter() - t0:.3f} s "
+        f"wall {card}")
+    if not on_card:
+        failures.append("entry(): inputs not on the card")
+    if not walks["mk4"]:
+        failures.append("entry(): fn launched no traverse_packet4 walk")
+    if off or not bool(torch.isfinite(got).all()):
+        failures.append(f"entry(): {off} rays off entry('cpu')")
+    return walks["mk4"]
 
 
 def nearest_work(o, d, verts, valid, kept):
@@ -2187,6 +2359,10 @@ def probe_phase(dev, card, failures):
             library_ms=lib_ms if name == "dead_nob" else None,
             steps={step: dict(tile=tile, grid=recs[step]["grid"],
                               threads=recs[step]["threads"],
+                              words_per_thread=recs[step].get(
+                                  "words_per_thread"),
+                              tiles_per_block=recs[step].get(
+                                  "tiles_per_block"),
                               ms=recs[step]["time_s"] * 1e3,
                               host_ms=recs[step]["host_s"] * 1e3,
                               bound_ms=recs[step]["bound_s"] * 1e3,
@@ -2194,12 +2370,17 @@ def probe_phase(dev, card, failures):
                    for step, tile, *_ in runs})
         lib = lambda step: (f", torch.mul {tile_lib[step]:.4f} ms"
                             if step in tile_lib else "")
+        words = lambda r: (f" ({r['words_per_thread']} float4 words a "
+                           f"thread, {r['tiles_per_block'][0]} / "
+                           f"{r['tiles_per_block'][1]} tiles a block)"
+                           if "words_per_thread" in r else "")
         log(f"phase 19 (a) {name}: {off} of {lanes} lanes off the plain "
             f"version (bit for bit, {len(runs)} tile(s)); "
             + "; ".join(f"{step} {recs[step]['time_s'] * 1e3:.4f} ms "
                         f"device, {recs[step]['host_s'] * 1e3:.4f} ms host "
                         f"per launch{lib(step)}, {recs[step]['grid']} "
-                        f"blocks of {recs[step]['threads']} threads, bound "
+                        f"blocks of {recs[step]['threads']} threads"
+                        f"{words(recs[step])}, bound "
                         f"{recs[step]['bound_s'] * 1e3:.4f} ms (bytes)"
                         for step, *_ in runs)
             + f"; plain {plain_ms:.4f} ms summed {card}")
@@ -2824,8 +3005,11 @@ def main():
     probe_rows["fma_chain"]["launches"] = bench_launches.pop(
         "probe_fma_chain")
     log(f"phase 19: {time.perf_counter() - t19:.3f} s wall")
-    # ---- corner- and edge-aimed rays (Queue C #14): phase 20 -------------------
+    # ---- corner-, edge- and box-aimed rays (Queue C #14, #15): phase 20 -----
     corner_phase(dev, card, failures, scene, cfg, packed, packed8)
+    box_phase(dev, card, failures, scene, cfg, packed, packed8)
+    # ---- the single-device entry (Queue A #16): phase 21 --------------------
+    entry_launches = entry_phase(dev, card, failures)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -2853,6 +3037,8 @@ def main():
             row["phase18_launches"] = rest[row["name"]]
         if row["name"] in bench_launches:
             row["bench_launches"] = bench_launches[row["name"]]
+        if row["name"] == WALKS["mk4"][0]:
+            row["entry_launches"] = entry_launches
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

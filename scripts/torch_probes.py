@@ -35,7 +35,10 @@ be served from the L2. ``grid`` and ``threads`` are the launch's blocks
 and threads per block. ``bound_s`` is the least time the card could
 take (``profiling.HBM_BPS`` and ``FP32_OPS``: bytes over 3.35 TB/s for
 the dead kernels, FP32 operations over 67 TFLOP/s for the chain). Each
-record carries the card's name and power limit. Appends to
+record carries the card's name and power limit. The persistent step
+also records its tiles per block (``tiles_per_block``, the most and the
+fewest) and float4 words per thread (``words_per_thread``, the most).
+Appends to
 ``out.jsonl`` (default ``build/torch_probes.jsonl``) and prints each
 record. No JAX.
 """
@@ -109,10 +112,16 @@ def run_probes(device, emit):
              2 * 4 * n, 0, None, None)
     ring = dead_ring(x1, probes.PERSISTENT_TILE)
     n = ring[0][0].shape[0]
+    blocks = probes.persistent_blocks(device)
+    tiles = probes.persistent_tiles(n // probes.PERSISTENT_TILE, blocks)
+    threads = probes.PERSISTENT_THREADS
     step("pallas_repblocks_tile1024_arbitrary",
          lambda x: probes.dead_persistent(x, nodes, tris), ring,
-         2 * 4 * n + 8, 0, probes.persistent_blocks(device), probes.THREADS,
-         tiles=n // probes.PERSISTENT_TILE)
+         2 * 4 * n + 8, 0, blocks, threads,
+         tiles=n // probes.PERSISTENT_TILE,
+         tiles_per_block=[max(tiles), min(tiles)],
+         words_per_thread=-(-max(tiles) * probes.PERSISTENT_TILE
+                            // 4 // threads))
     del ring
     xf = torch.ones(probes.FMA_SHAPE, dtype=torch.float32, device=device)
     step("vpu_fma", probes.fma_chain, [(xf,)], 2 * 4 * xf.numel(),

@@ -19,6 +19,7 @@ from unity_raytracer_tpu_torch.models.presets import get_preset
 from unity_raytracer_tpu_torch.ops import bvh as t_bvh
 from unity_raytracer_tpu_torch.ops.kernels import (
     mega, traverse_mk3, traverse_wide)
+from unity_raytracer_tpu_torch.utils import boxes
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
 
 torch.set_num_threads(1)
@@ -71,13 +72,13 @@ def test_prepare_bvh_equal(name, leaf, arity):
 def test_build_aux_equal(name):
     """The twin's aux block, but for its scene box (row 0, lanes 0-5),
     which the port widens as it widens every box a walk tests
-    (``traverse_mk3.pad_box``; ROADMAP Queue C #14)."""
+    (``utils/boxes.pad_box``; ROADMAP Queue C #14)."""
     from unity_raytracer_tpu.ops.pallas import mega as j_mega
     js, cfg = _jax_scene(name)
     got = mega.build_aux(_port_scene(name), cfg.background).numpy()
     want = np.asarray(j_mega.build_aux(js, cfg.background)).copy()
     lo, hi = want[0, 0:3].copy(), want[0, 3:6].copy()
-    want[0, 0:3], want[0, 3:6] = traverse_mk3.pad_box(lo, hi)
+    want[0, 0:3], want[0, 3:6] = boxes.pad_box(lo, hi)
     np.testing.assert_array_equal(got, want)
     assert (got[0, 0:3] < lo).all() and (got[0, 3:6] > hi).all()
 

@@ -185,6 +185,23 @@ def test_block_shapes():
     assert probes.block_threads(probes.THREADS) == 64
 
 
+def test_persistent_block_shape():
+    """``dead_persistent`` on the H100's 132 SMs: the 2025 tiles of 1024
+    split 16 / 15 over 45 / 87 blocks, taken in order, and with
+    ``PERSISTENT_THREADS`` threads a block every thread loads its whole
+    share (at most 8 float4 words: csrc/probes.cu kBatch) before its
+    first store."""
+    tiles = probes.persistent_tiles(2025, 132)
+    assert sum(tiles) == 2025
+    assert (tiles.count(16), tiles.count(15)) == (45, 87)
+    assert tiles == sorted(tiles, reverse=True)
+    t = probes.PERSISTENT_THREADS
+    assert t % 32 == 0 and probes.MIN_THREADS <= t <= probes.MAX_THREADS
+    words = probes.PERSISTENT_TILE // 4
+    assert -(-max(tiles) * words // t) <= 8
+    assert probes.persistent_tiles(5, 132)[:6] == [1, 1, 1, 1, 1, 0]
+
+
 @pytest.mark.parametrize("call", ["dead_tables", "dead_nob",
                                   "dead_persistent", "fma_chain"])
 def test_wrappers_raise_off_the_cpu_and_card(call):
@@ -217,14 +234,16 @@ def test_dead_kernels_equal_plain_on_card(cuda, tile):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("call", ["dead_tables", "dead_nob"])
+@pytest.mark.parametrize("call", ["dead_tables", "dead_nob",
+                                  "dead_persistent"])
 def test_misaligned_view_raises_on_card(cuda, call):
     """The float4 kernels take a 16-byte aligned ``x`` only: a view 4
     bytes into its storage raises ``ValueError`` before any launch."""
     x = torch.zeros(2 * 1024 + 1, device=cuda)[1:]
     assert x.data_ptr() % 16 == 4
     nodes, tris = (torch.zeros(s, device=cuda) for s in probes.TABLE_SHAPES)
-    args = (x, nodes, tris, 1024) if call == "dead_tables" else (x, 1024)
+    args = {"dead_tables": (x, nodes, tris, 1024), "dead_nob": (x, 1024),
+            "dead_persistent": (x, nodes, tris)}[call]
     before = dict(probes.launches)
     with pytest.raises(ValueError, match="aligned"):
         getattr(probes, call)(*args)
@@ -239,6 +258,22 @@ def test_dead_persistent_equals_plain_on_card(cuda):
     got = probes.dead_persistent(xp, nodes, tris)
     assert probes.launches["dead_persistent"] == before + 1
     want = probes.dead_tables_plain(xp, nodes, tris)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tiles", [5, 140, 2025])
+def test_dead_persistent_shapes_equal_plain_on_card(cuda, n_tiles):
+    """Grids with fewer tiles than blocks (blocks of one tile and of
+    none: warps past the block's words skip the table shuffle), with a
+    partial second round, and at the probe's 2025."""
+    rng = np.random.default_rng(n_tiles)
+    x = torch.from_numpy(rng.standard_normal(
+        n_tiles * probes.PERSISTENT_TILE).astype(np.float32)).to(cuda)
+    nodes, tris = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda) for s in probes.TABLE_SHAPES)
+    got = probes.dead_persistent(x, nodes, tris)
+    want = probes.dead_tables_plain(x, nodes, tris)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

@@ -47,6 +47,7 @@ from unity_raytracer_tpu_torch.ops import bvh as t_bvh
 from unity_raytracer_tpu_torch.ops.kernels import mega
 from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as t_mk3
 from unity_raytracer_tpu_torch.ops.kernels import traverse_wide
+from unity_raytracer_tpu_torch.utils import boxes
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
 
 torch.set_num_threads(1)
@@ -104,7 +105,7 @@ def test_group_boxes_hold_live_slots_rounded_outward(packed):
     want_hi = np.where(live[..., None, None], pts, -inf).max(axis=(2, 3))
     used = live.any(axis=2)
     lo, hi = want_lo[used], want_hi[used]
-    pad = np.float32(t_mk3.GROUP_MARGIN) * np.maximum(
+    pad = np.float32(boxes.GROUP_MARGIN) * np.maximum(
         np.abs(lo), np.abs(hi)).max(axis=-1, keepdims=True)
     np.testing.assert_array_equal(box[..., 0:3][used],
                                   np.nextafter(lo - pad, -inf))
@@ -130,7 +131,7 @@ def test_dead_slots_do_not_widen_a_box():
     np.testing.assert_array_equal(got, t_mk3.group_boxes(tris, leaf_prim))
     assert (got[1, 8:] == 0).all() and (got[2] == 0).all()
     v = tris[0, 63:90].reshape(3, 9)  # group 1's live slots
-    pad = np.float32(t_mk3.GROUP_MARGIN) * np.abs(v).max()
+    pad = np.float32(boxes.GROUP_MARGIN) * np.abs(v).max()
     assert got[0, 8] == np.nextafter(v[:, 0::3].min() - pad, -np.inf)
     assert got[0, 11] == np.nextafter(v[:, 0::3].max() + pad, np.inf)
 
@@ -187,7 +188,7 @@ def test_culling_drops_no_hit(packed, isect, seed):
     hits = 0
     for s0, ok, t in mega._slot_chunks(o3, d3, rec):
         b = box[s0:s0 + ok.shape[1]].T[:, None, :]
-        bound = t + t.abs() * t_mk3.GROUP_MARGIN
+        bound = t + t.abs() * boxes.GROUP_MARGIN
         passes = mega._slab(tuple(c[:, None] for c in o3),
                             tuple(c[:, None] for c in inv3), b, bound)
         assert bool((passes | ~ok).all())
@@ -494,7 +495,7 @@ def _leaf_phase_model(tris, leafbox, o, d, pend, any_hit):
                                                      - 1), half].T
         b = bound[o_]
         keep = mega._slab(o[o_].unbind(-1), inv[o_].unbind(-1), box,
-                          b + b.abs() * t_mk3.GROUP_MARGIN)
+                          b + b.abs() * boxes.GROUP_MARGIN)
         queue += [(int(g[lane]) << 5) | int(own[lane]) for lane in range(WARP)
                   if valid[lane] and bool(keep[lane])]
         h = 0

@@ -113,9 +113,13 @@ def mesh_grad_scene(mod_scene, mod_meshgen, mod_camera, **kw):
 
 def leaves(obj, prefix=""):
     """{path: numpy array} over the array fields of a (nested) dataclass
-    — JAX pytrees and port containers share field names."""
+    — JAX pytrees and port containers share field names; a port field
+    the twin lacks (metadata ``port_only``, ``Scene.gate_min`` /
+    ``gate_max``) is left out and tested on its own."""
     out = {}
     for f in dataclasses.fields(obj):
+        if f.metadata.get("port_only"):
+            continue
         v = getattr(obj, f.name)
         if dataclasses.is_dataclass(v):
             out.update(leaves(v, prefix + f.name + "."))

@@ -32,6 +32,6 @@ on the CUDA card unless the caller asks for the CPU.
     python -m unity_raytracer_tpu_torch bench          # mesh100k, one JSON line
 """
 
-__version__ = "0.1.0"
+from unity_raytracer_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

@@ -206,7 +206,7 @@ __device__ __forceinline__ Node load_node(const float* nodes, int i) {
 
 // The node rows the wrappers pass are the walk rows (PackedBVH.
 // nodes_walk): each box widened on the host as the group boxes are
-// (ops/kernels/traverse_mk3.pad_box), so a hit at a box face is not culled
+// (utils/boxes.pad_box), so a hit at a box face is not culled
 // by rounding, with no extra work per test.
 __device__ __forceinline__ bool node_slab(const Node& nd, const Ray& r,
                                           float best, float& tn) {

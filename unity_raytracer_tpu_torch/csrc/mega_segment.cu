@@ -34,7 +34,7 @@
 //                the shading normal.
 // It reads the host-built arrays (the walk rows of the wide or binary
 // layout, PackedBVH.wide_walk / nodes_walk, whose boxes are widened on the
-// host by ops/kernels/traverse_mk3.pad_box; tris or tris_bw rows with a
+// host by utils/boxes.pad_box; tris or tris_bw rows with a
 // 128-float stride, leafmeta, the aux block of ops/kernels/mega.build_aux,
 // whose scene box is widened the same way) plus the port's own leafbox
 // rows (one box per 7-slot group of leaf slots), and writes the five

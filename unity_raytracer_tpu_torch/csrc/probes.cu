@@ -41,7 +41,7 @@
 // where 256-thread blocks took two), 256 at 8192 (8 words), 1024 at 65536
 // (16 words in two batches, 128 KB in flight on each of the 32 SMs the
 // grid reaches). dead_tables reads its two table elements on one lane of
-// each warp once the first batch is in flight (dead_tile_vec). On an H100
+// each warp once the first batch is in flight (dead_words). On an H100
 // (PERF.md) these shapes ran level with torch.mul at tiles 1024 and 8192,
 // where min(tile / 4, 1024) threads with __ldg ran ~0.0005-0.0008 ms
 // slower; at 65536 a ring of 1-D TMA bulk copies (global -> shared ->
@@ -49,8 +49,16 @@
 // against 0.0100 ms), so it is not used. x and o must be 16-byte aligned
 // (the wrappers check); a tile is a multiple of 256 elements, so every
 // block starts on a 16-byte word.
-// dead_persistent keeps the scalar body (dead_tile_scalar): one block per
-// SM of 256 threads striding over each tile in order.
+// dead_persistent runs the same body (dead_words) on its persistent grid:
+// one block per SM (132 on the H100), block b taking tiles b, b + 132,
+// ... in order (2025 tiles of 1024: 45 blocks take 16, 87 take 15). A
+// block's words are its tiles' words in that order, so a thread's batch
+// of kBatch words spans the block's next tiles: with its kPersistThreads
+// = 512 threads (utils/probes.PERSISTENT_THREADS) a tile's 256 words take half
+// the block, and each thread loads its whole share (at most 8 words)
+// before its first store, 64 KB in flight on each SM (8.6 MB on the
+// card). The scalar body of the first port (256 threads, one 4-byte load
+// at a time each, ~135 KB in flight on the card) ran at 34% of the bound.
 //
 // fma_chain is operations-bound: 2 FP32 operations per FMA (as the data
 // sheet's 67 TFLOP/s counts them), 1024 per element, against 8 B of
@@ -66,10 +74,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;    // dead_persistent's and fma_chain's blocks
+constexpr int kThreads = 256;    // fma_chain's blocks; tile granularity
 constexpr int kMinThreads = 64;  // dead_tables / dead_nob blocks: tile / 32
 constexpr int kMaxThreads = 1024;  // threads, clamped to these
 constexpr int kBatch = 8;        // float4 loads a thread holds at once
+constexpr int kPersistThreads = 512;  // dead_persistent's blocks
 constexpr int kFmaSteps = 1024;            // scripts/tpu_r2_session.py K
 constexpr float kFmaScale = 1.000000119f;  // 1 + 2^-23
 
@@ -80,29 +89,44 @@ int vec_threads(int tile) {
 }
 
 // o = (x + nodes[0]) + tris[0], or x * 2 with NOB, over the block's
-// tile: float4 word w = threadIdx.x + k * blockDim.x of the tile, k = 0,
-// 1, ...; a batch of kBatch words is loaded before any of them is stored.
-// Every thread runs the first batch (a block has at most tile / 4
-// threads), after whose loads one lane of each warp reads the two table
-// elements and shuffles them to the others: the x loads are already in
-// flight while the warp waits for the table (measured level with
-// dead_nob; a read by every thread, or before the x loads, was
-// 0.0003-0.0005 ms slower at tiles 1024 and 8192).
-template <bool NOB>
-__device__ __forceinline__ void dead_tile_vec(const float4* __restrict__ x,
-                                              const float* __restrict__ nodes,
-                                              const float* __restrict__ tris,
-                                              float4* __restrict__ o,
-                                              int words) {
-  const unsigned warp = __activemask();
-  const long long base = static_cast<long long>(blockIdx.x) * words;
+// `count` float4 words. They lie in runs of `words` (a tile each): run r
+// starts at word (first + r * stride) * words; without RUNS there is one
+// run, the tile `first`. Thread t takes the block's words j = t + k *
+// blockDim.x, k = 0, 1, ...; a batch of kBatch of them is loaded before
+// any of them is stored, so a persistent block's batch spans its next
+// tiles in order. Every warp with a lane below `count` runs the first
+// batch on those lanes (dead_tables and dead_nob: a block has at most tile
+// / 4 threads, so all of them), and after its loads one lane of each warp
+// reads the two table elements and shuffles them to the others: the x
+// loads are already in flight while the warp waits for the table
+// (measured level with dead_nob; a read by every thread, or before the x
+// loads, was 0.0003-0.0005 ms slower at tiles 1024 and 8192).
+template <bool NOB, bool RUNS>
+__device__ __forceinline__ void dead_words(const float4* __restrict__ x,
+                                           const float* __restrict__ nodes,
+                                           const float* __restrict__ tris,
+                                           float4* __restrict__ o,
+                                           int words, long long first,
+                                           long long stride, int count) {
+  // the lanes of this warp that run the first batch (without RUNS all of
+  // them: a block has at most tile / 4 threads)
+  const int lanes = count - static_cast<int>(threadIdx.x & ~31u);
+  const unsigned warp = !RUNS ? __activemask() : __activemask() &
+      (lanes >= 32 ? 0xffffffffu : lanes > 0 ? (1u << lanes) - 1u : 0u);
   const int step = blockDim.x;
+  // the global word of the block's word j (recomputed at the store: an
+  // array of them cost the float4 kernels registers and spill)
+  const long long base = first * words;
+  const auto at = [&](int j) -> long long {
+    return RUNS ? (first + (j / words) * stride) * words + j % words
+                : base + j;
+  };
   float n0 = 0.f, t0 = 0.f;
-  for (int w0 = threadIdx.x; w0 < words; w0 += kBatch * step) {
+  for (int w0 = threadIdx.x; w0 < count; w0 += kBatch * step) {
     float4 v[kBatch];
 #pragma unroll
     for (int k = 0; k < kBatch; ++k)
-      if (w0 + k * step < words) v[k] = __ldcs(x + base + w0 + k * step);
+      if (w0 + k * step < count) v[k] = __ldcs(x + at(w0 + k * step));
     if (!NOB && w0 == static_cast<int>(threadIdx.x)) {
       if ((threadIdx.x & 31) == 0) {
         n0 = __ldg(nodes);
@@ -113,7 +137,7 @@ __device__ __forceinline__ void dead_tile_vec(const float4* __restrict__ x,
     }
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
-      if (w0 + k * step < words) {
+      if (w0 + k * step < count) {
         float4 r = v[k];
         if (NOB) {
           r.x = r.x * 2.0f; r.y = r.y * 2.0f;
@@ -122,7 +146,7 @@ __device__ __forceinline__ void dead_tile_vec(const float4* __restrict__ x,
           r.x = (r.x + n0) + t0; r.y = (r.y + n0) + t0;
           r.z = (r.z + n0) + t0; r.w = (r.w + n0) + t0;
         }
-        __stcs(o + base + w0 + k * step, r);
+        __stcs(o + at(w0 + k * step), r);
       }
     }
   }
@@ -133,34 +157,27 @@ __global__ void __launch_bounds__(kMaxThreads)
                        const float* __restrict__ nodes,
                        const float* __restrict__ tris,
                        float4* __restrict__ o, int words) {
-  dead_tile_vec<false>(x, nodes, tris, o, words);
+  dead_words<false, false>(x, nodes, tris, o, words, blockIdx.x, 0, words);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
     dead_nob_kernel(const float4* __restrict__ x, float4* __restrict__ o,
                     int words) {
-  dead_tile_vec<true>(x, nullptr, nullptr, o, words);
+  dead_words<true, false>(x, nullptr, nullptr, o, words, blockIdx.x, 0,
+                          words);
 }
 
-// the scalar body of the first port: kThreads threads striding a tile
-__device__ __forceinline__ void dead_tile_scalar(const float* __restrict__ x,
-                                                 float* __restrict__ o,
-                                                 long long base, int tile,
-                                                 float n0, float t0) {
-  for (int i = threadIdx.x; i < tile; i += kThreads)
-    o[base + i] = (x[base + i] + n0) + t0;
-}
-
-// gridDim.x blocks (one per SM) take tiles blockIdx.x, + gridDim.x, ...
-__global__ void __launch_bounds__(kThreads)
-    dead_persistent_kernel(const float* __restrict__ x,
+// gridDim.x blocks (one per SM) take tiles blockIdx.x, + gridDim.x, ...,
+// below n_tiles, in order: the block's words are those tiles' words
+__global__ void __launch_bounds__(kPersistThreads)
+    dead_persistent_kernel(const float4* __restrict__ x,
                            const float* __restrict__ nodes,
                            const float* __restrict__ tris,
-                           float* __restrict__ o, long long n_tiles,
-                           int tile) {
-  const float n0 = nodes[0], t0 = tris[0];
-  for (long long b = blockIdx.x; b < n_tiles; b += gridDim.x)
-    dead_tile_scalar(x, o, b * tile, tile, n0, t0);
+                           float4* __restrict__ o, int n_tiles, int words) {
+  const int b = static_cast<int>(blockIdx.x), g = static_cast<int>(gridDim.x);
+  const int mine = n_tiles > b ? (n_tiles - 1 - b) / g + 1 : 0;
+  dead_words<false, true>(x, nodes, tris, o, words, blockIdx.x, gridDim.x,
+                          mine * words);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -194,8 +211,8 @@ extern "C" {
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue, without a launch, for an n that
 // is not a positive multiple of `tile` or a tile that is not a multiple of
-// 256, and for dead_tables and dead_nob an x or o that is not 16-byte
-// aligned). x and o hold n floats; nodes and tris are read at element 0.
+// 256, and for the dead kernels an x or o that is not 16-byte aligned).
+// x and o hold n floats; nodes and tris are read at element 0.
 
 int urt_dead_tables(const float* x, const float* nodes, const float* tris,
                     float* o, long long n, int tile, void* stream) {
@@ -219,15 +236,21 @@ int urt_dead_nob(const float* x, float* o, long long n, int tile,
   return launched();
 }
 
-// `blocks`: the persistent grid (the card's SM count).
+// `blocks`: the persistent grid (the card's SM count) of kPersistThreads
+// threads; a block's words must fit an int.
 int urt_dead_persistent(const float* x, const float* nodes,
                         const float* tris, float* o, long long n, int tile,
                         int blocks, void* stream) {
-  if (bad_tiling(n, tile) || blocks <= 0)
+  if (bad_tiling(n, tile) || misaligned(x) || misaligned(o) ||
+      blocks <= 0 ||
+      ((n / tile + blocks - 1) / blocks) * (tile / 4) +
+              kBatch * kPersistThreads >
+          0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  dead_persistent_kernel<<<blocks, kThreads, 0,
+  dead_persistent_kernel<<<blocks, kPersistThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      x, nodes, tris, o, n / tile, tile);
+      reinterpret_cast<const float4*>(x), nodes, tris,
+      reinterpret_cast<float4*>(o), static_cast<int>(n / tile), tile / 4);
   return launched();
 }
 

@@ -42,7 +42,7 @@
 // kernels' slab test: 1/d clamped to +-1e-30, entry distance clamped at
 // 0, hit when tn <= tf and tn <= the running best t. The table is the
 // walk rows (PackedBVH.nodes_walk / wide_walk): every node and child box
-// widened on the host by the group boxes' rule (traverse_mk3.pad_box), so
+// widened on the host by the group boxes' rule (utils/boxes.pad_box), so
 // a ray aimed at a triangle's corner or edge keeps its hit.
 //
 // What bounds it on this card: divergent pointer chasing, not bytes or

@@ -22,6 +22,7 @@ from unity_raytracer_tpu_torch.models.scene import (
     Lights, Materials, MeshSet, Scene, Spheres, Triangles)
 from unity_raytracer_tpu_torch.ops.bvh import MeshBVH
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import PackedBVH
+from unity_raytracer_tpu_torch.utils.boxes import pad_box
 
 
 def _t(x, device) -> torch.Tensor:
@@ -35,8 +36,12 @@ def _materials(m, device) -> Materials:
 
 
 def scene_from_arrays(obj, device="cuda") -> Scene:
-    """A port ``Scene`` from an object with the JAX ``Scene`` attributes."""
+    """A port ``Scene`` from an object with the JAX ``Scene`` attributes;
+    its gate box (``Scene.gate_min`` / ``gate_max``) is padded on the
+    host."""
     s, t, m, lt = obj.spheres, obj.triangles, obj.meshes, obj.lights
+    gate = pad_box(np.array(obj.aabb_min, np.float32),
+                   np.array(obj.aabb_max, np.float32))
     return Scene(
         spheres=Spheres(centers=_t(s.centers, device),
                         radius_sq=_t(s.radius_sq, device),
@@ -59,7 +64,8 @@ def scene_from_arrays(obj, device="cuda") -> Scene:
                       valid=_t(lt.valid, device),
                       ambient=_t(lt.ambient, device)),
         aabb_min=_t(obj.aabb_min, device),
-        aabb_max=_t(obj.aabb_max, device))
+        aabb_max=_t(obj.aabb_max, device),
+        gate_min=_t(gate[0], device), gate_max=_t(gate[1], device))
 
 
 def mesh_bvh_from_arrays(obj, device=None) -> MeshBVH:

@@ -14,11 +14,17 @@ identity and tie-break order. Geometry is float32 throughout.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from unity_raytracer_tpu_torch.utils.boxes import pad_box
+
+# marks a field the twin's container does not have (the parity tests'
+# field walk, tests/torch_parity.leaves, leaves it out)
+PORT_ONLY = {"port_only": True}
 
 
 def _to(obj, device):
@@ -111,7 +117,16 @@ class Lights(_Movable):
 
 @dataclass(frozen=True)
 class Scene(_Movable):
-    """Three primitive categories + lights + the scene AABB (Scene.cs:17-41)."""
+    """Three primitive categories + lights + the scene AABB (Scene.cs:17-41).
+
+    ``aabb_min`` / ``aabb_max`` hold the twin's exact box. Every scene-box
+    gate tests ``gate_min`` / ``gate_max`` instead: the same box widened
+    by ``utils/boxes.pad_box``, as the walks' node boxes are, so that a
+    hit a few ulps outside the exact box (on a face or corner it shares
+    with the geometry) is not culled. The builders compute it once on the
+    host; ``.to()`` and ``dataclasses.replace`` carry it, so a replace of
+    the exact box must pass its gate box too. An empty scene's box (min
+    +finfo.max, max -finfo.max) stays inverted, as the twin's does."""
 
     spheres: Spheres
     triangles: Triangles
@@ -119,6 +134,8 @@ class Scene(_Movable):
     lights: Lights
     aabb_min: torch.Tensor  # [3]
     aabb_max: torch.Tensor  # [3]
+    gate_min: torch.Tensor = field(metadata=PORT_ONLY)  # [3]
+    gate_max: torch.Tensor = field(metadata=PORT_ONLY)  # [3]
 
     @property
     def has_dielectrics(self) -> bool:
@@ -325,6 +342,11 @@ class SceneBuilder:
             aabb_min = np.full(3, np.float32(np.finfo(np.float32).max))
             aabb_max = np.full(3, np.float32(np.finfo(np.float32).min))
 
+        aabb_min = aabb_min.astype(np.float32)
+        aabb_max = aabb_max.astype(np.float32)
+        gate_min, gate_max = pad_box(aabb_min, aabb_max)
         return Scene(spheres=spheres, triangles=triangles, meshes=meshes,
-                     lights=lights, aabb_min=_t(aabb_min, device, np.float32),
-                     aabb_max=_t(aabb_max, device, np.float32))
+                     lights=lights, aabb_min=_t(aabb_min, device),
+                     aabb_max=_t(aabb_max, device),
+                     gate_min=_t(gate_min, device),
+                     gate_max=_t(gate_max, device))

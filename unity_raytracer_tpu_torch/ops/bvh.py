@@ -34,7 +34,7 @@ Another (ROADMAP Queue C #14): a ray aimed at a triangle's corner or edge
 hits it at a point a few ulps off the node boxes that bound the triangle
 exactly, and the twin's walks can cull that hit. ``MeshBVH.node_min`` /
 ``node_max`` stay the twin's arrays; every walk tests them widened by
-``traverse_mk3.pad_box``: ``traverse`` here, and the kernels through the
+``utils/boxes.pad_box``: ``traverse`` here, and the kernels through the
 packed walk rows (``PackedBVH.nodes_walk`` / ``wide_walk``).
 """
 
@@ -50,9 +50,10 @@ import torch
 from unity_raytracer_tpu_torch.ops.intersect import EPS, dot3
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
-    PALLAS_LEAF, PackedBVH, node_walk_rows, pack_bw, pack_rows, pad_box,
+    PALLAS_LEAF, PackedBVH, node_walk_rows, pack_bw, pack_rows,
     wide_walk_rows)
 from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import widen
+from unity_raytracer_tpu_torch.utils.boxes import pad_box
 
 LEAF_SIZE = 4
 SAH_BINS = 16

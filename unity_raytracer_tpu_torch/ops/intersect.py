@@ -209,7 +209,8 @@ def nearest_hit(scene, o: torch.Tensor, d: torch.Tensor, bvh=None,
     """Nearest hit over the three categories, by brute force or through
     the BVH (``ops/bvh.traverse_any``), combined mesh -> sphere -> loose
     triangle with strict ``>`` (Scene.cs:43-122) and masked by the scene
-    AABB (Scene.cs:54).
+    AABB (Scene.cs:54), tested as ``Scene.gate_min`` / ``gate_max`` (the
+    exact box widened by ``pad_box``, so that a hit on its face is kept).
 
     Without a BVH, a mesh of >= 2048 triangles with ``kernel`` 'pallas*'
     or 'mega' goes through the brute-force nearest-triangle kernel
@@ -255,7 +256,7 @@ def nearest_hit(scene, o: torch.Tensor, d: torch.Tensor, bvh=None,
         kind = torch.where(upd, torch.full((), kind_c, **i32), kind)
         index = torch.where(upd, i_c, index)
 
-    in_box = ray_aabb(o, d, scene.aabb_min[None, :], scene.aabb_max[None, :])
+    in_box = ray_aabb(o, d, scene.gate_min[None, :], scene.gate_max[None, :])
     t = torch.where(in_box, t, INF)
     kind = torch.where(in_box, kind, torch.full((), KIND_NONE, **i32))
     index = torch.where(in_box, index, torch.full((), -1, **i32))

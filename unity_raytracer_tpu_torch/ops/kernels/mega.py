@@ -52,8 +52,8 @@ layout does not change it and it checks the kernel's walks and the host
 packers independently; everything else follows the kernel's formulas.
 
 aux rows (``build_aux``):
-  row 0:            aabb_min(0:3) aabb_max(3:6) (widened) ambient(6:9)
-                    bg(9:12)
+  row 0:            gate_min(0:3) gate_max(3:6) (the Scene's widened box)
+                    ambient(6:9) bg(9:12)
   rows lights:      pos(0:3) intensity(3:6) valid(6)
   rows spheres:     center(0:3) r2(3) valid(4) matid(5)
   rows loose tris:  v0 v1 v2 (0:9) normal(9:12) valid(12) matid(13)
@@ -69,7 +69,7 @@ import torch
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
     _BIG, _WIDE_STACK, BW_PER_ROW, EPS, PALLAS_LEAF, STACK_BINARY, PackedBVH,
-    check_overflow, check_stack, pad_box, walk_table)
+    check_overflow, check_stack, walk_table)
 from unity_raytracer_tpu_torch.ops.shade import SHADOW_EPS
 
 _TINY = 1e-30
@@ -111,8 +111,10 @@ def build_aux(scene, background) -> torch.Tensor:
     """Pack scene constants into the [rows,128] f32 aux block (module
     docstring), on the scene's device, with device ops only (no copy to
     the host, so no sync inside a frame). Unlike the twin's, its scene box
-    is widened by ``traverse_mk3.pad_box``, as the walk rows' boxes are:
-    the fused kernel's scene gate then keeps a hit at the box's face."""
+    is the scene's gate box (``Scene.gate_min`` / ``gate_max``: the exact
+    box widened once by ``utils/boxes.pad_box``, as the walk rows' boxes
+    are), the box every composed gate tests too: the fused kernel's scene
+    gate then keeps a hit at the box's face."""
     lt, sp, tr = scene.lights, scene.spheres, scene.triangles
     dev = scene.aabb_min.device
     f = lambda x: x.to(torch.float32).reshape(x.shape[0], -1)
@@ -125,8 +127,7 @@ def build_aux(scene, background) -> torch.Tensor:
             for m in (sp.materials, tr.materials,
                       scene.meshes.mesh_materials)]
     blocks = [
-        torch.cat([*pad_box(scene.aabb_min, scene.aabb_max), lt.ambient,
-                   bg])[None],
+        torch.cat([scene.gate_min, scene.gate_max, lt.ambient, bg])[None],
         torch.cat([f(lt.positions), f(lt.intensities), f(lt.valid)], 1),
         torch.cat([f(sp.centers), f(sp.radius_sq), f(sp.valid),
                    idx(0, sp.count)], 1),

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from unity_raytracer_tpu_torch.ops.kernels import _lib
+from unity_raytracer_tpu_torch.utils.boxes import pad_box
 
 EPS = 1e-5
 _BIG = 3.0e38
@@ -61,12 +62,6 @@ _BIG = 3.0e38
 PALLAS_LEAF = 14  # 14 tris x 9 floats = 126 lanes <= 128
 BW_PER_ROW = 10   # 10 tris x 12 floats = 120 lanes <= 128
 GROUP = 7         # leaf slots per group box (csrc/bvh_walk.cuh kGroup)
-# a triangle's hit is computed off the triangle by a few ulps of the
-# coordinates (more for a grazing ray) and of t: pad_box widens a box by
-# GROUP_MARGIN of its largest |coordinate|, and the kernels test a group
-# up to the walk's bound x (1 + GROUP_MARGIN) (kGroupMargin), so that
-# culling errs only towards testing a box
-GROUP_MARGIN = 2.0 ** -16
 # stack entries per lane of the kernels' wide walks (traverse_wide.STACK
 # is this value) and of the ordered binary walk (the twin's
 # traverse_mk4.STACK): csrc/bvh_walk.cuh kStackWide, kStackBinary
@@ -168,23 +163,6 @@ def pack_rows(bvh, leaf_slots: int = PALLAS_LEAF) -> PackedBVH:
                      leafbox=torch.from_numpy(group_boxes(tris, leaf_prim)),
                      nodes_walk=torch.from_numpy(node_walk_rows(nodes)),
                      stack_binary=binary_stack_depth(nodes))
-
-
-def pad_box(lo, hi):
-    """The box ``lo, hi [..., 3]`` (float32 numpy arrays, or tensors on
-    any device) widened outward by GROUP_MARGIN times its largest
-    |coordinate| and then by one ulp (``nextafter``): the rule of every box
-    that a walk or the fused kernel's scene gate tests (group boxes, the
-    node and wide rows' walk copies, the aux scene box), so that it holds
-    every hit its triangles report, which lie a few ulps off the exact
-    box. An infinite coordinate (an empty box) keeps its pad at 0."""
-    as_np = isinstance(lo, np.ndarray)
-    lo, hi = torch.as_tensor(lo), torch.as_tensor(hi)
-    pad = torch.nan_to_num(GROUP_MARGIN * torch.maximum(
-        lo.abs(), hi.abs()).amax(dim=-1, keepdim=True), posinf=0.0)
-    inf = torch.full_like(lo, torch.inf)
-    out = torch.nextafter(lo - pad, -inf), torch.nextafter(hi + pad, inf)
-    return tuple(t.numpy() for t in out) if as_np else out
 
 
 def node_walk_rows(nodes) -> np.ndarray:

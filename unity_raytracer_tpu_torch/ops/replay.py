@@ -309,9 +309,29 @@ def replay_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     return acc
 
 
+def _soup_box(scene: Scene):
+    """The mesh-soup box of the proxy-risk diagnostic (a conservative
+    entry test for proxy lanes whose shadow rays the hard forward never
+    queried): the valid mesh vertices' box, widened on each face by the
+    scene gate's pad there (``aabb_min - gate_min``, ``gate_max -
+    aabb_max``), so that it under-counts no lane whose shadow ray meets
+    the mesh on its face. While the mesh lies in the scene box that pad is
+    at least ``pad_box``'s own for the soup box (2^-16 of the largest
+    |coordinate|), and it takes two operations a face where ``pad_box``
+    takes twelve. Built once per diagnostic replay: the mesh vertices may
+    be fit parameters, so it is not kept with the scene."""
+    mv = scene.meshes.verts                                     # [M,3,3]
+    mvalid = scene.meshes.valid[:, None, None]
+    lo = torch.where(mvalid, mv, torch.inf).amin(dim=(0, 1))
+    hi = torch.where(mvalid, mv, -torch.inf).amax(dim=(0, 1))
+    return (lo - (scene.aabb_min - scene.gate_min),
+            hi + (scene.gate_max - scene.aabb_max))
+
+
 def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
                    st_rec: torch.Tensor, cfg: RenderConfig,
-                   diag_proxy: torch.Tensor | None = None):
+                   diag_proxy: torch.Tensor | None = None,
+                   diag_box=None):
     """Soft-shadow direct lighting from the recorded mesh min-t plus
     recomputed sphere / loose-triangle occluder minima, with no traversal.
     ``st_rec [N,L]`` is the min-mode record (_BIG when unoccluded);
@@ -320,8 +340,9 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
     [N,3] (unrolled over lights, spheres, loose triangles).
 
     ``diag_proxy`` ([N] bool, the segment's proxy-adopted lanes) switches
-    on the bias diagnostics: the return is then ``(color, frozen_any,
-    frozen_band_any, proxy_risk_any)`` as in the twin (``:354-365``)."""
+    on the bias diagnostics, with ``diag_box`` the ``_soup_box``: the
+    return is then ``(color, frozen_any, frozen_band_any,
+    proxy_risk_any)`` as in the twin (``:354-365``)."""
     temp = cfg.diff.soft_shadow_temp
     stt = cfg.diff.straight_through
     color = mats.ambient * scene.lights.ambient[None, :]
@@ -341,12 +362,7 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
                                  device=p.device)
         frozen_band_any = torch.zeros_like(frozen_any)
         proxy_risk_any = torch.zeros_like(frozen_any)
-        # mesh-soup AABB (conservative entry test for proxy lanes whose
-        # shadow rays the hard forward never queried)
-        mv = scene.meshes.verts                                 # [M,3,3]
-        mvalid = scene.meshes.valid[:, None, None]
-        mesh_lo = torch.where(mvalid, mv, torch.inf).amin(dim=(0, 1))
-        mesh_hi = torch.where(mvalid, mv, -torch.inf).amax(dim=(0, 1))
+        mesh_lo, mesh_hi = diag_box
 
     acc = color
     for l in range(L):
@@ -380,24 +396,24 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
                              tt, _BIG)
             st = torch.minimum(st, tt)
         # scene-AABB gate (the twin's shadow_min_t inherits IntersectRay's
-        # early-out)
-        in_box = isect.ray_aabb(so, ldir, scene.aabb_min[None, :],
-                                scene.aabb_max[None, :])
+        # early-out), on the widened gate box as shadow_min_t tests it
+        in_box = isect.ray_aabb(so, ldir, scene.gate_min[None, :],
+                                scene.gate_max[None, :])
         st = torch.where(in_box, st, _BIG)
         stl = st_rec[:, l]
         if diag:
             # biased regime: the mesh record wins the occluder min and
             # occludes — its d(st) chain terms are frozen below
-            mesh_wins = ((stl < st) & (stl * stl < ld2)
-                         & scene.lights.valid[l] & (ln >= 0.0))
-            band = (stl * stl - ld2).abs() < 30.0 * max(temp, 1e-6)
+            lit = scene.lights.valid[l] & (ln >= 0.0)
+            stl2 = stl * stl
+            mesh_wins = (stl < st) & (stl2 < ld2) & lit
+            band = (stl2 - ld2).abs() < 30.0 * max(temp, 1e-6)
             far = stl * (1.0 + FROZEN_MARGIN)
             frozen_any = frozen_any | (
-                (far < st) & (far * far < ld2) & scene.lights.valid[l]
-                & (ln >= 0.0))
+                (far < st) & (far * far < ld2) & lit)
             frozen_band_any = frozen_band_any | (mesh_wins & band)
             proxy_risk_any = proxy_risk_any | (
-                diag_proxy & scene.lights.valid[l] & (ln >= 0.0)
+                diag_proxy & lit
                 & isect.ray_aabb(so, ldir, mesh_lo[None, :],
                                  mesh_hi[None, :]))
         # min with the frozen mesh record; <= keeps the differentiable
@@ -460,6 +476,7 @@ def replay_radiance_soft(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     ht = cfg.diff.soft_hit_temp
     stt = cfg.diff.straight_through
     diag_acc = [0, 0, 0]
+    soup = _soup_box(scene) if with_diag else None
 
     for s in range(_n_segments(B, live_segments)):
         t_rec, n_rec = rt_all[s].detach(), rn_all[s].detach()
@@ -517,7 +534,8 @@ def replay_radiance_soft(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         mats = _take(mats_table, comb2)
         if with_diag:
             local, frozen, frozen_band, proxy_risk = _soft_lighting(
-                scene, p, n, -d, mats, st_rec, cfg, diag_proxy=use_proxy)
+                scene, p, n, -d, mats, st_rec, cfg, diag_proxy=use_proxy,
+                diag_box=soup)
             diag_acc[0] += int((frozen & shade_mask).sum())
             diag_acc[1] += int((frozen_band & shade_mask).sum())
             diag_acc[2] += int(proxy_risk.sum())

@@ -92,7 +92,8 @@ def shadow_min_t(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     negative one culls the lane; ``any_hit`` stops a lane at its first
     occluder (hard shadows only: its t is an occluder, not the nearest);
     ``overflow`` as in ``ops/bvh.traverse_any``. Without a BVH, the mesh
-    is tested by the plain ``[N, M]`` brute force, as in the twin."""
+    is tested by the plain ``[N, M]`` brute force, as in the twin. The
+    scene-box gate tests ``Scene.gate_min`` / ``gate_max``."""
     if bvh is None:
         t_m = isect.ray_triangles(o, d, scene.meshes.verts,
                                   scene.meshes.valid).amin(dim=1)
@@ -105,8 +106,8 @@ def shadow_min_t(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     t_t = isect.ray_triangles(o, d, scene.triangles.verts,
                               scene.triangles.valid)
     t = torch.minimum(torch.minimum(t_m, t_s.amin(dim=1)), t_t.amin(dim=1))
-    in_box = isect.ray_aabb(o, d, scene.aabb_min[None, :],
-                            scene.aabb_max[None, :])
+    in_box = isect.ray_aabb(o, d, scene.gate_min[None, :],
+                            scene.gate_max[None, :])
     return torch.where(in_box, t, torch.inf)
 
 

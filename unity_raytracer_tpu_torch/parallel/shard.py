@@ -144,11 +144,12 @@ def shard_scene_mesh_tris(scene: Scene, mesh) -> Scene:
 def _fold_rest(rest: Scene, o, d, t_m, i_m):
     """Fold mesh candidates ``(t_m, i_m)`` into the replicated categories
     (``nearest_hit`` on the rest scene), as the reference orders them:
-    the scene-box gate applies to mesh candidates too (Scene.cs:54), and
-    mesh triangles are tested first, so a later category wins only on a
-    strictly smaller t (Scene.cs:94,107): an equal-t mesh candidate keeps
-    the win. Returns ``(t, kind, index, mesh_wins)``."""
-    in_box = ray_aabb(o, d, rest.aabb_min[None, :], rest.aabb_max[None, :])
+    the scene-box gate (``Scene.gate_min`` / ``gate_max``, which
+    ``_rest_scene`` carries) applies to mesh candidates too (Scene.cs:54),
+    and mesh triangles are tested first, so a later category wins only on
+    a strictly smaller t (Scene.cs:94,107): an equal-t mesh candidate
+    keeps the win. Returns ``(t, kind, index, mesh_wins)``."""
+    in_box = ray_aabb(o, d, rest.gate_min[None, :], rest.gate_max[None, :])
     t_m = torch.where(in_box, t_m, INF)
     hit_rest = nearest_hit(rest, o, d)
     mesh_wins = (t_m <= hit_rest.t) & torch.isfinite(t_m)

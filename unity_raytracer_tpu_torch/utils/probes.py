@@ -18,11 +18,13 @@ measured the TPU rather than render anything —
   element ``acc = v`` then ``FMA_STEPS`` times ``acc = acc * FMA_SCALE +
   v``, on a ``FMA_SHAPE`` float32 array -> ``fma_chain``.
 
-The kernels are ``csrc/probes.cu`` (``_lib.probes_lib``): ``dead_tables``
-and ``dead_nob`` run ``block_threads(tile)`` threads a block, each moving
-16-byte float4 words, so ``x`` and the output must be 16-byte aligned (a
-misaligned ``x`` raises ``ValueError``); ``dead_persistent`` and
-``fma_chain`` run ``THREADS`` threads a block on scalars. Each wrapper
+The kernels are ``csrc/probes.cu`` (``_lib.probes_lib``): the three dead
+kernels share one body, each thread moving 16-byte float4 words, so
+``x`` and the output must be 16-byte aligned (a misaligned ``x`` raises
+``ValueError``); ``dead_tables`` and ``dead_nob`` run
+``block_threads(tile)`` threads a block, ``dead_persistent``
+``persistent_blocks`` blocks of ``PERSISTENT_THREADS``; ``fma_chain``
+runs ``THREADS`` threads a block on scalars. Each wrapper
 launches its kernel for a CUDA tensor and runs its plain version
 (``*_plain``) for a CPU tensor, nothing else; it adds one to
 ``launches`` where it launches. The plain FMA chain takes each step in
@@ -47,7 +49,9 @@ KERNELS = ("dead_tables", "dead_nob", "dead_persistent", "fma_chain")
 # a count); only the wrappers' CUDA branches add to them
 launches = dict.fromkeys(KERNELS, 0)
 THREADS = 256                  # tile granularity; threads per block of
-                               # dead_persistent and fma_chain
+                               # fma_chain
+PERSISTENT_THREADS = 512       # threads per block of dead_persistent
+                               # (csrc/probes.cu kPersistThreads)
 # dead_tables / dead_nob: clamp(tile / 32, MIN_THREADS, MAX_THREADS)
 MIN_THREADS, MAX_THREADS = 64, 1024
 TILES = (1024, 8192, 65536)    # elements per block (tpu_probe2.py:140)
@@ -162,14 +166,22 @@ def persistent_blocks(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def persistent_tiles(n_tiles: int, blocks: int) -> list:
+    """Tiles each block of ``dead_persistent``'s grid takes: block b the
+    tiles b, b + blocks, ... below ``n_tiles``."""
+    return [len(range(b, n_tiles, blocks)) for b in range(blocks)]
+
+
 def dead_persistent(x: torch.Tensor, nodes: torch.Tensor,
                     tris: torch.Tensor) -> torch.Tensor:
     """``dead_tables`` at ``PERSISTENT_TILE`` on a persistent grid:
-    ``persistent_blocks`` blocks taking the tiles in order."""
+    ``persistent_blocks`` blocks of ``PERSISTENT_THREADS`` taking the
+    tiles in order; ``x`` 16-byte aligned on a card."""
     if x.device.type == "cpu":
         return dead_tables_plain(x, nodes, tris)
-    _check("dead_persistent", x, PERSISTENT_TILE, (nodes, tris))
-    o = torch.empty_like(x)
+    _check("dead_persistent", x, PERSISTENT_TILE, (nodes, tris),
+           aligned=True)
+    o = _aligned_out(x)
     _raise_if(_lib.probes_lib().urt_dead_persistent(
         x.data_ptr(), nodes.data_ptr(), tris.data_ptr(), o.data_ptr(),
         x.shape[0], PERSISTENT_TILE, persistent_blocks(x.device),
