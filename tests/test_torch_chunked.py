@@ -1,4 +1,4 @@
-"""PyTorch port: chunked frames, the tile orchestrator and the metrics log.
+"""PyTorch port: chunked frames and the tile orchestrator.
 
 ``render`` with ``cfg.ray_chunk`` below the pixel count traces the
 block-ordered rays chunk by chunk (the twin's ``_frame_chunked``). On the
@@ -10,8 +10,7 @@ The dielectric tree applies ``tree_cap`` per chunk, as the twin does: the
 chunked frame is the chunks' radiance, and the lanes dropped are the sum
 of each chunk's ``trace_radiance_tree_stats``. The
 fit CLI's target renders chunked, as the twin's does, and equals it. The
-orchestrator's three cases and the logger are tests/test_utils.py's
-(``:35-100``).
+orchestrator's three cases are tests/test_utils.py's (``:44-100``).
 """
 
 import numpy as np
@@ -30,7 +29,6 @@ from unity_raytracer_tpu_torch.models.presets import (
 from unity_raytracer_tpu_torch.ops.render import (
     render, resolve_mode, trace_radiance, trace_radiance_tree_stats)
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
-from unity_raytracer_tpu_torch.utils.logging import MetricsLogger, read_jsonl
 from unity_raytracer_tpu_torch.utils.swizzle import unswizzle_image
 from unity_raytracer_tpu_torch.utils.orchestrator import (
     render_tiled_orchestrated)
@@ -156,15 +154,6 @@ def test_fit_cli_target_equals_twin():
                                bvh=j_bvh.prepare_bvh(js, jcfg)))
     np.testing.assert_allclose(target.numpy(), want, **TOL)
     assert want.std() > 0.01
-
-
-def test_metrics_logger(tmp_path):
-    p = tmp_path / "m.jsonl"
-    log = MetricsLogger(p)
-    log.log("step", loss=1.5, i=3)
-    log.log("step", loss=0.5, i=4)
-    recs = read_jsonl(p)
-    assert len(recs) == 2 and recs[1]["loss"] == 0.5
 
 
 def test_orchestrator_matches_direct():

@@ -75,7 +75,6 @@ def test_import_leaves_jax_out():
             "unity_raytracer_tpu_torch.parallel.dryrun",
             "unity_raytracer_tpu_torch.parallel.shard",
             "unity_raytracer_tpu_torch.utils.image",
-            "unity_raytracer_tpu_torch.utils.logging",
             "unity_raytracer_tpu_torch.utils.orchestrator",
             "unity_raytracer_tpu_torch.utils.profiling",
             "unity_raytracer_tpu_torch.utils.swizzle"]

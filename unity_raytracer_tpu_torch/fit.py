@@ -24,6 +24,13 @@ The parameters are leaf tensors with ``requires_grad``, installed into a
 template scene with ``dataclasses.replace``; the optimizer is
 ``torch.optim.Adam`` (optax's adam defaults are its defaults). Mesh
 vertices reach the BVH's epilogue through ``ops/bvh.bind_verts``.
+
+Spans (``utils/profiling.span``): each step of ``fit`` is a ``fit.step``
+(attribute ``step``) over ``fit.value_and_grad``, ``fit.grad_transform``
+(the caller's hook), ``fit.adam``, ``fit.sync`` (the loss read back),
+``fit.prefix_guard`` and ``fit.checkpoint`` where they run; the chunked
+composed step splits into ``composed.chunk`` (attribute ``i``) over
+``composed.forward`` and ``composed.backward``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from unity_raytracer_tpu_torch.ops.render import (
     render, resolve_mode, trace_radiance)
 from unity_raytracer_tpu_torch.utils import checkpoint as ckpt
 from unity_raytracer_tpu_torch.utils.config import DiffConfig, RenderConfig
+from unity_raytracer_tpu_torch.utils.profiling import span
 from unity_raytracer_tpu_torch.utils.swizzle import swizzle_image
 
 # Parameter classes that can be optimized; each names a leaf of the scene.
@@ -191,11 +199,14 @@ def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
         scene = set_params(template, leaves)
         loss = torch.zeros((), dtype=torch.float32, device=o.device)
         for i in range(oc.shape[0]):
-            rad = trace_radiance(scene, oc[i], dc[i], rcfg,
-                                 bvh=_bind(bvh, scene))
-            l_i = (((rad - tc[i]) ** 2) * wc[i][:, None]).sum()
-            l_i.backward()
-            loss = loss + l_i.detach()
+            with span("composed.chunk", i=i):
+                with span("composed.forward"):
+                    rad = trace_radiance(scene, oc[i], dc[i], rcfg,
+                                         bvh=_bind(bvh, scene))
+                    l_i = (((rad - tc[i]) ** 2) * wc[i][:, None]).sum()
+                with span("composed.backward"):
+                    l_i.backward()
+                loss = loss + l_i.detach()
         return loss / denom, rp._grads(leaves, denom)
 
     return value_and_grad_fn
@@ -304,28 +315,35 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
     losses = []
     step = start_step - 1
     for step in range(start_step, cfg.steps):
-        loss, grads = value_and_grad(params)
-        if grad_transform is not None:
-            grads = grad_transform(grads, params)
-        for k, p in params.items():
-            p.grad = grads[k]
-        optimizer.step()
-        losses.append(float(loss))
-        if cfg.log_every and (step % cfg.log_every == 0
-                              or step == cfg.steps - 1):
-            print(f"[fit] step {step:5d} loss {losses[-1]:.6e}")
-        if (measure_prefix is not None and cfg.prefix_guard_every
-                and (step + 1) % cfg.prefix_guard_every == 0
-                and live_prefix < rcfg.max_bounces + 1):
-            depth_now = measure_prefix(params)
-            if depth_now + 1 > live_prefix:
-                live_prefix = min(rcfg.max_bounces + 1, depth_now + 1)
-                print(f"[fit] live-prefix guard: bounce depth grew to "
-                      f"{depth_now}; replay prefix now {live_prefix}")
-        if (cfg.checkpoint_every and cfg.checkpoint_path
-                and (step + 1) % cfg.checkpoint_every == 0):
-            ckpt.save_checkpoint(cfg.checkpoint_path, step + 1, params,
-                                 optimizer)
+        with span("fit.step", step=step):
+            with span("fit.value_and_grad"):
+                loss, grads = value_and_grad(params)
+            if grad_transform is not None:
+                with span("fit.grad_transform"):
+                    grads = grad_transform(grads, params)
+            with span("fit.adam"):
+                for k, p in params.items():
+                    p.grad = grads[k]
+                optimizer.step()
+            with span("fit.sync"):
+                losses.append(float(loss))
+            if cfg.log_every and (step % cfg.log_every == 0
+                                  or step == cfg.steps - 1):
+                print(f"[fit] step {step:5d} loss {losses[-1]:.6e}")
+            if (measure_prefix is not None and cfg.prefix_guard_every
+                    and (step + 1) % cfg.prefix_guard_every == 0
+                    and live_prefix < rcfg.max_bounces + 1):
+                with span("fit.prefix_guard"):
+                    depth_now = measure_prefix(params)
+                if depth_now + 1 > live_prefix:
+                    live_prefix = min(rcfg.max_bounces + 1, depth_now + 1)
+                    print(f"[fit] live-prefix guard: bounce depth grew to "
+                          f"{depth_now}; replay prefix now {live_prefix}")
+            if (cfg.checkpoint_every and cfg.checkpoint_path
+                    and (step + 1) % cfg.checkpoint_every == 0):
+                with span("fit.checkpoint"):
+                    ckpt.save_checkpoint(cfg.checkpoint_path, step + 1,
+                                         params, optimizer)
 
     final = {k: v.detach() for k, v in params.items()}
     return FitResult(scene=set_params(template, final), params=final,

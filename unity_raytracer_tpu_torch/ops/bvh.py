@@ -54,6 +54,7 @@ from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
     wide_walk_rows)
 from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import widen
 from unity_raytracer_tpu_torch.utils.boxes import pad_box
+from unity_raytracer_tpu_torch.utils.profiling import span
 
 LEAF_SIZE = 4
 SAH_BINS = 16
@@ -610,35 +611,57 @@ def prepare_bvh(scene, cfg, device=None):
     the plain per-lane walk. Winding is canonicalized against the stored
     normals so the epilogue re-derives them. ``cfg.bvh_presplit`` > 0
     builds on SBVH references (``presplit_refs``, the numpy builder):
-    leaves then hold duplicated triangles and ``prim_index`` repeats."""
+    leaves then hold duplicated triangles and ``prim_index`` repeats.
+
+    Spans (``utils/profiling.span``): ``bvh.prepare`` over ``bvh.winding``
+    (the mesh read back and canonicalized), ``bvh.build``,
+    ``bvh.pack_rows``, ``bvh.widen``, ``bvh.pack_bw``, ``bvh.leafmeta`` and
+    ``bvh.to_device``, each where its branch runs it."""
+    with span("bvh.prepare"):
+        return _prepare_bvh(scene, cfg, device)
+
+
+def _prepare_bvh(scene, cfg, device):
     device = scene.aabb_min.device if device is None else device
-    verts, flip = canonical_winding(scene.meshes.verts.cpu().numpy(),
-                                    scene.meshes.normals.cpu().numpy(),
-                                    return_flip=True)
-    valid = scene.meshes.valid.cpu().numpy()
+    with span("bvh.winding"):
+        verts, flip = canonical_winding(scene.meshes.verts.cpu().numpy(),
+                                        scene.meshes.normals.cpu().numpy(),
+                                        return_flip=True)
+        valid = scene.meshes.valid.cpu().numpy()
     bins = getattr(cfg, "bvh_bins", SAH_BINS) or SAH_BINS
     pad = getattr(cfg, "bvh_pad", 0.0) or 0.0
     presplit = getattr(cfg, "bvh_presplit", 0.0) or 0.0
     if getattr(cfg, "kernel", "auto") == "xla":
-        b = build(verts, valid, sah_bins=bins, aabb_pad=pad,
-                  presplit=presplit)
-        return dataclasses.replace(b, canonical=True, flip=flip).to(device)
+        with span("bvh.build"):
+            b = build(verts, valid, sah_bins=bins, aabb_pad=pad,
+                      presplit=presplit)
+        with span("bvh.to_device"):
+            return dataclasses.replace(b, canonical=True,
+                                       flip=flip).to(device)
     if not valid.any():
-        return _meshless_packed(getattr(cfg, "bvh_arity", 4)).to(device)
+        with span("bvh.to_device"):
+            return _meshless_packed(getattr(cfg, "bvh_arity", 4)).to(device)
     leaf = getattr(cfg, "bvh_leaf", PALLAS_LEAF) or PALLAS_LEAF
-    b = build(verts, valid, leaf_size=leaf, sah_bins=bins, aabb_pad=pad,
-              presplit=presplit)
+    with span("bvh.build"):
+        b = build(verts, valid, leaf_size=leaf, sah_bins=bins, aabb_pad=pad,
+                  presplit=presplit)
     b = dataclasses.replace(b, canonical=True, flip=flip)
-    packed = pack_bw(widen(pack_rows(b, leaf_slots=leaf),
-                           arity=getattr(cfg, "bvh_arity", 4)))
-    lp = packed.leaf_prim.numpy()
-    mid = scene.meshes.mesh_id.cpu().numpy()
-    matid = (scene.spheres.count + scene.triangles.count
-             + mid[b.prim_index[np.clip(lp, 0, None)]])
-    mwidth = max(16, -(-lp.shape[1] // 8) * 8)
-    leafmeta = np.zeros((lp.shape[0], mwidth), np.float32)
-    leafmeta[:, : lp.shape[1]] = matid.astype(np.float32)
-    return packed.replace(leafmeta=torch.from_numpy(leafmeta)).to(device)
+    with span("bvh.pack_rows"):
+        rows = pack_rows(b, leaf_slots=leaf)
+    with span("bvh.widen"):
+        wide = widen(rows, arity=getattr(cfg, "bvh_arity", 4))
+    with span("bvh.pack_bw"):
+        packed = pack_bw(wide)
+    with span("bvh.leafmeta"):
+        lp = packed.leaf_prim.numpy()
+        mid = scene.meshes.mesh_id.cpu().numpy()
+        matid = (scene.spheres.count + scene.triangles.count
+                 + mid[b.prim_index[np.clip(lp, 0, None)]])
+        mwidth = max(16, -(-lp.shape[1] // 8) * 8)
+        leafmeta = np.zeros((lp.shape[0], mwidth), np.float32)
+        leafmeta[:, : lp.shape[1]] = matid.astype(np.float32)
+    with span("bvh.to_device"):
+        return packed.replace(leafmeta=torch.from_numpy(leafmeta)).to(device)
 
 
 def traverse_any(bvh, o: torch.Tensor, d: torch.Tensor,

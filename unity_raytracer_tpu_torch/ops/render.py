@@ -49,6 +49,18 @@ block-ordered rays go through ``trace_radiance`` one chunk at a time, the
 last chunk padded with the twin's filler rays. A chain lane depends on no
 other lane, so a chunked chain equals the unchunked one bit for bit; a
 tree applies ``tree_cap`` per chunk, as the twin's does.
+
+Spans (``utils/profiling.span``, kept only while a recording runs):
+``render`` > ``render.raygen``, ``chain`` or ``tree``, ``render.unswizzle``;
+``chain`` > ``chain.aux``, ``chain.segment`` (attribute ``depth``; around
+the segment's launch, or the composed segment), ``chain.sync`` (the live
+test of a composed segment, the overflow check); ``tree`` > ``tree.aux``,
+``tree.level`` (attribute ``level``) > ``tree.fork``, ``tree.fold``,
+``tree.compact``, then ``tree.sync``. Counters: ``tree.lanes`` (lanes of a
+fork launch), ``tree.live`` (the lanes entering level 0, then
+``_compact``'s live lanes: the next launch's live lanes up to the cap),
+and on the composed chain ``chain.live`` and ``chain.shadow`` (live
+nearest and shadow lanes of a segment), all counts the code already made.
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ from unity_raytracer_tpu_torch.ops.intersect import (
 from unity_raytracer_tpu_torch.ops.kernels import mega
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import check_overflow
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
+from unity_raytracer_tpu_torch.utils.profiling import count, span
 from unity_raytracer_tpu_torch.utils.swizzle import unswizzle_image
 
 SHADOW_EPS = sh.SHADOW_EPS
@@ -206,19 +219,23 @@ def _trace_chain_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     """Mirror bounce chain, one fused segment launch per depth. Returns
     radiance [N,3] on the 0-255 scale. Raises if a launch dropped stack
     entries (one host sync, after the last segment)."""
-    aux = mega.build_aux(scene, cfg.background)
-    n = o.shape[0]
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
-    thr = torch.ones((n, 3), dtype=torch.float32, device=o.device)
-    tmax = torch.full((n,), 3.0e38, dtype=torch.float32, device=o.device)
-    overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
-    for depth in range(cfg.max_bounces + 1):
-        delta, o, d, thr, tmax = mega.trace_segment(
-            bvh, aux, depth, o, d, thr, tmax, overflow=overflow,
-            **_segment_kw(scene, cfg))
-        acc = acc + delta
-    if o.device.type == "cuda":
-        mega.check_overflow(overflow)
+    with span("chain"):
+        with span("chain.aux"):
+            aux = mega.build_aux(scene, cfg.background)
+        n = o.shape[0]
+        acc = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+        thr = torch.ones((n, 3), dtype=torch.float32, device=o.device)
+        tmax = torch.full((n,), 3.0e38, dtype=torch.float32, device=o.device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+        for depth in range(cfg.max_bounces + 1):
+            with span("chain.segment", depth=depth):
+                delta, o, d, thr, tmax = mega.trace_segment(
+                    bvh, aux, depth, o, d, thr, tmax, overflow=overflow,
+                    **_segment_kw(scene, cfg))
+            acc = acc + delta
+        if o.device.type == "cuda":
+            with span("chain.sync"):
+                mega.check_overflow(overflow)
     return acc
 
 
@@ -256,30 +273,37 @@ def _trace_chain(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     was dropped)."""
     if not with_stats and uses_fused(cfg, bvh):
         return _trace_chain_mega(scene, o, d, cfg, bvh)
-    n = o.shape[0]
-    f32 = dict(dtype=torch.float32, device=o.device)
-    acc = torch.zeros((n, 3), **f32)
-    thr = torch.ones((n, 3), **f32)
-    active = torch.ones((n,), dtype=torch.bool, device=o.device)
-    live, shadow = [], []
-    zero = torch.zeros((), dtype=torch.int32, device=o.device)
-    overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
-    for depth in range(cfg.max_bounces + 1):
-        n_live = active.sum(dtype=torch.int32)
-        if not bool(n_live > 0):  # the twin's dead_seg; one host sync
-            live.append(zero)
-            shadow.append(zero)
-            continue
-        args = (scene, cfg, bvh, depth, o, d, thr, active, acc, overflow)
-        if cfg.remat:
-            o, d, thr, active, acc, n_shadow = checkpoint(
-                _segment, *args, use_reentrant=False)
-        else:
-            o, d, thr, active, acc, n_shadow = _segment(*args)
-        live.append(n_live)
-        shadow.append(n_shadow)
-    if o.device.type == "cuda":
-        check_overflow(overflow, "traversal")
+    with span("chain"):
+        n = o.shape[0]
+        f32 = dict(dtype=torch.float32, device=o.device)
+        acc = torch.zeros((n, 3), **f32)
+        thr = torch.ones((n, 3), **f32)
+        active = torch.ones((n,), dtype=torch.bool, device=o.device)
+        live, shadow = [], []
+        zero = torch.zeros((), dtype=torch.int32, device=o.device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+        for depth in range(cfg.max_bounces + 1):
+            n_live = active.sum(dtype=torch.int32)
+            with span("chain.sync"):
+                dead = not bool(n_live > 0)  # the twin's dead_seg; a sync
+            if dead:
+                live.append(zero)
+                shadow.append(zero)
+                continue
+            args = (scene, cfg, bvh, depth, o, d, thr, active, acc, overflow)
+            with span("chain.segment", depth=depth):
+                if cfg.remat:
+                    o, d, thr, active, acc, n_shadow = checkpoint(
+                        _segment, *args, use_reentrant=False)
+                else:
+                    o, d, thr, active, acc, n_shadow = _segment(*args)
+                count("chain.live", n_live)
+                count("chain.shadow", n_shadow)
+            live.append(n_live)
+            shadow.append(n_shadow)
+        if o.device.type == "cuda":
+            with span("chain.sync"):
+                check_overflow(overflow, "traversal")
     if with_stats:
         return acc, (torch.stack(live), torch.stack(shadow))
     return acc
@@ -297,7 +321,9 @@ def _compact(cap: int, live, o, d, weight, parent, extra=None):
     live = live & (weight != 0.0).any(dim=-1)
     w = weight.detach().abs()
     score = torch.where(live, w[:, 0] + w[:, 1] + w[:, 2], -1.0)
-    dropped = torch.clamp_min(live.sum() - cap, 0)
+    n_live = live.sum()
+    count("tree.live", n_live)
+    dropped = torch.clamp_min(n_live - cap, 0)
     order = torch.argsort(-score, stable=True)[:cap]
     cols = [o, d, weight, parent.view(torch.float32)[:, None],
             live.to(torch.float32)[:, None]]
@@ -409,38 +435,48 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             "packed BVH with leafmeta, and this scene has mesh triangles "
             "but none was given: pass one from ops/bvh.prepare_bvh (or set "
             "cfg.use_bvh)")
-    n = o.shape[0]
-    dev = o.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    aux = mega.build_aux(scene, cfg.background)
-    kw = _segment_kw(scene, cfg, has_mesh)
-    packed = bvh if has_mesh else None
-    acc = torch.zeros((n, 3), **f32)
-    parent = torch.arange(n, dtype=torch.int32, device=dev)
-    weight = torch.ones((n, 3), **f32)
-    tmax = torch.full((n,), 3.0e38, **f32)
-    n_truncated = torch.zeros((), dtype=torch.int64, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    cap = (cfg.tree_cap or 0) * n
-    for level in range(cfg.max_bounces + 1):
-        delta, ro, rd, w_re, tm_re, to, td, w_tr, tm_tr = mega.trace_segment(
-            packed, aux, level, o, d, weight, tmax, fork=True,
-            overflow=overflow, **kw)
-        acc = acc.index_add(0, parent, delta)
-        if level == cfg.max_bounces:
-            break
-        o = torch.cat([ro, to], dim=0)
-        d = torch.cat([rd, td], dim=0)
-        weight = torch.cat([w_re, w_tr], dim=0)
-        tmax = torch.cat([tm_re, tm_tr], dim=0)
-        parent = torch.cat([parent, parent], dim=0)
-        if cap and o.shape[0] > cap:
-            live, o, d, weight, parent, tmax, dropped = _compact(
-                cap, tmax >= 0.0, o, d, weight, parent, tmax)
-            tmax = torch.where(live, tmax, -1.0)
-            n_truncated = n_truncated + dropped
-    if dev.type == "cuda":
-        check_overflow(overflow)
+    with span("tree"):
+        n = o.shape[0]
+        dev = o.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        with span("tree.aux"):
+            aux = mega.build_aux(scene, cfg.background)
+        kw = _segment_kw(scene, cfg, has_mesh)
+        packed = bvh if has_mesh else None
+        acc = torch.zeros((n, 3), **f32)
+        parent = torch.arange(n, dtype=torch.int32, device=dev)
+        weight = torch.ones((n, 3), **f32)
+        tmax = torch.full((n,), 3.0e38, **f32)
+        n_truncated = torch.zeros((), dtype=torch.int64, device=dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        cap = (cfg.tree_cap or 0) * n
+        count("tree.live", n)   # every primary lane enters level 0 live
+        for level in range(cfg.max_bounces + 1):
+            with span("tree.level", level=level):
+                with span("tree.fork"):
+                    count("tree.lanes", o.shape[0])
+                    (delta, ro, rd, w_re, tm_re, to, td, w_tr,
+                     tm_tr) = mega.trace_segment(
+                        packed, aux, level, o, d, weight, tmax, fork=True,
+                        overflow=overflow, **kw)
+                with span("tree.fold"):
+                    acc = acc.index_add(0, parent, delta)
+                if level == cfg.max_bounces:
+                    break
+                o = torch.cat([ro, to], dim=0)
+                d = torch.cat([rd, td], dim=0)
+                weight = torch.cat([w_re, w_tr], dim=0)
+                tmax = torch.cat([tm_re, tm_tr], dim=0)
+                parent = torch.cat([parent, parent], dim=0)
+                if cap and o.shape[0] > cap:
+                    with span("tree.compact"):
+                        live, o, d, weight, parent, tmax, dropped = _compact(
+                            cap, tmax >= 0.0, o, d, weight, parent, tmax)
+                        tmax = torch.where(live, tmax, -1.0)
+                        n_truncated = n_truncated + dropped
+        if dev.type == "cuda":
+            with span("tree.sync"):
+                check_overflow(overflow)
     return (acc, n_truncated) if with_stats else acc
 
 
@@ -487,10 +523,12 @@ def render_frame(scene: Scene, cam: Camera, cfg: RenderConfig,
                  bvh=None) -> torch.Tensor:
     """Block-order raygen -> trace -> unswizzle -> [H,W,3] image on the
     display (0-1) scale, on the camera's device."""
-    o, d = generate_rays_blocks(cam, cfg.block_size)
+    with span("render.raygen"):
+        o, d = generate_rays_blocks(cam, cfg.block_size)
     rad = trace_radiance(scene, o, d, cfg, bvh=bvh)
-    return unswizzle_image(rad, cam.width, cam.height,
-                           cfg.block_size) / 255.0
+    with span("render.unswizzle"):
+        return unswizzle_image(rad, cam.width, cam.height,
+                               cfg.block_size) / 255.0
 
 
 def _frame_chunked(scene: Scene, cam: Camera, cfg: RenderConfig, bvh,
@@ -499,17 +537,20 @@ def _frame_chunked(scene: Scene, cam: Camera, cfg: RenderConfig, bvh,
     padded with the twin's filler rays (origin and direction +z), then
     un-swizzled and divided by 255. A tree's ``tree_cap`` applies per
     chunk, as in the twin."""
-    o, d = generate_rays_blocks(cam, cfg.block_size)
-    total = o.shape[0]
-    pad = (-total) % chunk
-    if pad:
-        filler = torch.zeros((pad, 3), dtype=o.dtype, device=o.device)
-        filler[:, 2] = 1.0
-        o, d = torch.cat([o, filler]), torch.cat([d, filler])
+    with span("render.raygen"):
+        o, d = generate_rays_blocks(cam, cfg.block_size)
+        total = o.shape[0]
+        pad = (-total) % chunk
+        if pad:
+            filler = torch.zeros((pad, 3), dtype=o.dtype, device=o.device)
+            filler[:, 2] = 1.0
+            o, d = torch.cat([o, filler]), torch.cat([d, filler])
     rad = torch.cat([trace_radiance(scene, o[i:i + chunk], d[i:i + chunk],
                                     cfg, bvh=bvh)
                      for i in range(0, total + pad, chunk)])[:total]
-    return unswizzle_image(rad, cam.width, cam.height, cfg.block_size) / 255.0
+    with span("render.unswizzle"):
+        return unswizzle_image(rad, cam.width, cam.height,
+                               cfg.block_size) / 255.0
 
 
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -518,10 +559,11 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     'auto' mode, build the BVH ``cfg.kernel`` walks on the scene's device
     if ``cfg.use_bvh`` and none was passed, then ``render_frame``, or
     ``_frame_chunked`` when ``cfg.ray_chunk`` is below the pixel count."""
-    cfg = resolve_mode(scene, cfg)
-    check_supported(cfg)
-    if cfg.use_bvh and bvh is None:
-        bvh = bvhmod.prepare_bvh(scene, cfg, scene.aabb_min.device)
-    if cfg.ray_chunk and cfg.ray_chunk < cam.width * cam.height:
-        return _frame_chunked(scene, cam, cfg, bvh, cfg.ray_chunk)
-    return render_frame(scene, cam, cfg, bvh)
+    with span("render"):
+        cfg = resolve_mode(scene, cfg)
+        check_supported(cfg)
+        if cfg.use_bvh and bvh is None:
+            bvh = bvhmod.prepare_bvh(scene, cfg, scene.aabb_min.device)
+        if cfg.ray_chunk and cfg.ray_chunk < cam.width * cam.height:
+            return _frame_chunked(scene, cam, cfg, bvh, cfg.ray_chunk)
+        return render_frame(scene, cam, cfg, bvh)

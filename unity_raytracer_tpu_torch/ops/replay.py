@@ -51,6 +51,7 @@ from unity_raytracer_tpu_torch.ops.render import (
 from unity_raytracer_tpu_torch.ops.shade import (
     SHADOW_EPS, _rows, _soft_or_hard_vis, reflect_dir)
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
+from unity_raytracer_tpu_torch.utils.profiling import span
 
 # records tuple, each stacked over segments (leading dim B):
 #   hard: (t [B,N], n [B,N,3], matid [B,N], occbits [B,N])
@@ -657,30 +658,39 @@ def soft_replay_value_and_grad(template: Scene, params, o, d, target,
     many lanes, each chunk's summed squared error back-propagated on its
     own into the same ``.grad`` and divided once by ``n_eff * 3`` at the
     end — the twin's scan-of-vjp sum, with one chunk's graph alive at a
-    time."""
+    time. Spans (``utils/profiling.span``): ``replay.records``, then per
+    chunk ``replay.chunk`` (attribute ``i``; the whole batch is chunk 0)
+    with ``replay.forward`` and ``replay.backward``."""
     from unity_raytracer_tpu_torch.fit import set_params
 
-    _, recs = trace_records(set_params(template, params), o, d, cfg, bvh,
-                            soft=True)
+    with span("replay.records"):
+        _, recs = trace_records(set_params(template, params), o, d, cfg,
+                                bvh, soft=True)
     leaves = _leaves(params)
     scene = set_params(template, leaves)
     if not chunk or chunk >= o.shape[0]:
-        rad = replay_radiance_soft(scene, o, d, recs, cfg,
-                                   live_segments=live_segments)
-        loss = _mse(rad, target, weights)
-        loss.backward()
+        with span("replay.chunk", i=0):
+            with span("replay.forward"):
+                rad = replay_radiance_soft(scene, o, d, recs, cfg,
+                                           live_segments=live_segments)
+                loss = _mse(rad, target, weights)
+            with span("replay.backward"):
+                loss.backward()
         return loss.detach(), _grads(leaves)
 
     oc, dc, tc, wc, rc, n_eff = _chunk_records(o, d, target, weights, recs,
                                                chunk)
     loss = torch.zeros((), dtype=torch.float32, device=o.device)
     for i in range(oc.shape[0]):
-        rad = replay_radiance_soft(scene, oc[i], dc[i],
-                                   tuple(r[i] for r in rc), cfg,
-                                   live_segments=live_segments)
-        l_i = (((rad - tc[i]) ** 2) * wc[i][:, None]).sum()
-        l_i.backward()
-        loss = loss + l_i.detach()
+        with span("replay.chunk", i=i):
+            with span("replay.forward"):
+                rad = replay_radiance_soft(scene, oc[i], dc[i],
+                                           tuple(r[i] for r in rc), cfg,
+                                           live_segments=live_segments)
+                l_i = (((rad - tc[i]) ** 2) * wc[i][:, None]).sum()
+            with span("replay.backward"):
+                l_i.backward()
+            loss = loss + l_i.detach()
     denom = n_eff * 3.0
     return loss / denom, _grads(leaves, denom)
 

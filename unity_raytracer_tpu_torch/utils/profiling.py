@@ -8,7 +8,8 @@ signatures, rewritten for PyTorch on an NVIDIA card:
   ``torch.cuda.synchronize`` while CUDA is in use (on the CPU there is
   nothing to wait for);
 * ``trace`` — ``torch.profiler`` over CPU and CUDA activities, written as
-  a Chrome trace into a directory;
+  a Chrome trace into a directory, with the program's spans and counters
+  (below) written into the same file on the kernels' clock;
 * ``device_hbm_gbps`` — the card's HBM bandwidth from NVIDIA's data
   sheets, by the name ``torch.cuda.get_device_name`` reports; a card not
   in the table (or no card) gets ``default``, which is None: no figure is
@@ -28,13 +29,27 @@ With no twin, the port's own measuring helpers, shared by the bench
 * ``capture_segments`` and ``segment_work`` — the fused segment launches
   of a call, and the bytes and FP32 operations those launches must move
   and compute, read off the kernel's counting instance with
-  ``OPS_PER_TEST``.
+  ``OPS_PER_TEST``;
+* ``span``, ``count`` and ``recording`` — the program's own stages and
+  counters. The drivers (``ops/render``, ``ops/replay``, ``fit``,
+  ``ops/bvh.prepare_bvh``) open a span around each stage and count live
+  lanes; nothing is kept unless a ``recording()`` block is running. Off
+  (the default) a span is one check of a module-level flag and returns a
+  shared do-nothing context: no allocation, no clock read, no tensor op.
+  On, each span keeps its name, start, end (``time.time_ns()``, the clock
+  ``torch.profiler``'s Chrome trace stamps as ``ts`` + its
+  ``baseTimeNanoseconds``), its parent, its attributes and a unit id
+  shared by every span under one outermost span (a frame's ``render``, a
+  fit's ``fit.step``); a count keeps a Python int, or a device tensor by
+  reference, read once when the records are read (``Recording.counts``),
+  so recording adds no launch and no sync inside the recorded work.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import json
 import os
 import subprocess
 import time
@@ -150,23 +165,186 @@ def nvidia_smi(query: str) -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
+# -- the program's spans and counters --------------------------------------
+# Module state, not an object passed down: the stages sit deep inside
+# render and fit, whose signatures are the twin's, and the off path must
+# stay one check of one flag.
+_on = False          # the one thing a span checks while nothing records
+_rec = None          # the Recording being filled
+
+
+class Recording:
+    """What one ``recording()`` block kept. ``spans``: dicts of ``name``,
+    ``id``, ``parent`` (the enclosing recorded span's id, or None),
+    ``unit`` (the id of the outermost recorded span above it), ``start_ns``,
+    ``end_ns`` (``time.time_ns()``; a span still open when the block ended
+    ends there) and ``attrs``, in the order they closed. ``counts``
+    (property): dicts of ``name``, ``value`` (an int), ``span``, ``unit``
+    and ``t_ns``; device tensors are read on the first access, one copy per
+    device for all of them."""
+
+    __slots__ = ("spans", "_counts", "_read", "stack", "next_id")
+
+    def __init__(self):
+        self.spans, self._counts, self._read = [], [], False
+        self.stack, self.next_id = [], 0
+
+    @property
+    def counts(self) -> list:
+        if not self._read:
+            held = [c for c in self._counts
+                    if isinstance(c["value"], torch.Tensor)]
+            by_dev: dict = {}
+            for c in held:
+                by_dev.setdefault(c["value"].device, []).append(c)
+            for cs in by_dev.values():
+                vals = torch.stack([c["value"].detach().reshape(())
+                                    .to(torch.int64) for c in cs]).tolist()
+                for c, v in zip(cs, vals):
+                    c["value"] = int(v)
+            self._read = True
+        return self._counts
+
+
+class _Null:
+    """The context every span is while nothing records."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _Null()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "rec", "id", "parent", "unit", "t0")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        rec = self.rec = _rec
+        self.id = rec.next_id
+        rec.next_id += 1
+        if rec.stack:
+            top = rec.stack[-1]
+            self.parent, self.unit = top.id, top.unit
+        else:
+            self.parent, self.unit = None, self.id
+        rec.stack.append(self)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        rec = self.rec
+        if rec is _rec and rec.stack and rec.stack[-1] is self:
+            rec.stack.pop()
+            rec.spans.append(self._record(t1))
+        return False
+
+    def _record(self, t1: int) -> dict:
+        return {"name": self.name, "id": self.id, "parent": self.parent,
+                "unit": self.unit, "start_ns": self.t0, "end_ns": t1,
+                "attrs": self.attrs}
+
+
+def span(name: str, **attrs):
+    """A context manager around one stage of the program, named ``name``
+    with ``attrs`` (ints or strings), kept while a ``recording()`` block
+    runs; otherwise a shared do-nothing context."""
+    if not _on:
+        return _NULL
+    return _Span(name, attrs)
+
+
+def count(name: str, value) -> None:
+    """Keep the counter ``name`` (a Python int, or a 0-dim device tensor
+    held by reference and read when the records are read) under the
+    innermost open span, while a ``recording()`` block runs."""
+    if not _on:
+        return
+    top = _rec.stack[-1] if _rec.stack else None
+    _rec._counts.append({"name": name, "value": value,
+                         "span": None if top is None else top.id,
+                         "unit": None if top is None else top.unit,
+                         "t_ns": time.time_ns()})
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep every span and count of the block; yields the ``Recording``.
+    Spans opened before the block are not kept (their children become
+    outermost); spans still open when it ends are kept as ending there.
+    Not reentrant."""
+    global _on, _rec
+    if _on:
+        raise RuntimeError("profiling.recording() is already running")
+    rec = Recording()
+    _rec, _on = rec, True
+    try:
+        yield rec
+    finally:
+        t1 = time.time_ns()
+        _on, _rec = False, None
+        rec.spans.extend(s._record(t1) for s in reversed(rec.stack))
+        rec.stack.clear()
+
+
+SPAN_CAT = "program"    # the Chrome trace category of the program's spans
+
+
+def chrome_events(rec: Recording, base_ns: int, pid: int) -> list:
+    """The spans of ``rec`` as Chrome trace complete events (``ph`` X,
+    category ``SPAN_CAT``) and its counts as counter events (``ph`` C),
+    stamped in microseconds after ``base_ns`` on a track of their own
+    (``tid`` 0, named "program") of process ``pid``."""
+    us = lambda ns: (ns - base_ns) / 1e3
+    out = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": 0,
+            "args": {"name": "program"}}]
+    for s in rec.spans:
+        out.append({"ph": "X", "cat": SPAN_CAT, "name": s["name"],
+                    "pid": pid, "tid": 0, "ts": us(s["start_ns"]),
+                    "dur": (s["end_ns"] - s["start_ns"]) / 1e3,
+                    "args": dict(s["attrs"], id=s["id"], parent=s["parent"],
+                                 unit=s["unit"])})
+    for c in rec.counts:
+        out.append({"ph": "C", "cat": SPAN_CAT, "name": c["name"],
+                    "pid": pid, "tid": 0, "ts": us(c["t_ns"]),
+                    "args": {"value": c["value"]}})
+    return out
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block (CPU and, where present, CUDA activities) and
     write its Chrome trace (``chrome://tracing``, Perfetto) into
-    ``logdir`` as ``trace-<pid>-<ns>.json``. Yields the profiler."""
+    ``logdir`` as ``trace-<pid>-<ns>.json``, the block's spans and counts
+    (``recording``) on the program's own track of the same timeline.
+    Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=acts) as prof:
-        try:
-            yield prof
-        finally:
-            _sync()
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+        with recording() as rec:
+            try:
+                yield prof
+            finally:
+                _sync()
+    path = os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        data = json.load(fh)
+    data["traceEvents"].extend(chrome_events(
+        rec, int(data.get("baseTimeNanoseconds", 0)), os.getpid()))
+    with open(path, "w") as fh:
+        json.dump(data, fh)
 
 
 # H100 SXM ("NVIDIA H100 80GB HBM3") peaks, NVIDIA data sheet: HBM
