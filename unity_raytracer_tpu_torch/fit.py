@@ -18,7 +18,8 @@ pixel-gradient descent, on one of three steps:
 * the record-replay path (``FitConfig.use_replay``): each step records
   the bounce chain with the fused kernel at the current parameters and
   back-propagates through the soft shading replay
-  (``ops/replay.soft_replay_value_and_grad``).
+  (``ops/replay.soft_replay_value_and_grad``; on the card
+  ``ops/replay.GraphedSoftReplay``, each chunk one CUDA graph replay).
 
 The parameters are leaf tensors with ``requires_grad``, installed into a
 template scene with ``dataclasses.replace``; the optimizer is
@@ -266,10 +267,20 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
         chunk = rcfg.ray_chunk or ((1 << 18) if o.shape[0] > (1 << 18)
                                    else None)
 
+        # on the card each chunk is one CUDA graph replay (captured in the
+        # first step, again when the prefix guard widens the prefix)
+        graphed = (rp.GraphedSoftReplay(template, params, o, d, tgt_rad,
+                                        rcfg_m, bvh, weights=lane_w,
+                                        chunk=chunk)
+                   if dev.type == "cuda" else None)
+
         def value_and_grad(p):
-            loss, grads = rp.soft_replay_value_and_grad(
-                template, p, o, d, tgt_rad, rcfg_m, bvh, weights=lane_w,
-                live_segments=live_prefix, chunk=chunk)
+            if graphed is not None:
+                loss, grads = graphed(p, live_segments=live_prefix)
+            else:
+                loss, grads = rp.soft_replay_value_and_grad(
+                    template, p, o, d, tgt_rad, rcfg_m, bvh, weights=lane_w,
+                    live_segments=live_prefix, chunk=chunk)
             return loss * scale, {k: g * scale for k, g in grads.items()}
 
         # one-time check: warn when the fit starts inside the soft

@@ -14,7 +14,9 @@ The work splits the way the math splits:
   surface normal, Blinn-Phong terms, light falloff. ``replay_radiance``
   (hard) and ``replay_radiance_soft`` (soft visibility) redo the bounce
   chain's shading in plain torch under autograd, with the discrete
-  decisions frozen to the records.
+  decisions frozen to the records. A replay chunk is thousands of small
+  launches; on the card the fit runs each chunk's forward and backward
+  as one CUDA graph replay (``GraphedSoftReplay``), the same code.
 
 Gradient semantics are the twin's: sphere and loose-triangle winners are
 re-derived analytically from the scene parameters; mesh winners use the
@@ -51,7 +53,7 @@ from unity_raytracer_tpu_torch.ops.render import (
 from unity_raytracer_tpu_torch.ops.shade import (
     SHADOW_EPS, _rows, _soft_or_hard_vis, reflect_dir)
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
-from unity_raytracer_tpu_torch.utils.profiling import span
+from unity_raytracer_tpu_torch.utils.profiling import count, span
 
 # records tuple, each stacked over segments (leading dim B):
 #   hard: (t [B,N], n [B,N,3], matid [B,N], occbits [B,N])
@@ -59,6 +61,8 @@ from unity_raytracer_tpu_torch.utils.profiling import span
 Records = Tuple[torch.Tensor, ...]
 
 _BIG = 3.0e38
+# the dead-lane fills of the five soft records (t, n, matid, occbits, st)
+_REC_FILLS = (-1.0, 0.0, -1.0, 0.0, _BIG)
 # The bias diagnostic ``mesh_occ_frozen`` counts a lane only where the
 # recorded mesh occluder, moved FROZEN_MARGIN (relative) farther, still
 # lies below the recomputed sphere / loose-triangle occluder and still
@@ -265,6 +269,13 @@ def replay_lighting(scene: Scene, p, n, v, mats: Materials,
     return color + ((diffuse + spec) * vis[..., None]).sum(1)
 
 
+def _background(cfg: RenderConfig, dev) -> torch.Tensor:
+    """The background radiance [3] on the 0-255 scale, on ``dev`` (a copy
+    from the host: build it outside a captured region)."""
+    return torch.tensor(cfg.background, dtype=torch.float32,
+                        device=dev) * 255.0
+
+
 def _n_segments(B: int, live_segments: Optional[int]) -> int:
     return B if live_segments is None else min(B, max(1, live_segments))
 
@@ -281,8 +292,7 @@ def replay_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     rt_all, rn_all, rmat_all, rocc_all = records[:4]
     B = rt_all.shape[0]
     mats_table = combined_materials(scene)
-    bg = torch.tensor(cfg.background, dtype=torch.float32,
-                      device=o.device) * 255.0
+    bg = _background(cfg, o.device)
     n_rays = o.shape[0]
     acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=o.device)
     thr = torch.ones((n_rays, 3), dtype=torch.float32, device=o.device)
@@ -449,7 +459,8 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
 def replay_radiance_soft(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                          records: Records, cfg: RenderConfig,
                          live_segments: int | None = None,
-                         with_diag: bool = False):
+                         with_diag: bool = False,
+                         bg: torch.Tensor | None = None):
     """Differentiable soft-visibility radiance from soft records — the
     silhouette-fitting path.
 
@@ -462,14 +473,16 @@ def replay_radiance_soft(scene: Scene, o: torch.Tensor, d: torch.Tensor,
 
     ``with_diag=True`` also returns the lane counts of those biased
     regimes: ``{"mesh_occ_frozen", "mesh_occ_in_band",
-    "proxy_mesh_risk"}`` (Python ints)."""
+    "proxy_mesh_risk"}`` (Python ints). ``bg``: ``_background(cfg,
+    o.device)``, built by the caller where the call is captured in a CUDA
+    graph (the copy from the host may not be)."""
     rt_all, rn_all, rmat_all, _, rst_all = records
     B = rt_all.shape[0]
     S = scene.spheres.count
     mats_table = combined_materials(scene)
     dev = o.device
-    bg = torch.tensor(cfg.background, dtype=torch.float32, device=dev) \
-        * 255.0
+    if bg is None:
+        bg = _background(cfg, dev)
     n_rays = o.shape[0]
     acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     thr = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
@@ -578,11 +591,10 @@ def _chunk_records(o, d, target, weights, recs, chunk):
             target = torch.cat([target, torch.zeros_like(z)], 0)
         w = torch.cat([w, torch.zeros((pad,), dtype=torch.float32,
                                       device=dev)])
-        fills = (-1.0, 0.0, -1.0, 0.0, _BIG)
         recs = tuple(
             torch.cat([r, torch.full((r.shape[0], pad) + r.shape[2:], fill,
                                      dtype=r.dtype, device=dev)], 1)
-            for r, fill in zip(recs, fills))
+            for r, fill in zip(recs, _REC_FILLS))
     nc = o.shape[0] // chunk
     cl = lambda x: x.reshape(nc, chunk, *x.shape[1:])
     cr = lambda r: r.reshape(r.shape[0], nc, chunk,
@@ -693,6 +705,140 @@ def soft_replay_value_and_grad(template: Scene, params, o, d, target,
             loss = loss + l_i.detach()
     denom = n_eff * 3.0
     return loss / denom, _grads(leaves, denom)
+
+
+class GraphedSoftReplay:
+    """``soft_replay_value_and_grad`` with each chunk of the replay run as
+    one CUDA graph replay: the chunk's ``replay_radiance_soft``, its
+    weighted squared-error sum, ``autograd.grad`` to the parameters and
+    the adds into the step's loss and gradient sums, captured once and
+    replayed for every chunk of every step. The same math, the same
+    operations in the same order; the host makes ~10 calls a chunk
+    where the eager step makes ~7,000.
+
+    One object serves one fit (``fit.fit`` builds it on the card): it owns
+    what the graph reads and writes by address — the static chunk inputs
+    (``lanes``: o, d, target, weights ``[C, ...]``; ``recs``: the five
+    soft records ``[B, C, ...]``), one ``requires_grad`` leaf per
+    parameter with the scene built from them once, and the loss and
+    gradient sums — so the graph never outlives them. ``params`` gives the
+    leaves' names and shapes; ``o, d, target, weights`` are the whole
+    batch's lanes, padded once to whole chunks as ``_chunk_records`` pads
+    them.
+
+    Per call: the records pass runs eagerly (``replay.records``); the
+    values of ``params`` are copied into the leaves and the sums zeroed;
+    each chunk ``fill``s the static inputs (copies only) and replays the
+    graph (span ``replay.graph``, counter ``replay.graph.replays``). The
+    first call, and a call whose ``live_segments`` differs from the
+    captured one, captures instead on chunk 0 (span ``replay.capture``,
+    counter ``replay.graph.captures``): chunk 0 runs eagerly on a side
+    stream (the warm-up capture needs), which adds it to the sums, and
+    the capture then records the same code without running it. Returns
+    ``(loss, grads)`` as new tensors, as ``soft_replay_value_and_grad``
+    does; callers may keep them."""
+
+    def __init__(self, template: Scene, params: Dict[str, torch.Tensor],
+                 o: torch.Tensor, d: torch.Tensor, target: torch.Tensor,
+                 cfg: RenderConfig, bvh, weights=None,
+                 chunk: int | None = None):
+        from unity_raytracer_tpu_torch.fit import set_params
+
+        n = o.shape[0]
+        self.chunk, self.n = min(chunk or n, n), n
+        self.template, self.cfg, self.bvh = template, cfg, bvh
+        self.o, self.d = o, d
+        oc, dc, tc, wc, _, n_eff = _chunk_records(o, d, target, weights, (),
+                                                  self.chunk)
+        self.chunks = (oc, dc, tc, wc)
+        self.denom = n_eff * 3.0
+        self.lanes = tuple(torch.empty_like(x[0]) for x in self.chunks)
+        self.recs = None            # shaped by the first records
+        self.leaves = {k: torch.zeros_like(v).requires_grad_(True)
+                       for k, v in params.items()}
+        self.scene = set_params(template, self.leaves)
+        self.loss = torch.zeros((), dtype=torch.float32, device=o.device)
+        self.grads = {k: torch.zeros_like(v) for k, v in self.leaves.items()}
+        self.bg = _background(cfg, o.device)
+        self.graph = self.live_segments = None
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunks[0].shape[0]
+
+    def fill(self, i: int, recs: Records) -> None:
+        """Copy chunk ``i`` of the lanes and of ``recs`` (the whole batch's
+        records ``[B, N, ...]``) into the static inputs: exactly
+        ``_chunk_records``' chunk ``i``, the last chunk's pad lanes set to
+        the dead-lane fills."""
+        c = self.chunk
+        a = i * c
+        k = min(c, self.n - a)
+        if self.recs is None:
+            self.recs = tuple(r.new_empty((r.shape[0], c) + r.shape[2:])
+                              for r in recs)
+        for dst, src in zip(self.lanes, self.chunks):
+            dst.copy_(src[i])
+        for dst, src, fill in zip(self.recs, recs, _REC_FILLS):
+            dst[:, :k].copy_(src[:, a:a + k])
+            if k < c:
+                dst[:, k:].fill_(fill)
+
+    def _chunk_step(self, live_segments) -> None:
+        """What the graph holds: one chunk's forward, backward and sums."""
+        o, d, t, w = self.lanes
+        rad = replay_radiance_soft(self.scene, o, d, self.recs, self.cfg,
+                                   live_segments=live_segments, bg=self.bg)
+        l_i = (((rad - t) ** 2) * w[:, None]).sum()
+        names = list(self.leaves)
+        gs = torch.autograd.grad(l_i, [self.leaves[k] for k in names],
+                                 allow_unused=True)
+        self.loss.add_(l_i.detach())
+        for k, g in zip(names, gs):
+            if g is not None:
+                self.grads[k].add_(g)
+
+    def _capture(self, recs: Records, live_segments) -> None:
+        self.graph = None           # the old graph's pool goes first
+        self.fill(0, recs)
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream(device=self.o.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._chunk_step(live_segments)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._chunk_step(live_segments)
+        self.graph, self.live_segments = graph, live_segments
+        count("replay.graph.captures", 1)
+
+    def __call__(self, params: Dict[str, torch.Tensor],
+                 live_segments: int | None = None):
+        from unity_raytracer_tpu_torch.fit import set_params
+
+        with span("replay.records"):
+            _, recs = trace_records(set_params(self.template, params),
+                                    self.o, self.d, self.cfg, self.bvh,
+                                    soft=True)
+        with torch.no_grad():
+            for k, v in params.items():
+                self.leaves[k].copy_(v)
+        self.loss.zero_()
+        for g in self.grads.values():
+            g.zero_()
+        first = 0
+        if self.graph is None or live_segments != self.live_segments:
+            with span("replay.chunk", i=0), span("replay.capture"):
+                self._capture(recs, live_segments)
+            first = 1
+        for i in range(first, self.n_chunks):
+            with span("replay.chunk", i=i), span("replay.graph"):
+                self.fill(i, recs)
+                self.graph.replay()
+                count("replay.graph.replays", 1)
+        return (self.loss / self.denom,
+                {k: g / self.denom for k, g in self.grads.items()})
 
 
 def trace_radiance_replay(scene: Scene, o: torch.Tensor, d: torch.Tensor,
