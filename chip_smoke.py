@@ -210,7 +210,21 @@ From the root of a checkout, on a machine with a CUDA card, it
     ``__graft_entry__.entry``): its inputs on the card, its step launching
     walk #4 (counts set to 0 just before, read just after: the #4 row's
     ``entry_launches``), its radiance against ``entry("cpu")``'s at
-    rtol = atol = 5e-4 on every ray, timed.
+    rtol = atol = 5e-4 on every ray, timed;
+22. the BVH refit of a mesh-geometry fit (``ops/bvh.refit``) on the
+    ``mesh10k`` tree (98-triangle leaves, Baldwin–Weber BVH4): the main
+    path's own run, ``fit --params mesh_positions``'s calls
+    (``__main__.run_fit``, composed, depth 1, chunked, remat) for
+    ``REFIT_FIT_STEPS`` steps at ``REFIT_FIT_SIZE`` squared from the
+    seeded start, with the refit's record kernel's launches counted (set
+    to 0 just before, read just after; one a step) and the loss falling;
+    then at the fit's last vertices the refit on the card against the
+    CPU's refit, every array bit for bit, and the record kernel
+    (``ops/bvh._bw_rows``, ``csrc/refit.cu``) against ``pack_bw`` bit for
+    bit on the refit's own leaf rows; the kernel timed alone (CUDA
+    events) beside its bound (the leaf rows read and the records written
+    at the HBM rate), ``pack_bw`` timed on the host, the whole refit
+    timed.
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
@@ -224,7 +238,8 @@ launches per call, and those of #1 modes (a), (e) on BVH4 and (c)
 meshless and of #4 ``phase18_launches``, phase 18's; those of #1
 (a), (b), (d) and #4 ``bench_launches``, phase 19 (b)'s; #4
 ``entry_launches``, phase 21's; the four probe
-rows follow, ``launches`` the probe run's, the FMA chain's the bench's).
+rows follow, ``launches`` the probe run's, the FMA chain's the bench's;
+then the refit's record kernel, ``launches`` phase 22's fit's).
 Without
 a CUDA card, or without the package beside this file, it exits non-zero
 and prints no result.
@@ -271,6 +286,9 @@ KERNEL_SRC = "unity_raytracer_tpu_torch/csrc/mega_segment.cu"
 REPLACES = "unity_raytracer_tpu/ops/pallas/mega.py:459"
 TRAVERSE_SRC = "unity_raytracer_tpu_torch/csrc/traverse.cu"
 NEAREST_SRC = "unity_raytracer_tpu_torch/csrc/nearest_tri.cu"
+REFIT_SRC = "unity_raytracer_tpu_torch/csrc/refit.cu"
+# phase 22: the geometry fit's image side, steps, learning rate and seed
+REFIT_FIT_SIZE, REFIT_FIT_STEPS, REFIT_FIT_LR, REFIT_FIT_SEED = 64, 3, 0.005, 7
 # the walks of the composed path: layout -> (name in the kernels line,
 # frame kernel, BVH arity, the TPU kernel's pallas_call)
 WALKS = {
@@ -904,6 +922,81 @@ def entry_phase(dev, card, failures):
     if off or not bool(torch.isfinite(got).all()):
         failures.append(f"entry(): {off} rays off entry('cpu')")
     return walks["mk4"]
+
+
+def refit_phase(dev, card, failures):
+    """Phase 22 (module docstring). Returns the kernels-line row of the
+    refit's Baldwin–Weber record kernel."""
+    import torch
+    from unity_raytracer_tpu_torch.__main__ import run_fit
+    from unity_raytracer_tpu_torch.fit import set_params
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
+        PackedBVH, pack_bw)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    bvhmod.launches["bw_records"] = 0
+    res, _, (scene, _, _, bvh, _) = run_fit(
+        "mesh10k", REFIT_FIT_SIZE, REFIT_FIT_SIZE, REFIT_FIT_STEPS,
+        REFIT_FIT_LR, REFIT_FIT_SEED, dev, replay=False,
+        params="mesh_positions")
+    torch.cuda.synchronize()
+    launched = bvhmod.launches["bw_records"]
+    losses = [float(x) for x in res.losses]
+    log(f"phase 22 mesh10k {REFIT_FIT_SIZE}x{REFIT_FIT_SIZE} fit "
+        f"--params mesh_positions {REFIT_FIT_STEPS} steps: losses {losses}; "
+        f"record kernel launches {launched} {card}")
+    if launched != REFIT_FIT_STEPS:
+        failures.append(f"refit: {launched} record kernel launches in a "
+                        f"{REFIT_FIT_STEPS}-step mesh fit")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        failures.append(f"refit: the mesh fit's loss did not fall {losses}")
+    moved = set_params(scene, {"mesh_positions":
+                               res.params["mesh_positions"].to(dev)})
+    tree = bvhmod.with_refit_tables(bvh, moved)
+    got, g_scene = bvhmod.refit(tree, moved)
+    want, w_scene = bvhmod.refit(bvh.to("cpu"), moved.to("cpu"))
+    differ = [k for k in ("nodes", "nodes_walk", "wide", "wide_walk",
+                          "tris", "leafbox", "tris_bw")
+              if not torch.equal(getattr(got, k).cpu().view(torch.int32),
+                                 getattr(want, k).view(torch.int32))]
+    differ += [f"bvh.{k}" for k in ("node_min", "node_max", "tri_verts")
+               if not torch.equal(getattr(got.bvh, k).detach().cpu(),
+                                  getattr(want.bvh, k).detach())]
+    differ += [k for k in ("aabb_min", "aabb_max", "gate_min", "gate_max")
+               if not torch.equal(getattr(g_scene, k).cpu(),
+                                  getattr(w_scene, k))]
+    tb = tree.bvh.refit_tables
+    n_leaves, rpl, bw_rpl = tb.bw
+    tris = got.tris
+    recs = bvhmod._bw_rows(tris, tb.bw)
+    t1 = time.perf_counter()
+    plain = pack_bw(PackedBVH(nodes=None, tris=tris.cpu(), leaf_prim=None,
+                              bvh=None, rows_per_leaf=rpl)).tris_bw
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    same = torch.equal(recs.cpu().view(torch.int32), plain.view(torch.int32))
+    err = float((recs.cpu() - plain).abs().max())
+    ms = events_ms(lambda: bvhmod._bw_rows(tris, tb.bw), 20)
+    refit_ms = events_ms(lambda: bvhmod.refit(tree, moved), 20)
+    nbytes = 4 * (tris.numel() + recs.numel())
+    b, by = bound(nbytes, 0)
+    log(f"phase 22 refit at the fit's vertices, card vs CPU: "
+        f"{'every array bit for bit' if not differ else f'DIFFER {differ}'}"
+        f"; record kernel ({n_leaves} leaves, {tris.shape[0]} leaf rows, "
+        f"{recs.shape[0]} record rows) vs pack_bw: "
+        f"{'bit for bit' if same else 'DIFFER'} (max abs diff {err:.3g}); "
+        f"kernel {ms:.4f} ms, bound {b:.4f} ms ({nbytes} B at the HBM "
+        f"rate), pack_bw {plain_ms:.3f} ms on the host; the whole refit "
+        f"{refit_ms:.4f} ms; {time.perf_counter() - t0:.3f} s wall {card}")
+    if differ:
+        failures.append(f"refit on the card differs from the CPU's: {differ}")
+    if not same:
+        failures.append("refit record kernel differs from pack_bw")
+    return dict(
+        name="refit_bw_records", route="cuda", source=REFIT_SRC,
+        replaces=None, launches=launched, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+        refit_ms=refit_ms)
 
 
 def nearest_work(o, d, verts, valid, kept):
@@ -3010,6 +3103,8 @@ def main():
     box_phase(dev, card, failures, scene, cfg, packed, packed8)
     # ---- the single-device entry (Queue A #16): phase 21 --------------------
     entry_launches = entry_phase(dev, card, failures)
+    # ---- the BVH refit of a mesh-geometry fit: phase 22 --------------------
+    refit_row = refit_phase(dev, card, failures)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -3029,7 +3124,8 @@ def main():
             "bound_by": by, "library_ms": None,
             "frame_ms": sum(seg_ms[mode]), "frame_bound_ms": fb,
             "frame_bound_by": fby})
-    rows = kernels + walk_rows + new_rows + list(probe_rows.values())
+    rows = (kernels + walk_rows + new_rows + list(probe_rows.values())
+            + [refit_row])
     for row in rows:  # launches per call of phases 17, 18 and 19 (b)
         if row["name"] in sharded:
             row["sharded_launches"] = sharded[row["name"]]

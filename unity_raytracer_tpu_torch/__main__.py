@@ -14,6 +14,8 @@ Twin: ``unity_raytracer_tpu/__main__.py`` — ``cmd_render`` (``:20-53``),
         --size 64 --steps 50 --out-dir fit/
 
     python -m unity_raytracer_tpu_torch fit --size 48 --steps 300
+    python -m unity_raytracer_tpu_torch fit --preset mesh10k \
+        --params mesh_positions --size 64 --steps 50 --lr 0.005
     python -m unity_raytracer_tpu_torch dryrun
     python -m unity_raytracer_tpu_torch dryrun --device cpu --devices 4
     python -m unity_raytracer_tpu_torch bench --preset mesh100k
@@ -32,7 +34,11 @@ fused fork kernel for the tree. ``fit`` runs, as in the twin, the
 on the composed path at depth 1 with chunked, rematerialized gradients
 (``cornell_box`` through the composed tree), or with ``--replay`` on the
 record-replay path, which needs the mirror chain: on a tree scene it
-fails with the twin's ``ValueError``. ``dryrun`` (the twin's ``:137-147``)
+fails with the twin's ``ValueError``. ``--params mesh_positions`` (a mesh
+preset, the composed path) fits the mesh's shared vertices instead of the
+spheres, from a seeded start that moves every vertex along its normal by
+up to a quarter of its mesh's mean edge; each step refits the BVH to the
+step's mesh on the device (``ops/bvh.refit``). ``dryrun`` (the twin's ``:137-147``)
 runs the multi-device dry run (``parallel/dryrun.py``): one NCCL process
 per visible card, or ``--devices N`` gloo processes with ``--device
 cpu``. ``bench`` runs the port's harness (``bench.py`` in this package,
@@ -137,13 +143,44 @@ def fit_setup(preset: str, width: int, height: int, replay: bool, device):
     return scene, cam, cfg, bvh, render(scene, cam, cfg, bvh=bvh), False
 
 
+def mesh_start(scene, seed: int, share: float = 0.25):
+    """The shared vertices of ``scene``'s meshes, each moved along its
+    vertex normal (the normalised sum of its faces' stored normals) by a
+    draw uniform in +-``share`` of its mesh's mean edge, from ``seed``."""
+    import numpy as np
+    import torch
+
+    m = scene.meshes
+    pos = m.positions.detach().cpu().numpy().astype(np.float64)
+    faces = m.faces.cpu().numpy()
+    valid = m.valid.cpu().numpy()
+    f = faces[valid]
+    nrm = np.zeros_like(pos)
+    np.add.at(nrm, f.reshape(-1), np.repeat(
+        m.normals.cpu().numpy()[valid], 3, axis=0))
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    edge = np.linalg.norm(pos[f] - pos[np.roll(f, 1, axis=1)], axis=-1)
+    mid = m.mesh_id.cpu().numpy()[valid]
+    mean = np.array([edge[mid == k].mean() if (mid == k).any() else 0.0
+                     for k in range(int(mid.max(initial=0)) + 1)])
+    vmesh = np.zeros(len(pos), np.int64)
+    vmesh[f.reshape(-1)] = np.repeat(mid, 3)
+    u = np.random.default_rng(seed).uniform(-1.0, 1.0, len(pos))
+    used = np.zeros(len(pos), bool)
+    used[f.reshape(-1)] = True
+    step = np.where(used, share * mean[vmesh] * u, 0.0)
+    return torch.as_tensor(pos + step[:, None] * nrm, dtype=torch.float32,
+                           device=m.positions.device)
+
+
 def run_fit(preset: str, width: int, height: int, steps: int, lr: float,
             seed: int, device, ckpt_every: int = 0, out_dir=None,
-            replay: bool = True):
+            replay: bool = True, params: str = "spheres"):
     """``fit`` on ``preset``: ``fit_setup``, the sphere centers and
-    diffuse colours perturbed from ``seed`` (the twin's ``cmd_fit``),
-    then the fit. Returns ``(result, true_params, (scene, cam, cfg, bvh,
-    target))``."""
+    diffuse colours perturbed from ``seed`` (the twin's ``cmd_fit``), or
+    with ``params='mesh_positions'`` the mesh's shared vertices
+    (``mesh_start``), then the fit. Returns ``(result, true_params,
+    (scene, cam, cfg, bvh, target))``."""
     import numpy as np
     import torch
 
@@ -151,15 +188,25 @@ def run_fit(preset: str, width: int, height: int, steps: int, lr: float,
 
     scene, cam, cfg, bvh, target, replay = fit_setup(preset, width, height,
                                                      replay, device)
-    names = ("sphere_centers", "sphere_diffuse")
-    true_p = get_params(scene, names)
-    n_sph = true_p["sphere_centers"].shape[0]
-    rng = np.random.default_rng(seed)
-    noise = lambda lo, hi: torch.as_tensor(
-        rng.uniform(lo, hi, (n_sph, 3)), dtype=torch.float32, device=device)
-    init = {"sphere_centers": true_p["sphere_centers"] + noise(-0.4, 0.4),
-            "sphere_diffuse": torch.clamp(
-                true_p["sphere_diffuse"] + noise(-0.2, 0.2), 0.0, 1.0)}
+    if params == "mesh_positions":
+        if bvh is None or replay:
+            raise SystemExit("fit: --params mesh_positions needs a mesh "
+                             "preset on the composed path (no --replay)")
+        names = ("mesh_positions",)
+        true_p = get_params(scene, names)
+        init = {"mesh_positions": mesh_start(scene, seed)}
+    else:
+        names = ("sphere_centers", "sphere_diffuse")
+        true_p = get_params(scene, names)
+        n_sph = true_p["sphere_centers"].shape[0]
+        rng = np.random.default_rng(seed)
+        noise = lambda lo, hi: torch.as_tensor(
+            rng.uniform(lo, hi, (n_sph, 3)), dtype=torch.float32,
+            device=device)
+        init = {"sphere_centers": true_p["sphere_centers"]
+                + noise(-0.4, 0.4),
+                "sphere_diffuse": torch.clamp(
+                    true_p["sphere_diffuse"] + noise(-0.2, 0.2), 0.0, 1.0)}
     fcfg = FitConfig(param_names=names, learning_rate=lr, steps=steps,
                      soft_shadow_temp=1.0, soft_hit_temp=0.1,
                      log_every=max(steps // 10, 1),
@@ -178,13 +225,19 @@ def cmd_fit(args):
     device = _device(args)
     res, true_p, (_, cam, cfg, bvh, target) = run_fit(
         args.preset, args.size, args.size, args.steps, args.lr, args.seed,
-        device, args.ckpt_every, args.out_dir, replay=args.replay)
-    err = (res.params["sphere_centers"]
-           - true_p["sphere_centers"]).abs().max()
+        device, args.ckpt_every, args.out_dir, replay=args.replay,
+        params=args.params)
+    key = ("vertex_err" if args.params == "mesh_positions"
+           else "center_err")
+    name = "mesh_positions" if key == "vertex_err" else "sphere_centers"
+    err = (res.params[name] - true_p[name]).abs().max()
     print(json.dumps({"final_loss": float(res.losses[-1]),
                       "loss_ratio": float(res.losses[-1] / res.losses[0]),
-                      "center_err": float(err)}))
+                      key: float(err)}))
     if args.out_dir:
+        if args.params == "mesh_positions":
+            from unity_raytracer_tpu_torch.ops.bvh import refit
+            bvh, _ = refit(bvh, res.scene)
         final = render(res.scene, cam, cfg, bvh=bvh).cpu().numpy()
         imgutil.write_png(f"{args.out_dir}/recovered.png", final)
         imgutil.write_png(f"{args.out_dir}/target.png",
@@ -254,6 +307,12 @@ def main():
     f.add_argument("--replay", action="store_true",
                    help="soft record-replay gradient step (fused kernel "
                         "records + differentiable replay) at full depth")
+    f.add_argument("--params", default="spheres",
+                   choices=("spheres", "mesh_positions"),
+                   help="what the fit recovers: the sphere centres and "
+                        "diffuse colours, or the mesh's shared vertices "
+                        "(a mesh preset on the composed path; each step "
+                        "refits the BVH to the step's mesh)")
     f.add_argument("--device", default="cuda", help=dev_help)
     f.set_defaults(fn=cmd_fit)
 

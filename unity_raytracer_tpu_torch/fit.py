@@ -24,10 +24,17 @@ pixel-gradient descent, on one of three steps:
 The parameters are leaf tensors with ``requires_grad``, installed into a
 template scene with ``dataclasses.replace``; the optimizer is
 ``torch.optim.Adam`` (optax's adam defaults are its defaults). Mesh
-vertices reach the BVH's epilogue through ``ops/bvh.bind_verts``.
+geometry moves as the shared vertices (``mesh_positions``, the port's own
+class: each triangle's corners re-derived from them, so the mesh stays
+closed) or as free corners (``mesh_verts``); either way each step first
+refits the BVH to the step's mesh (``ops/bvh.refit``: boxes, rows, leaf
+records and the scene's gates, on the device), and the corners reach the
+traversal epilogue through ``ops/bvh.bind_verts``. A fit that moves no
+mesh refits nothing.
 
 Spans (``utils/profiling.span``): each step of ``fit`` is a ``fit.step``
-(attribute ``step``) over ``fit.value_and_grad``, ``fit.grad_transform``
+(attribute ``step``) over ``fit.value_and_grad`` (a mesh fit's
+``bvh.refit`` first), ``fit.grad_transform``
 (the caller's hook), ``fit.adam``, ``fit.sync`` (the loss read back),
 ``fit.prefix_guard`` and ``fit.checkpoint`` where they run; the chunked
 composed step splits into ``composed.chunk`` (attribute ``i``) over
@@ -49,7 +56,8 @@ from unity_raytracer_tpu_torch.models.convert import (
     adam_state_from_arrays, params_from_arrays)
 from unity_raytracer_tpu_torch.models.scene import Scene
 from unity_raytracer_tpu_torch.ops import replay as rp
-from unity_raytracer_tpu_torch.ops.bvh import bind_verts
+from unity_raytracer_tpu_torch.ops.bvh import (
+    bind_verts, refit, with_refit_tables)
 from unity_raytracer_tpu_torch.ops.render import (
     render, resolve_mode, trace_radiance)
 from unity_raytracer_tpu_torch.utils import checkpoint as ckpt
@@ -69,11 +77,15 @@ PARAM_PATHS = {
     "tri_diffuse": ("triangles", "materials", "diffuse"),
     "light_positions": ("lights", "positions"),
     "light_intensities": ("lights", "intensities"),
-    # mesh-vertex deformation: the losses below re-bind the BVH's
-    # epilogue triangles to the current verts each step (bind_verts);
-    # composed path, BVH built with cfg.bvh_pad >= the displacement
+    # mesh geometry, on the composed path: fit refits the BVH to each
+    # step's mesh (ops/bvh.refit) and re-binds the epilogue's triangles
+    # (bind_verts). mesh_verts moves each triangle's corners on their own;
+    # mesh_positions moves the shared vertices (MeshSet.positions), from
+    # which set_params re-derives the corners
     "mesh_verts": ("meshes", "verts"),
+    "mesh_positions": ("meshes", "positions"),
 }
+MESH_PARAMS = ("mesh_verts", "mesh_positions")
 
 
 def get_params(scene: Scene, names: Tuple[str, ...]
@@ -88,9 +100,26 @@ def get_params(scene: Scene, names: Tuple[str, ...]
 
 
 def set_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
+    """``scene`` with ``params`` installed; with ``mesh_positions`` (and
+    no ``mesh_verts`` given beside it) the mesh corners are
+    ``positions[faces]``, so a shared vertex's gradient is the sum of its
+    corners' (an atomic ``index_add_``: the backward of ``index_select``)."""
     for name, value in params.items():
         scene = _replace_path(scene, PARAM_PATHS[name], value)
+    if "mesh_positions" in params and "mesh_verts" not in params:
+        m = scene.meshes
+        verts = torch.index_select(m.positions, 0, m.faces.reshape(-1))
+        scene = dataclasses.replace(scene, meshes=dataclasses.replace(
+            m, verts=verts.view(-1, 3, 3)))
     return scene
+
+
+def _refit(bvh, template: Scene, params: Dict[str, torch.Tensor]):
+    """``(bvh, template)`` refit to the mesh of ``params`` (detached):
+    ``ops/bvh.refit``, once a step, before the step's rays."""
+    with torch.no_grad():
+        return refit(bvh, set_params(template, {k: v.detach() for k, v in
+                                                params.items()}))
 
 
 def _replace_path(node, path, value):
@@ -133,18 +162,22 @@ class FitResult(NamedTuple):
 
 
 def make_loss_fn(template: Scene, cam: Camera, rcfg: RenderConfig,
-                 target: torch.Tensor, bvh=None) -> Callable:
+                 target: torch.Tensor, bvh=None,
+                 refit_bvh: bool = False) -> Callable:
     """Pixel-MSE loss of ``render`` against ``target`` ([H,W,3], display
     scale). ``rcfg`` should carry a soft ``DiffConfig`` so silhouette
     gradients exist; with ``straight_through`` the forward stays hard.
     ``bvh``: a prebuilt BVH (``ops/bvh.prepare_bvh``), re-bound to each
-    step's mesh verts; mesh geometry otherwise never moves, so one BVH
-    serves every step."""
+    call's mesh verts; ``refit_bvh`` refits it to them first (a fit that
+    moves the mesh)."""
     rcfg = resolve_mode(template, rcfg)
 
     def loss_fn(params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        scene = set_params(template, params)
-        img = render(scene, cam, rcfg, bvh=_bind(bvh, scene))
+        tmpl, b = template, bvh
+        if refit_bvh:
+            b, tmpl = _refit(bvh, template, params)
+        scene = set_params(tmpl, params)
+        img = render(scene, cam, rcfg, bvh=_bind(b, scene))
         return ((img - target) ** 2).mean()
 
     return loss_fn
@@ -163,8 +196,8 @@ def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
                                 target: torch.Tensor, bvh=None,
                                 chunk: Optional[int] = None,
                                 weights: Optional[torch.Tensor] = None,
-                                denom: Optional[float] = None
-                                ) -> Callable:
+                                denom: Optional[float] = None,
+                                refit_bvh: bool = False) -> Callable:
     """Chunked gradient accumulation on the composed path: for each chunk
     of rays, ``backward()`` of its summed squared error into the same
     ``.grad``; the loss and gradients are divided once at the end by 3x
@@ -176,8 +209,11 @@ def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
     ``(o, d)``. ``weights`` (optional [N]): per-lane loss weights, e.g. 0
     on the pad margin of block-ordered raygen. ``denom`` replaces the
     divisor: a rank's share of a loss over more rays than its own
-    (``parallel/shard.make_sharded_train_step``). Returns ``f(params) ->
-    (loss, grads)``."""
+    (``parallel/shard.make_sharded_train_step``). ``refit_bvh``: refit
+    ``bvh`` to the mesh of ``params`` once per call, before the first
+    chunk (a fit that moves the mesh). Each chunk installs the parameters
+    anew, so that a chunk's graph (``positions[faces]``) is its own.
+    Returns ``f(params) -> (loss, grads)``."""
     rcfg = resolve_mode(template, rcfg)
     n = o.shape[0]
     c = min(chunk or rcfg.ray_chunk or n, n)
@@ -197,13 +233,16 @@ def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
 
     def value_and_grad_fn(params):
         leaves = rp._leaves(params)
-        scene = set_params(template, leaves)
+        tmpl, b = template, bvh
+        if refit_bvh:
+            b, tmpl = _refit(bvh, template, leaves)
         loss = torch.zeros((), dtype=torch.float32, device=o.device)
         for i in range(oc.shape[0]):
             with span("composed.chunk", i=i):
                 with span("composed.forward"):
+                    scene = set_params(tmpl, leaves)
                     rad = trace_radiance(scene, oc[i], dc[i], rcfg,
-                                         bvh=_bind(bvh, scene))
+                                         bvh=_bind(b, scene))
                     l_i = (((rad - tc[i]) ** 2) * wc[i][:, None]).sum()
                 with span("composed.backward"):
                     l_i.backward()
@@ -225,7 +264,10 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
     ``cfg.use_replay``.
 
     ``bvh``: the BVH from ``ops/bvh.prepare_bvh`` for ``use_bvh`` scenes
-    (the replay needs the fused kernel's ``PackedBVH``). ``grad_transform
+    (the replay needs the fused kernel's ``PackedBVH``). Parameters that
+    move the mesh (``MESH_PARAMS``; the composed path only) refit it to
+    each step's mesh before the step's rays (``ops/bvh.refit``; its index
+    tables made once, here, on the host). ``grad_transform
     (grads, params) -> grads`` hooks in a gradient all-reduce for
     multi-device runs. ``resume_from``: a checkpoint written by this
     function (``cfg.checkpoint_every``); the fit continues from its step,
@@ -242,6 +284,12 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
     scale = 1.0 / (255.0 * 255.0)  # radiance-scale MSE -> image MSE
     live_prefix = measure_prefix = None
+    refit_bvh = bvh is not None and any(k in params for k in MESH_PARAMS)
+    if refit_bvh:
+        if cfg.use_replay:
+            raise ValueError("a fit that moves the mesh runs on the "
+                             "composed path, not FitConfig.use_replay")
+        bvh = with_refit_tables(bvh, template)
     if cfg.use_replay:
         if rcfg.mode != "scan" or bvh is None \
                 or getattr(bvh, "leafmeta", None) is None:
@@ -300,13 +348,14 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
         tgt_rad = swizzle_image(target, rcfg.block_size) * 255.0
         raw_vg = make_chunked_value_and_grad(
             template, rcfg, o, d, tgt_rad, bvh=bvh,
-            weights=_lane_weights(cam, rcfg, dev))
+            weights=_lane_weights(cam, rcfg, dev), refit_bvh=refit_bvh)
 
         def value_and_grad(p):
             loss, grads = raw_vg(p)
             return loss * scale, {k: g * scale for k, g in grads.items()}
     else:
-        loss_fn = make_loss_fn(template, cam, rcfg, target, bvh=bvh)
+        loss_fn = make_loss_fn(template, cam, rcfg, target, bvh=bvh,
+                               refit_bvh=refit_bvh)
 
         def value_and_grad(p):
             leaves = rp._leaves(p)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,7 +89,15 @@ class Triangles(_Movable):
 
 @dataclass(frozen=True)
 class MeshSet(_Movable):
-    """All mesh triangles concatenated, with per-mesh side tables."""
+    """All mesh triangles concatenated, with per-mesh side tables.
+
+    ``positions`` and ``faces`` (port only) keep the shared vertices the
+    builder was given: every mesh's vertices concatenated, and each row's
+    three corners as indices into them, so that ``verts`` is
+    ``positions[faces]``; the pad rows index one zero vertex appended at
+    the end. A geometry fit moves ``positions`` (``fit.PARAM_PATHS
+    ['mesh_positions']``) and re-derives ``verts`` from them. None where
+    the scene was made from its arrays (``models/convert``)."""
 
     verts: torch.Tensor          # [M,3,3]
     normals: torch.Tensor        # [M,3]
@@ -99,6 +107,10 @@ class MeshSet(_Movable):
     mesh_aabb_max: torch.Tensor  # [K,3]
     mesh_materials: Materials    # [K]
     mesh_valid: torch.Tensor     # [K] bool
+    positions: Optional[torch.Tensor] = field(default=None,
+                                              metadata=PORT_ONLY)  # [V,3]
+    faces: Optional[torch.Tensor] = field(default=None,
+                                          metadata=PORT_ONLY)  # [M,3] i64
 
     @property
     def count(self) -> int:
@@ -206,6 +218,8 @@ class SceneBuilder:
         self._tri_normals: List[np.ndarray] = []
         self._tri_mats: List[dict] = []
         self._mesh_tris: List[np.ndarray] = []
+        self._mesh_pos: List[np.ndarray] = []
+        self._mesh_faces: List[np.ndarray] = []
         self._mesh_normals: List[np.ndarray] = []
         self._mesh_mats: List[dict] = []
         self._light_pos: List[np.ndarray] = []
@@ -231,7 +245,9 @@ class SceneBuilder:
     def add_mesh(self, verts: np.ndarray, faces: np.ndarray, material: dict,
                  flip_normals: bool = True) -> "SceneBuilder":
         """Add an indexed triangle mesh; ``flip_normals`` negates the derived
-        normal like the reference mesh bake (SceneMesh.cs:43)."""
+        normal like the reference mesh bake (SceneMesh.cs:43). The shared
+        vertices and the face indices are kept (``MeshSet.positions`` /
+        ``faces``)."""
         verts = np.asarray(verts, np.float32)
         faces = np.asarray(faces, np.int64).reshape(-1, 3)
         tris = verts[faces]
@@ -242,6 +258,8 @@ class SceneBuilder:
         if flip_normals:
             n = -n
         self._mesh_tris.append(tris.astype(np.float32))
+        self._mesh_pos.append(verts)
+        self._mesh_faces.append(faces)
         self._mesh_normals.append(n.astype(np.float32))
         self._mesh_mats.append(material)
         return self
@@ -303,6 +321,14 @@ class SceneBuilder:
         mnp_[: mn.shape[0]] = mn
         midp[: mid.shape[0]] = mid
         mvalid[: mv.shape[0]] = True
+        # shared vertices; the pad rows index a zero vertex at the end
+        base = np.cumsum([0] + [len(p) for p in self._mesh_pos])
+        pos = np.concatenate(self._mesh_pos + [np.zeros((1, 3), np.float32)]
+                             )[: base[-1] + (M > mv.shape[0])]
+        faces = np.full((M, 3), base[-1], np.int64)
+        if self._mesh_faces:
+            faces[: mv.shape[0]] = np.concatenate(
+                [f + b for f, b in zip(self._mesh_faces, base)])
 
         amin = np.full((K, 3), np.inf, np.float32)
         amax = np.full((K, 3), -np.inf, np.float32)
@@ -316,7 +342,8 @@ class SceneBuilder:
             mesh_id=_t(midp, device), valid=_t(mvalid, device),
             mesh_aabb_min=_t(amin, device), mesh_aabb_max=_t(amax, device),
             mesh_materials=_mat_soa(self._mesh_mats, K, device),
-            mesh_valid=_t(kvalid, device))
+            mesh_valid=_t(kvalid, device), positions=_t(pos, device),
+            faces=_t(faces, device))
 
         lp = np.zeros((L, 3), np.float32)
         li = np.zeros((L, 3), np.float32)

@@ -30,6 +30,10 @@ outward ones: the tree is the twin's, and a node box differs from the
 twin's only where an outward-rounded reference box sets it
 (``tests/test_torch_presplit.py``).
 
+Port only: ``refit`` (with ``refit_tables`` / ``with_refit_tables``), the
+tree of a fit that moves the mesh rewritten from each step's verts on the
+device, its topology kept.
+
 Another (ROADMAP Queue C #14): a ray aimed at a triangle's corner or edge
 hits it at a point a few ulps off the node boxes that bound the triangle
 exactly, and the twin's walks can cull that hit. ``MeshBVH.node_min`` /
@@ -41,19 +45,20 @@ packed walk rows (``PackedBVH.nodes_walk`` / ``wide_walk``).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from unity_raytracer_tpu_torch.models.scene import PORT_ONLY
 from unity_raytracer_tpu_torch.ops.intersect import EPS, dot3
 from unity_raytracer_tpu_torch.ops.kernels import _lib
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import (
     PALLAS_LEAF, PackedBVH, node_walk_rows, pack_bw, pack_rows,
     wide_walk_rows)
 from unity_raytracer_tpu_torch.ops.kernels.traverse_wide import widen
-from unity_raytracer_tpu_torch.utils.boxes import pad_box
+from unity_raytracer_tpu_torch.utils.boxes import GROUP_MARGIN, pad_box
 from unity_raytracer_tpu_torch.utils.profiling import span
 
 LEAF_SIZE = 4
@@ -79,6 +84,11 @@ class MeshBVH:
     # convention of the stored normals (see canonical_winding)
     canonical: bool = False
     flip: Optional[np.ndarray] = None  # [M_total] bool rows swapped v1<->v2
+    # port only: the pad every node box was inflated by (build's
+    # aabb_pad), and the refit's index tables once made (refit_tables)
+    aabb_pad: float = field(default=0.0, metadata=PORT_ONLY)
+    refit_tables: Optional["RefitTables"] = field(default=None,
+                                                  metadata=PORT_ONLY)
 
     @property
     def n_nodes(self) -> int:
@@ -403,7 +413,8 @@ def build(verts: np.ndarray, valid: np.ndarray | None = None,
     rows = ref_tri[order]
     return MeshBVH(node_min=node_min, node_max=node_max, first=first,
                    count=count, miss_next=miss, tri_verts=tris[rows],
-                   prim_index=orig_idx[rows], leaf_size=leaf_size)
+                   prim_index=orig_idx[rows], leaf_size=leaf_size,
+                   aabb_pad=float(aabb_pad))
 
 
 def _slab_enter(o, d_inv, lo, hi, tmax):
@@ -550,13 +561,13 @@ def canonical_winding(verts: np.ndarray, normals: np.ndarray,
 
 def bind_verts(bvh, scene):
     """Re-derive the traversal epilogue's triangle table from the scene's
-    current mesh verts, differentiably — the ``mesh_verts`` gradient hook
-    (``fit.PARAM_PATHS``). The walk keeps its baked boxes and rows; the
-    epilogue's ``t`` and shading normal then read this table, so the
-    radiance's gradient reaches the mesh verts as on the brute-force
-    path. Contract (the twin's): the walk picks winners on the baked
-    rows, so build the BVH with ``cfg.bvh_pad`` >= the largest vertex
-    displacement, and keep the verts near their build positions."""
+    current mesh verts, differentiably — the mesh gradient hook
+    (``fit.PARAM_PATHS`` 'mesh_verts' and 'mesh_positions'). The walk
+    keeps the boxes and rows it has; the epilogue's ``t`` and shading
+    normal then read this table, so the radiance's gradient reaches the
+    mesh verts as on the brute-force path. A fit that moves the mesh
+    refits the tree to each step's verts first (``refit``), so the walk
+    picks its winners on the verts the epilogue reads."""
     if scene.meshes.count == 0:
         return bvh
     packed = isinstance(bvh, PackedBVH)
@@ -566,8 +577,393 @@ def bind_verts(bvh, scene):
         flip = torch.as_tensor(inner.flip, device=v.device)
         v = torch.where(flip[:, None, None], v[:, (0, 2, 1), :], v)
     idx = torch.as_tensor(inner.prim_index, device=v.device).long()
-    new_inner = dataclasses.replace(inner, tri_verts=v[idx.clamp_min(0)])
+    new_inner = dataclasses.replace(
+        inner, tri_verts=torch.index_select(v, 0, idx.clamp_min(0)))
     return bvh.replace(bvh=new_inner) if packed else new_inner
+
+
+# ---------------------------------------------------------------------------
+# refit: every row of a fixed tree rewritten from the current verts
+# ---------------------------------------------------------------------------
+
+_SIGN6 = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
+
+
+@dataclass(frozen=True)
+class RefitTables:
+    """What ``refit`` needs of one tree, made once on the host
+    (``refit_tables``) and held on the device.
+
+    Boxes travel as ``(-lo, hi)`` 6-vectors, so that a union is one
+    elementwise max. ``elem_src`` indexes ``cat(verts.flatten(), [0])``
+    (entry ``9 M`` is the zero of an empty slot): the epilogue table
+    (``tv``, canonical winding folded in) and the ``tris`` rows. The
+    corners of each 7-slot group (``group_src``, rows of
+    ``verts.reshape(-1, 3)``; a dead slot repeats a live corner of its
+    group) reduce to the group boxes, ``groups_per_leaf`` of them to a
+    leaf box, and every leaf box reaches itself and its ancestors by one
+    scatter over the (leaf, node) pairs ``anc_leaf`` / ``anc_node``:
+    bottom-up from the slots, the topology fixed. ``out_src`` /
+    ``out_sign`` gather every box-derived row (``layout``: name -> offset,
+    shape) from the pool ``cat(N, S, pad(N, groups, S), consts)``."""
+
+    tv_src: torch.Tensor
+    tris_src: Optional[torch.Tensor]
+    group_src: torch.Tensor
+    groups_per_leaf: int
+    anc_leaf: torch.Tensor
+    anc_node: torch.Tensor
+    n_nodes: int
+    pad: float
+    static6: torch.Tensor
+    mesh_corners: Tuple[Tuple[int, int], ...]
+    n_meshes: int
+    out_src: torch.Tensor
+    out_sign: torch.Tensor
+    consts: torch.Tensor
+    layout: dict
+    zero: torch.Tensor
+    inf: torch.Tensor
+    bw: Optional[Tuple[int, int, int]]   # (leaves, rows a leaf, BW rows)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def refit_tables(bvh, scene) -> RefitTables:
+    """The index tables of ``bvh`` (a ``PackedBVH`` from ``prepare_bvh``,
+    or a bare ``MeshBVH``) for ``scene``'s mesh rows, made on the host
+    from the tree as built and moved to the tree's device. Raises for a
+    presplit tree (its boxes bound clipped pieces, not the corners) and
+    for a packed tree without ``wide_node`` (not made by ``widen``)."""
+    packed = isinstance(bvh, PackedBVH)
+    inner = bvh.bvh if packed else bvh
+    dev = torch.as_tensor(inner.prim_index).device
+    first, count = _host(inner.first).astype(np.int64), _host(inner.count)
+    miss, prim = _host(inner.miss_next).astype(np.int64), \
+        _host(inner.prim_index).astype(np.int64)
+    if len(np.unique(prim)) != len(prim):
+        raise ValueError("refit: a presplit tree (triangles referenced "
+                         "twice) cannot be refit from its corners")
+    m_rows = scene.meshes.count
+    flip = (np.zeros(m_rows, bool) if inner.flip is None
+            else _host(inner.flip).astype(bool))
+    perm = np.where(flip[:, None], [0, 2, 1], [0, 1, 2])       # [M,3]
+    nn = first.shape[0]
+    is_leaf = count > 0
+    leaf_nodes = np.nonzero(is_leaf)[0]
+    n_leaves = len(leaf_nodes)
+    zero_at = 9 * m_rows
+    # the epilogue table: leaf-order row j -> MeshSet row prim[j]
+    corner = 3 * prim[:, None] + perm[prim]                    # [Mb,3]
+    tv_src = (3 * corner[..., None] + np.arange(3)).reshape(-1)
+    # slots of each leaf, in leaf order; -1 past its count
+    if packed:
+        rpl = bvh.rows_per_leaf
+        slots = rpl * PALLAS_LEAF
+    else:
+        rpl, slots = 0, int(count.max(initial=1))
+    k = np.arange(slots)
+    live = k[None] < count[leaf_nodes][:, None]                # [L,S]
+    row = np.where(live, first[leaf_nodes][:, None] + k[None], -1)
+    tris_src = None
+    if packed:
+        el = np.where(live[..., None, None], 3 * corner[row.clip(0)][..., None]
+                      + np.arange(3), zero_at)                 # [L,S,3,3]
+        tris = np.full((max(n_leaves, 1) * rpl, 128), zero_at, np.int64)
+        tris[:n_leaves * rpl, :9 * PALLAS_LEAF] = el.reshape(
+            n_leaves * rpl, 9 * PALLAS_LEAF)
+        tris_src = tris.reshape(-1)
+    # 7-slot groups; a dead slot repeats its group's first slot (live
+    # where any slot of the group is: slots fill from 0), else the leaf's
+    k7 = np.arange(-(-slots // 7) * 7)
+    gpl = len(k7) // 7
+    live7 = k7[None] < count[leaf_nodes][:, None]
+    at = lambda kk: 3 * prim[(first[leaf_nodes][:, None]
+                              + kk[None]).clip(0, len(prim) - 1)]
+    head = k7 - k7 % 7
+    tri_c = np.where(live7, at(k7), np.where(live7[:, head], at(head),
+                                             at(0 * k7)))      # [L,7g]
+    group_src = (tri_c[..., None] + np.arange(3)).reshape(-1)
+    group_used = live7.reshape(n_leaves, gpl, 7).any(-1)       # [L,g]
+    # each leaf, and every ancestor of it
+    parent = np.full(nn, -1, np.int64)
+    inner_nodes = np.nonzero(~is_leaf)[0]
+    if nn > 1:
+        parent[inner_nodes + 1] = inner_nodes
+        parent[miss[inner_nodes + 1]] = inner_nodes
+    pairs_l, pairs_n = [], []
+    cur = leaf_nodes.copy()
+    ids = np.arange(n_leaves)
+    while len(cur):
+        pairs_l.append(ids)
+        pairs_n.append(cur)
+        keep = parent[cur] >= 0
+        ids, cur = ids[keep], parent[cur][keep]
+    anc_leaf = np.concatenate(pairs_l)
+    anc_node = np.concatenate(pairs_n)
+    # the boxes of the scene's other primitives, as the builder takes them
+    pts = []
+    tv_loose = _host(scene.triangles.verts)[_host(scene.triangles.valid)]
+    if tv_loose.size:
+        pts.append(tv_loose.reshape(-1, 3).astype(np.float64))
+    for c, r2, ok in zip(_host(scene.spheres.centers),
+                         _host(scene.spheres.radius_sq),
+                         _host(scene.spheres.valid)):
+        if ok:
+            r = np.sqrt(np.float64(r2))
+            pts += [(c - r)[None], (c + r)[None]]
+    static6 = np.full(6, -np.inf, np.float32)
+    if pts:
+        allp = np.concatenate(pts)
+        static6[:3] = -allp.min(0).astype(np.float32)
+        static6[3:] = allp.max(0).astype(np.float32)
+    # the mesh boxes: meshes fill the first rows, one after another
+    mid = _host(scene.meshes.mesh_id)
+    mvalid = _host(scene.meshes.valid)
+    kvalid = _host(scene.meshes.mesh_valid)
+    n_real = int(mvalid.sum())
+    n_mesh = int(kvalid.sum())
+    if not (mvalid[:n_real].all() and kvalid[:n_mesh].all()
+            and (np.diff(mid[:n_real]) >= 0).all()):
+        raise ValueError("refit: the mesh rows are not laid out as "
+                         "SceneBuilder lays them out")
+    if n_leaves == 0 or n_mesh == 0:
+        raise ValueError("refit: the scene has no mesh triangles")
+    bounds = np.searchsorted(mid[:n_real], np.arange(n_mesh + 1))
+    mesh_corners = tuple((3 * int(a), 3 * int(b))
+                         for a, b in zip(bounds[:-1], bounds[1:]))
+
+    # the pool: N (nn), S (1), padded N, groups, S, then the constants
+    n_groups = n_leaves * gpl
+    o_s = 6 * nn
+    o_p = o_s + 6
+    o_c = o_p + 6 * (nn + n_groups + 1)
+    consts: list = [np.zeros(1, np.float32)]
+    out_src: list = []
+    out_sign: list = []
+    layout: dict = {}
+
+    def emit(name, src, sign, shape):
+        at = sum(len(x) for x in out_src)
+        pad = (-at) % 4          # every piece 16-byte aligned
+        if pad:
+            out_src.append(np.full(pad, -1, np.int64))
+            out_sign.append(np.ones(pad, np.float32))
+            at += pad
+        out_src.append(np.asarray(src, np.int64).reshape(-1))
+        out_sign.append(np.asarray(sign, np.float32).reshape(-1))
+        layout[name] = (at, tuple(shape))
+
+    sign6 = np.asarray(_SIGN6, np.float32)
+    box = lambda base, i: base + 6 * np.asarray(i)[..., None] + np.arange(6)
+    # a constant is marked -(2 + its index into the concatenated consts)
+    # and numbered after the pool's boxes once all are known (-1: the
+    # alignment padding)
+    def cref(vals):
+        v = np.asarray(vals, np.float32)
+        start = sum(len(c) for c in consts)
+        consts.append(v.reshape(-1))
+        return -(2 + start + np.arange(v.size).reshape(v.shape))
+
+    nsrc = box(0, np.arange(nn))
+    emit("node_min", nsrc[:, :3], -np.ones((nn, 3)), (nn, 3))
+    emit("node_max", nsrc[:, 3:], np.ones((nn, 3)), (nn, 3))
+    emit("aabb_min", o_s + np.arange(3), -np.ones(3), (3,))
+    emit("aabb_max", o_s + 3 + np.arange(3), np.ones(3), (3,))
+    gsrc = box(o_p, nn + n_groups)
+    emit("gate_min", gsrc[:3], -np.ones(3), (3,))
+    emit("gate_max", gsrc[3:], np.ones(3), (3,))
+    bw = None
+    if packed:
+        meta = _host(bvh.nodes)[:, 6:]
+        for name, base in (("nodes", 0), ("nodes_walk", o_p)):
+            src = np.concatenate([box(base, np.arange(nn)), cref(meta)], 1)
+            sign = np.concatenate([np.broadcast_to(sign6, (nn, 6)),
+                                   np.ones_like(meta)], 1)
+            emit(name, src, sign, (nn, 16))
+        if bvh.wide is not None:
+            if bvh.wide_node is None:
+                raise ValueError("refit: the PackedBVH has no wide_node; "
+                                 "build it with widen / prepare_bvh")
+            wide = _host(bvh.wide)
+            wn = _host(bvh.wide_node).astype(np.int64)
+            nw, ar = wn.shape
+            wv = wide.reshape(nw, ar, 8)
+            present = wn >= 0
+            for name, base in (("wide", 0), ("wide_walk", o_p)):
+                src = np.concatenate([
+                    np.where(present[..., None], box(base, wn.clip(0)),
+                             cref(wv[..., :6])), cref(wv[..., 6:])], -1)
+                sign = np.concatenate([
+                    np.where(present[..., None], sign6, 1.0),
+                    np.ones((nw, ar, 2))], -1)
+                emit(name, src, sign, (nw, 8 * ar))
+        # the group boxes of each tris row: 2 groups of 8 lanes, the last
+        # two lanes 0; a group with no live slot all 0
+        rows = max(n_leaves, 1) * rpl
+        gi = np.arange(rows * 2).reshape(rows, 2)
+        used = np.zeros(rows * 2, bool)
+        used[:n_groups] = group_used.reshape(-1)
+        used = used.reshape(rows, 2)
+        zeros = cref(np.zeros((rows, 2, 8)))
+        src = np.where(used[..., None], np.concatenate(
+            [box(o_p, nn + gi.clip(0, max(n_groups - 1, 0))),
+             zeros[..., 6:]], -1), zeros)
+        sign = np.where(used[..., None],
+                        np.concatenate([sign6, [1.0, 1.0]]), 1.0)
+        emit("leafbox", src, sign, (rows, 16))
+        if bvh.tris_bw is not None:
+            bw = (n_leaves, rpl, bvh.bw_rows_per_leaf)
+    cvals, inv = np.unique(np.concatenate(consts), return_inverse=True)
+    src = np.concatenate(out_src)
+    src = np.where(src < -1, o_c + inv[np.maximum(-src - 2, 0)],
+                   np.maximum(src, 0))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return RefitTables(
+        tv_src=t(tv_src), tris_src=None if tris_src is None else
+        t(tris_src), group_src=t(group_src), groups_per_leaf=gpl,
+        anc_leaf=t(anc_leaf),
+        anc_node=t(np.broadcast_to(anc_node[:, None], (len(anc_node), 6))
+                   .copy()),
+        n_nodes=nn, pad=float(inner.aabb_pad),
+        static6=t(static6), mesh_corners=mesh_corners,
+        n_meshes=int(scene.meshes.mesh_valid.shape[0]),
+        out_src=t(src), out_sign=t(np.concatenate(out_sign)),
+        consts=t(cvals), layout=layout,
+        zero=torch.zeros(1, device=dev),
+        inf=torch.tensor(np.inf, device=dev), bw=bw)
+
+
+def with_refit_tables(bvh, scene):
+    """``bvh`` carrying its ``refit_tables`` (made now, on the host, where
+    it has none): what a fit that moves the mesh does once, before its
+    steps."""
+    packed = isinstance(bvh, PackedBVH)
+    inner = bvh.bvh if packed else bvh
+    if inner.refit_tables is not None:
+        return bvh
+    inner = dataclasses.replace(inner,
+                                refit_tables=refit_tables(bvh, scene))
+    return bvh.replace(bvh=inner) if packed else inner
+
+
+def _pad6(b6: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """``utils/boxes.pad_box`` of ``(-lo, hi)`` boxes [..., 6], bit for
+    bit: ``-lo`` moves up as ``lo`` moves down (``nextafter`` and the
+    rounding of a sum are odd functions)."""
+    pad = torch.nan_to_num(GROUP_MARGIN * b6.abs().amax(-1, keepdim=True),
+                           posinf=0.0)
+    return torch.nextafter(b6 + pad, inf)
+
+
+# launches of the refit's Baldwin–Weber kernel since the count was last
+# reset (set it to 0 to start a count); only _bw_rows' CUDA branch adds
+launches = {"bw_records": 0}
+
+
+def _bw_rows(tris: torch.Tensor, bw: Tuple[int, int, int]) -> torch.Tensor:
+    """``tris_bw`` of the rows ``tris``: the CUDA kernel on the card
+    (``csrc/refit.cu``), ``pack_bw`` on the CPU."""
+    n_leaves, rpl, bw_rpl = bw
+    if tris.device.type == "cpu":
+        return pack_bw(PackedBVH(nodes=None, tris=tris, leaf_prim=None,
+                                 bvh=None, rows_per_leaf=rpl)).tris_bw
+    out = torch.empty((max(n_leaves, 1) * bw_rpl, 128), dtype=torch.float32,
+                      device=tris.device)
+    if n_leaves:
+        err = _lib.refit_lib().urt_bw_records(
+            tris.data_ptr(), n_leaves, rpl, bw_rpl, out.data_ptr(),
+            torch.cuda.current_stream(tris.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"urt_bw_records launch failed: CUDA error "
+                               f"{err}")
+        launches["bw_records"] += 1
+    else:
+        out.zero_()
+    return out
+
+
+def refit(bvh, scene):
+    """Refit ``bvh`` (``prepare_bvh``'s tree) to ``scene``'s current mesh
+    verts: ``(bvh, scene)`` with every row the tree holds rewritten on the
+    device, as the host packers would write them for these verts with the
+    same topology (``leaf_prim``, ``prim_index``, the canonical ``flip``,
+    the stack depths and ``leafmeta`` stay): the node boxes (``bvh.node_min``
+    / ``node_max``, ``nodes``, ``nodes_walk``, ``wide``, ``wide_walk``,
+    under ``pad_box`` where the walks read them), the ``tris`` rows, the
+    ``leafbox`` group boxes, the Baldwin–Weber ``tris_bw`` and the
+    epilogue's ``bvh.tri_verts`` (a function of the verts, as
+    ``bind_verts`` makes it); and the scene's exact and gate boxes
+    (``aabb_*``, ``gate_*``) and ``meshes.mesh_aabb_*`` following the
+    verts. No host sync and no copy to the host, once the tables are
+    made (``with_refit_tables``; made here at the first call otherwise).
+
+    Spans: ``bvh.refit`` over ``bvh.refit.leaves`` (epilogue table, rows,
+    group boxes, BW records), ``bvh.refit.nodes`` (leaf and node boxes,
+    their padded walk copies, the group and scene boxes padded) and
+    ``bvh.refit.gates`` (the mesh boxes, the scene written)."""
+    bvh = with_refit_tables(bvh, scene)
+    packed = isinstance(bvh, PackedBVH)
+    inner = bvh.bvh if packed else bvh
+    tb = inner.refit_tables
+    with span("bvh.refit"):
+        v = scene.meshes.verts
+        with span("bvh.refit.leaves"):
+            flat = torch.cat([v.reshape(-1), tb.zero])
+            tv = flat[tb.tv_src].view(-1, 3, 3)
+            tris = (flat.detach()[tb.tris_src].view(-1, 128)
+                    if tb.tris_src is not None else None)
+            p = v.detach().reshape(-1, 3)
+            c6 = torch.cat([-p, p], 1)
+            groups = c6[tb.group_src].view(-1, 21, 6).amax(1)
+            tris_bw = _bw_rows(tris, tb.bw) if tb.bw is not None else None
+        with span("bvh.refit.nodes"):
+            leaf6 = groups.view(-1, tb.groups_per_leaf, 6).amax(1)
+            n6 = torch.full((tb.n_nodes, 6), -torch.inf,
+                            device=leaf6.device).scatter_reduce_(
+                0, tb.anc_node, leaf6[tb.anc_leaf], "amax")
+            s6 = torch.maximum(n6[0], tb.static6)[None]
+            if tb.pad:
+                n6 = n6 + tb.pad
+            padded = _pad6(torch.cat([n6, groups, s6]), tb.inf)
+            pool = torch.cat([n6.reshape(-1), s6.reshape(-1),
+                              padded.reshape(-1), tb.consts])
+            out = pool[tb.out_src] * tb.out_sign
+        with span("bvh.refit.gates"):
+            mesh6 = torch.stack([c6[a:b].amax(0)
+                                 for a, b in tb.mesh_corners])
+            kmin, kmax = -mesh6[:, :3], mesh6[:, 3:]
+            short = tb.n_meshes - kmin.shape[0]
+            if short:
+                kmin = torch.cat([kmin, tb.inf.expand(short, 3)])
+                kmax = torch.cat([kmax, -tb.inf.expand(short, 3)])
+
+            def piece(name):
+                at, shape = tb.layout[name]
+                return out[at: at + int(np.prod(shape))].view(shape)
+
+            meshes = dataclasses.replace(scene.meshes, mesh_aabb_min=kmin,
+                                         mesh_aabb_max=kmax)
+            scene = dataclasses.replace(
+                scene, meshes=meshes, aabb_min=piece("aabb_min"),
+                aabb_max=piece("aabb_max"), gate_min=piece("gate_min"),
+                gate_max=piece("gate_max"))
+        inner = dataclasses.replace(inner, tri_verts=tv,
+                                    node_min=piece("node_min"),
+                                    node_max=piece("node_max"))
+        if not packed:
+            return inner, scene
+        kw = dict(bvh=inner, nodes=piece("nodes"),
+                  nodes_walk=piece("nodes_walk"), tris=tris,
+                  leafbox=piece("leafbox"))
+        if "wide" in tb.layout:
+            kw.update(wide=piece("wide"), wide_walk=piece("wide_walk"))
+        if tris_bw is not None:
+            kw["tris_bw"] = tris_bw
+        return bvh.replace(**kw), scene
 
 
 def _meshless_packed(arity: int) -> PackedBVH:

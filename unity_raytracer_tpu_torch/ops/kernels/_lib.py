@@ -17,9 +17,10 @@ rewrites that file. At first use it compiles, into ``build/torch_kernels/``
   the BVH4 rows, the BVH8 rows, or the binary nodes and the meshless
   fork), ``libtraverse-<key>.so`` from ``csrc/traverse.cu`` (the BVH
   walks) and ``libnearest_tri-<key>.so`` from ``csrc/nearest_tri.cu``
-  (the brute-force nearest triangle) and ``libprobes-<key>.so`` from
+  (the brute-force nearest triangle), ``libprobes-<key>.so`` from
   ``csrc/probes.cu`` (the dispatch-cost and FP32-rate probes of
-  ``utils/probes.py``), each with ``nvcc -gencode
+  ``utils/probes.py``) and ``librefit-<key>.so`` from ``csrc/refit.cu``
+  (the Baldwin–Weber records of ``ops/bvh.refit``), each with ``nvcc -gencode
   arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false -shared
   -Xcompiler -fPIC`` (plain C entry points, bound with ctypes). The two
   walk sources share ``csrc/bvh_walk.cuh``.
@@ -58,10 +59,11 @@ MEGA_GROUPS = {"wide4": 4, "wide8": 8, "binary": 0}
 TRAVERSE_SRC = CSRC / "traverse.cu"
 NEAREST_TRI_SRC = CSRC / "nearest_tri.cu"
 PROBES_SRC = CSRC / "probes.cu"
+REFIT_SRC = CSRC / "refit.cu"
 
 _libs: dict = {}  # the loaded library handles
 _locks = {name: threading.Lock()
-          for name in ("bvh", "traverse", "nearest_tri", "probes",
+          for name in ("bvh", "traverse", "nearest_tri", "probes", "refit",
                        *(f"mega_{g}" for g in MEGA_GROUPS))}
 
 
@@ -217,6 +219,20 @@ def probes_lib() -> ctypes.CDLL:
         return _libs["probes"]
 
 
+def refit_lib() -> ctypes.CDLL:
+    """The refit's Baldwin–Weber records (``urt_bw_records``)."""
+    with _locks["refit"]:
+        if "refit" not in _libs:
+            lib = _build("refit", REFIT_SRC,
+                         lambda out: nvcc_cmd(REFIT_SRC, out))
+            p = ctypes.c_void_p
+            i = ctypes.c_int
+            lib.urt_bw_records.restype = i
+            lib.urt_bw_records.argtypes = [p, i, i, i, p, p]
+            _libs["refit"] = lib
+        return _libs["refit"]
+
+
 def build_all() -> dict:
     """Build (or load) every library at once, one compiler process per
     library started together; returns {name: handle}. Raises the first
@@ -224,6 +240,7 @@ def build_all() -> dict:
     from concurrent.futures import ThreadPoolExecutor
     fns = {"bvh": bvh_lib, "traverse": traverse_lib,
            "nearest_tri": nearest_tri_lib, "probes": probes_lib,
+           "refit": refit_lib,
            **{f"mega_{g}": (lambda g=g: mega_lib(g)) for g in MEGA_GROUPS}}
     with ThreadPoolExecutor(len(fns)) as ex:
         futs = {name: ex.submit(fn) for name, fn in fns.items()}

@@ -93,6 +93,10 @@ class PackedBVH:
     # of the wide walk of ``wide`` (wide_stack_depth); -1: not computed
     stack_binary: int = -1
     stack_wide: int = -1
+    # [Nw, arity] i32: the binary node (row of ``nodes``) behind each wide
+    # slot, -1 for an absent slot (widen); what ``ops/bvh.refit`` gathers
+    # the wide boxes by
+    wide_node: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "PackedBVH":
         return dataclasses.replace(self, **kw)
@@ -496,7 +500,12 @@ def epilogue(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
     (``leaf_prim``) -> MeshSet row (``prim_index``); ``t`` re-derived
     differentiably by ``_mt_one`` on ``bvh.tri_verts``, falling back to
     the kernel's value where the re-derivation misses on rounding; the
-    shading normal of the winner. +inf / -1 / junk on a miss."""
+    shading normal of the winner. +inf / -1 / junk on a miss. The winners
+    are gathered with ``index_select``: where ``bvh.tri_verts`` carries a
+    gradient (a mesh fit) its backward is an atomic ``index_add_``, where
+    the indexing backward sorts the lanes and adds the thousands that hit
+    one triangle one after another (1.3 s a ``mesh10k`` fit step on an
+    H100, PERF.md)."""
     from unity_raytracer_tpu_torch.ops.bvh import _mt_one, shading_normal
     bvh = packed.bvh
     hit = slot >= 0
@@ -504,7 +513,7 @@ def epilogue(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,
                                             slot.clamp_min(0).long()], -1)
     safe = row.clamp_min(0).long()
     orig = torch.where(hit, bvh.prim_index[safe], -1)
-    tri = bvh.tri_verts[safe]
+    tri = torch.index_select(bvh.tri_verts, 0, safe)
     t_diff = _mt_one(o, d, tri[:, 0], tri[:, 1], tri[:, 2])
     t_final = torch.where(hit, torch.where(torch.isfinite(t_diff), t_diff,
                                            t_raw), torch.inf)

@@ -42,8 +42,9 @@ DEFAULT_ARITY = 4
 def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
     """Collapse the packed binary tree into an arity-wide tree (numpy).
     Returns ``packed`` with the ``wide`` field, the copy the kernels walk
-    (``wide_walk``, its boxes widened) and its worst push depth
-    (``stack_wide``) filled.
+    (``wide_walk``, its boxes widened), its worst push depth
+    (``stack_wide``) and the binary node of each slot (``wide_node``)
+    filled.
 
     Collapse rule: start from a binary interior node's two children and
     repeatedly replace the largest-surface-area interior child with its
@@ -110,7 +111,9 @@ def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
 
     out = np.zeros((len(rows), 8 * arity), np.float32)
     out[:, 7::8] = -1.0  # absent slots
+    node = np.full((len(rows), arity), -1, np.int32)
     for r, kids in enumerate(rows):
+        node[r, :len(kids)] = kids
         for c, k in enumerate(kids):
             b0 = 8 * c
             out[r, b0:b0 + 3] = nmin[k]
@@ -123,7 +126,8 @@ def widen(packed: PackedBVH, arity: int = DEFAULT_ARITY) -> PackedBVH:
                 out[r, b0 + 7] = 0.0
     return packed.replace(wide=torch.from_numpy(out),
                           wide_walk=torch.from_numpy(wide_walk_rows(out)),
-                          stack_wide=wide_stack_depth(out))
+                          stack_wide=wide_stack_depth(out),
+                          wide_node=torch.from_numpy(node))
 
 
 def traverse_wide(packed: PackedBVH, o: torch.Tensor, d: torch.Tensor,

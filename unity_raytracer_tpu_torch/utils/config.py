@@ -78,12 +78,10 @@ class RenderConfig:
     #                             path (ops/bvh.presplit_refs); 0 =
     #                             plain binned SAH (native builder)
     bvh_pad: float = 0.0        # inflate every BVH node box by this
-    #                             margin: the tree stays conservative
-    #                             (traversal exact) for mesh vertices
-    #                             moved up to the pad from their build
-    #                             positions — set to the expected max
-    #                             deformation for mesh-vertex fitting
-    #                             (fit.PARAM_PATHS 'mesh_verts')
+    #                             margin (the twin's knob; a fit that
+    #                             moves the mesh refits the tree to
+    #                             every step's verts instead,
+    #                             ops/bvh.refit, which keeps the pad)
     fuse_shadows: bool = True   # megakernel: one fused occlusion walk for
     #                             all lights (wide layout only)
     shadow_batch: bool = False  # megakernel: advance the per-light
