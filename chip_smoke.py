@@ -224,7 +224,25 @@ From the root of a checkout, on a machine with a CUDA card, it
     bit on the refit's own leaf rows; the kernel timed alone (CUDA
     events) beside its bound (the leaf rows read and the records written
     at the HBM rate), ``pack_bw`` timed on the host, the whole refit
-    timed.
+    timed;
+23. the fused frame as CUDA graph replays (``ops/frame_graph``) on
+    ``mesh100k`` (1920x1080), ``mesh10k`` (1024x1024) and ``cornell_box``
+    (512x512) at their preset sizes: ``GRAPH_ROUNDS`` rounds over the
+    ``GRAPH_YAWS`` orbit cameras, each camera's frame eager
+    (``render._frame_eager``) and through ``render_frame`` in turns
+    (their order swapped every round; a fresh graph cache first, so the
+    first graphed frame runs eagerly and the second captures): the chain
+    frames bit for bit with the eager ones, the tree's within the worst
+    gap of two eager frames of each camera (``index_add``'s atomics; at
+    least ``GRAPH_ULPS`` ulps of the frame's largest value); one capture
+    and a replay for every later graphed frame (``render.graph.captures``
+    / ``.replays``); the graphs a key's capture is cut into (the chain's
+    one per segment and one before, between and after them; the tree's
+    one); the launches of a replayed frame in ``mega.launches``
+    (one per segment or level); each side's median frame time (CUDA
+    events around the call) and host time after the first round, the
+    capture's host time and the key's (``frame_key``, a mean of 2,000)
+    (``phase 23`` lines).
 
 Every kernel's launch count is read from its main path's run alone: the
 counts are set to 0 just before that run and read just after. Any failure
@@ -289,6 +307,11 @@ NEAREST_SRC = "unity_raytracer_tpu_torch/csrc/nearest_tri.cu"
 REFIT_SRC = "unity_raytracer_tpu_torch/csrc/refit.cu"
 # phase 22: the geometry fit's image side, steps, learning rate and seed
 REFIT_FIT_SIZE, REFIT_FIT_STEPS, REFIT_FIT_LR, REFIT_FIT_SEED = 64, 3, 0.005, 7
+# phase 23: the presets, rounds and orbit yaws (degrees about a point 20
+# units ahead of the preset camera) of the eager / graphed frames, and the
+# least gap, in ulps of a tree frame's largest value, it allows the tree
+GRAPH_SCENES = ("mesh100k", "mesh10k", "cornell_box")
+GRAPH_ROUNDS, GRAPH_YAWS, GRAPH_ULPS = 4, (-12, -6, -2, 2, 6, 12), 8
 # the walks of the composed path: layout -> (name in the kernels line,
 # frame kernel, BVH arity, the TPU kernel's pallas_call)
 WALKS = {
@@ -426,10 +449,11 @@ def ptxas_table(log_text):
     return out
 
 
-def events_ms(fn, repeats):
-    """Mean ms of ``repeats`` calls after one warm-up, by CUDA events."""
+def events_ms(fn, repeats, warmup=1):
+    """Mean ms of ``repeats`` calls after ``warmup`` warm-ups, by CUDA
+    events. A fused frame takes two: its second captures its graphs."""
     from unity_raytracer_tpu_torch.utils.profiling import events_mean_s
-    return events_mean_s(fn, repeats) * 1e3
+    return events_mean_s(fn, repeats, warmup) * 1e3
 
 
 def bound(nbytes, ops):
@@ -999,6 +1023,137 @@ def refit_phase(dev, card, failures):
         refit_ms=refit_ms)
 
 
+def orbit_camera(cam, degrees):
+    """``cam`` yawed by ``degrees`` about the point 20 units ahead of it."""
+    from unity_raytracer_tpu_torch.models.camera import Camera
+    pos = cam.position.cpu().numpy().astype(np.float64)
+    fwd = cam.forward.cpu().numpy().astype(np.float64)
+    centre = pos + 20.0 * fwd
+    a = math.radians(degrees)
+    rot = np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                    [-math.sin(a), 0, math.cos(a)]])
+    return Camera.make(position=centre + rot @ (pos - centre),
+                       forward=rot @ fwd, up=(0, 1, 0), dist=float(cam.dist),
+                       half_h=float(cam.half_h), half_v=float(cam.half_v),
+                       width=cam.width, height=cam.height,
+                       device=cam.position.device)
+
+
+def frame_graph_phase(dev, card, failures):
+    """Phase 23 (module docstring). Returns its readings per preset."""
+    import torch
+    from unity_raytracer_tpu_torch.models.presets import get_preset
+    from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+    from unity_raytracer_tpu_torch.ops import render as rd
+    from unity_raytracer_tpu_torch.ops.frame_graph import frame_key
+    from unity_raytracer_tpu_torch.ops.kernels import mega
+    from unity_raytracer_tpu_torch.utils import profiling as pf
+
+    def frame(fn, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        a.record()
+        img = fn(*args)
+        b.record()
+        b.synchronize()
+        return img, a.elapsed_time(b), (time.perf_counter() - h0) * 1e3
+
+    out = {}
+    for name in GRAPH_SCENES:
+        t0 = time.perf_counter()
+        scene, cam, cfg = get_preset(name, device=dev)
+        cfg = rd.resolve_mode(scene, cfg.with_(kernel="mega"))
+        bvh = bvhmod.prepare_bvh(scene, cfg, dev) if cfg.use_bvh else None
+        cams = [orbit_camera(cam, a) for a in GRAPH_YAWS]
+        chain = cfg.mode == "scan"
+        args = lambda c: (scene, c, cfg, bvh)
+        eager_gap = [float((rd._frame_eager(*args(c))
+                            - rd._frame_eager(*args(c))).abs().max())
+                     for c in cams]
+        rd.FRAME_GRAPHS.clear()
+        ms = {"eager": [], "graph": []}
+        host = {"eager": [], "graph": []}
+        differ, worst, over = 0, 0.0, 0
+        with pf.collect_counts() as counts:
+            for r in range(GRAPH_ROUNDS):
+                for i, c in enumerate(cams):
+                    img = {}
+                    for how in (("eager", "graph") if r % 2 == 0
+                                else ("graph", "eager")):
+                        fn = rd._frame_eager if how == "eager" \
+                            else rd.render_frame
+                        img[how], m, h = frame(fn, *args(c))
+                        ms[how].append(m)
+                        host[how].append(h)
+                    gap = float((img["graph"] - img["eager"]).abs().max())
+                    differ += not torch.equal(img["graph"], img["eager"])
+                    worst = max(worst, gap)
+                    ulps = GRAPH_ULPS * float(torch.finfo(torch.float32).eps
+                                              * img["eager"].abs().max())
+                    over += gap > max(eager_gap[i], ulps)
+        tally = lambda k: sum(v for n, v in counts if n == k)
+        captures = tally("render.graph.captures")
+        replays = tally("render.graph.replays")
+        n_graphed = len(ms["graph"])
+        pieces = [len(g.pieces) for g in rd.FRAME_GRAPHS.graphs.values()]
+        want_pieces = 2 * (cfg.max_bounces + 1) + 1 if chain else 1
+        for k in mega.launches:
+            mega.launches[k] = 0
+        rd.render_frame(*args(cams[0]))
+        torch.cuda.synchronize()
+        launched = sum(mega.launches.values())
+        n_key = 2000
+        k0 = time.perf_counter()
+        for _ in range(n_key):
+            frame_key(scene, cams[0], cfg, bvh)
+        key_us = (time.perf_counter() - k0) / n_key * 1e6
+        later = len(cams)               # the first round warms up
+        med = {k: float(np.median(v[later:])) for k, v in ms.items()}
+        med_host = {k: float(np.median(v[later:])) for k, v in host.items()}
+        row = dict(eager_ms=med["eager"], graph_ms=med["graph"],
+                   eager_host_ms=med_host["eager"],
+                   graph_host_ms=med_host["graph"],
+                   capture_host_ms=host["graph"][1], key_us=key_us,
+                   captures=captures, pieces=pieces,
+                   replays=replays, frames=n_graphed,
+                   launches_replayed=launched,
+                   differ=differ, worst_gap=worst,
+                   eager_gap=max(eager_gap))
+        out[name] = row
+        log(f"phase 23 {name} {cam.width}x{cam.height} ({cfg.mode}): "
+            f"eager {med['eager']:.3f} ms (host {med_host['eager']:.3f}), "
+            f"graphed {med['graph']:.3f} ms (host "
+            f"{med_host['graph']:.3f}), {med['eager'] / med['graph']:.2f}x "
+            f"(medians of {n_graphed - later} frames each); capture "
+            f"{host['graph'][1]:.1f} ms host; the key {key_us:.1f} us "
+            f"host; {captures} capture, "
+            f"{replays} replays over {n_graphed} graphed frames; "
+            f"{pieces} graphs a key; "
+            f"{launched} segment launches a replayed frame; "
+            f"{differ} frames not bit for bit, worst gap {worst:.3g} "
+            f"(eager vs eager {max(eager_gap):.3g}); "
+            f"{time.perf_counter() - t0:.1f} s wall {card}")
+        if captures != 1 or replays != n_graphed - 1:
+            failures.append(f"frame graph {name}: {captures} captures and "
+                            f"{replays} replays over {n_graphed} frames")
+        if pieces != [want_pieces]:
+            failures.append(f"frame graph {name}: graphs {pieces} a key, "
+                            f"not [{want_pieces}]")
+        if launched != cfg.max_bounces + 1:
+            failures.append(f"frame graph {name}: {launched} segment "
+                            f"launches counted for a replayed frame")
+        if (differ if chain else over):
+            failures.append(f"frame graph {name}: {differ} graphed frames "
+                            f"differ from the eager ones (worst {worst:.3g},"
+                            f" eager vs eager {max(eager_gap):.3g})")
+        rd.FRAME_GRAPHS.clear()
+        del scene, bvh, cams
+        torch.cuda.empty_cache()
+    log("phase 23 " + json.dumps(out))
+    return out
+
+
 def nearest_work(o, d, verts, valid, kept):
     """(bytes, operations, exact pair tests, cull tests) of one
     nearest-triangle launch: rays and triangles read once, (t, index)
@@ -1533,7 +1688,7 @@ def tree_phases(dev, card, failures):
              for c in (cfg_m, cfg)]
     fin = bool(torch.isfinite(img_f).all() and torch.isfinite(img_c).all())
     std = float(img_f.std())
-    f_ms = events_ms(lambda: render_frame(scene, cam, cfg_m), 3)
+    f_ms = events_ms(lambda: render_frame(scene, cam, cfg_m), 3, 2)
     c_ms = events_ms(lambda: render_frame(scene, cam, cfg), 3)
     live = [int((ins[3] >= 0).sum()) for _, ins in levels]
     log(f"cornell 512x512 depth {cfg.max_bounces} tree: fused "
@@ -1680,7 +1835,7 @@ def mode_e_phases(dev, card, failures, scene, cam, cfg, packed4, packed8,
         n_launch = mega.route_launches["forward", route]
         segs = capture_segments(lambda: render(scene, cam, fcfg, bvh=pk))
         bad_px = int((~torch.isclose(img, fused_img, **TOL).all(-1)).sum())
-        f_ms = events_ms(lambda: render_frame(scene, cam, fcfg, pk), 3)
+        f_ms = events_ms(lambda: render_frame(scene, cam, fcfg, pk), 3, 2)
         ovf = torch.zeros(1, dtype=torch.int32, device=dev)
         seg_ms = [events_ms(lambda: mega.trace_segment(
             pk, aux, depth, *ins, overflow=ovf, **rkw), 3)
@@ -2049,7 +2204,7 @@ def presplit_frames(dev, card, failures, scene, cam, cfg, packed, counted):
         for what in TURNS:
             pk, pk_segs = trees[what]
             frame_ms[what].append(events_ms(
-                lambda: render_frame(scene, cam, fcfg, pk), 5))
+                lambda: render_frame(scene, cam, fcfg, pk), 5, 2))
             alone[what].append(sum(events_ms(lambda: mega.trace_segment(
                 pk, aux, depth, *ins, **kw), 5) for depth, ins in pk_segs))
         for what, (pk, pk_segs) in trees.items():
@@ -2162,7 +2317,7 @@ def profiling_phase(dev, card, failures, scene, cam, cfg, packed):
 
     fcfg = cfg.with_(kernel="mega")
     frame = lambda: render_frame(scene, cam, fcfg, packed)
-    ev_ms = events_ms(frame, 5)
+    ev_ms = events_ms(frame, 5, 2)
     best_ms = profiling.timed(frame, repeats=5, warmup=1).per_run_s * 1e3
     rel = abs(best_ms - ev_ms) / ev_ms
     aux = mega.build_aux(scene, cfg.background)
@@ -2528,7 +2683,7 @@ def bench_phase(dev, card, failures, frame, frame_ms, stats_live):
     from unity_raytracer_tpu_torch.utils import probes
 
     # ---- (b) run_once on the flagship, with gradients
-    ref_ms = events_ms(frame, 3)
+    ref_ms = events_ms(frame, 3, 2)
     torch.cuda.synchronize()
     reset_mega_counts()
     for counts in (m3.launches, probes.launches):
@@ -2883,7 +3038,8 @@ def main():
         f"{std:.4f}, mean {float(img.mean()):.4f}")
 
     fused_img = img
-    frame_ms = events_ms(lambda: render_frame(scene, cam, cfg_m, packed), 3)
+    frame_ms = events_ms(lambda: render_frame(scene, cam, cfg_m, packed),
+                         3, 2)
     # the five launches of one frame alone, in each mode, on one shared
     # overflow counter (no host sync between the timed launches)
     seg_ms = {m: [] for m in MODES}
@@ -3105,6 +3261,8 @@ def main():
     entry_launches = entry_phase(dev, card, failures)
     # ---- the BVH refit of a mesh-geometry fit: phase 22 --------------------
     refit_row = refit_phase(dev, card, failures)
+    # ---- the fused frame as one CUDA graph replay: phase 23 ---------------
+    frame_graph_phase(dev, card, failures)
     if failures:
         raise AssertionError("; ".join(failures))
 

@@ -107,20 +107,31 @@ COUNTS = ("slab", "bw_slot", "sphere", "mt",
           "live", "queries", "nearest_groups", "shadow_groups")
 
 
-def build_aux(scene, background) -> torch.Tensor:
+def background_row(background, device) -> torch.Tensor:
+    """The background colour (display scale) on the radiance scale, a
+    [3] float32 tensor on ``device``: a copy from the host, then x 255."""
+    return torch.tensor(background, dtype=torch.float32,
+                        device=device) * 255.0
+
+
+def build_aux(scene, background, bg: torch.Tensor | None = None
+              ) -> torch.Tensor:
     """Pack scene constants into the [rows,128] f32 aux block (module
     docstring), on the scene's device, with device ops only (no copy to
     the host, so no sync inside a frame). Unlike the twin's, its scene box
     is the scene's gate box (``Scene.gate_min`` / ``gate_max``: the exact
     box widened once by ``utils/boxes.pad_box``, as the walk rows' boxes
     are), the box every composed gate tests too: the fused kernel's scene
-    gate then keeps a hit at the box's face."""
+    gate then keeps a hit at the box's face. ``bg``: ``background_row``
+    of ``background``, made beforehand (a CUDA graph cannot capture its
+    copy from the host); made here when None."""
     lt, sp, tr = scene.lights, scene.spheres, scene.triangles
     dev = scene.aabb_min.device
     f = lambda x: x.to(torch.float32).reshape(x.shape[0], -1)
     idx = lambda start, n: torch.arange(
         start, start + n, device=dev, dtype=torch.float32)[:, None]
-    bg = torch.tensor(background, dtype=torch.float32, device=dev) * 255.0
+    if bg is None:
+        bg = background_row(background, dev)
     mats = [torch.cat([f(m.diffuse), f(m.ambient), f(m.mirror),
                        f(m.specular), f(m.phong), f(m.is_mirror),
                        f(m.transparency), f(m.ior), f(m.is_dielectric)], 1)

@@ -61,6 +61,13 @@ fork launch), ``tree.live`` (the lanes entering level 0, then
 ``_compact``'s live lanes: the next launch's live lanes up to the cap),
 and on the composed chain ``chain.live`` and ``chain.shadow`` (live
 nearest and shadow lanes of a segment), all counts the code already made.
+
+On the card ``render_frame`` runs the fused route's frames through
+``ops/frame_graph``: a key's first frame eagerly, its second captured as
+CUDA graphs (span ``render.capture``, holding the spans above), every
+later one a replay of them (``render.graph``, holding a
+``chain.segment`` span around each segment's graph; then
+``render.sync``: the overflow read; the eager frame reads it there too).
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from unity_raytracer_tpu_torch.models.camera import (
     Camera, generate_rays_blocks)
 from unity_raytracer_tpu_torch.models.scene import Scene
 from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+from unity_raytracer_tpu_torch.ops import frame_graph
 from unity_raytracer_tpu_torch.ops import shade as sh
 from unity_raytracer_tpu_torch.ops.intersect import (
     KIND_SPHERE, Hit, dot3, nearest_hit)
@@ -215,25 +223,32 @@ def _segment_kw(scene: Scene, cfg: RenderConfig, has_mesh: bool = True):
 
 
 def _trace_chain_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-                      cfg: RenderConfig, bvh) -> torch.Tensor:
+                      cfg: RenderConfig, bvh, overflow=None,
+                      bg=None, stage=span) -> torch.Tensor:
     """Mirror bounce chain, one fused segment launch per depth. Returns
     radiance [N,3] on the 0-255 scale. Raises if a launch dropped stack
-    entries (one host sync, after the last segment)."""
+    entries (one host sync, after the last segment). ``overflow``: an
+    int32 [1] device counter of dropped pushes that the caller checks
+    instead (no sync here); ``bg``: ``mega.build_aux``'s; ``stage``: the
+    context each segment launch runs in, ``span`` or a capture's
+    (``ops/frame_graph``)."""
     with span("chain"):
         with span("chain.aux"):
-            aux = mega.build_aux(scene, cfg.background)
+            aux = mega.build_aux(scene, cfg.background, bg)
         n = o.shape[0]
         acc = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
         thr = torch.ones((n, 3), dtype=torch.float32, device=o.device)
         tmax = torch.full((n,), 3.0e38, dtype=torch.float32, device=o.device)
-        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+        check = overflow is None and o.device.type == "cuda"
+        if overflow is None:
+            overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
         for depth in range(cfg.max_bounces + 1):
-            with span("chain.segment", depth=depth):
+            with stage("chain.segment", depth=depth):
                 delta, o, d, thr, tmax = mega.trace_segment(
                     bvh, aux, depth, o, d, thr, tmax, overflow=overflow,
                     **_segment_kw(scene, cfg))
             acc = acc + delta
-        if o.device.type == "cuda":
+        if check:
             with span("chain.sync"):
                 mega.check_overflow(overflow)
     return acc
@@ -417,7 +432,8 @@ def _trace_tree(scene: Scene, o: torch.Tensor, d: torch.Tensor,
 
 
 def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-                     cfg: RenderConfig, bvh=None, with_stats: bool = False):
+                     cfg: RenderConfig, bvh=None, with_stats: bool = False,
+                     overflow=None, bg=None):
     """The tree on the fused kernel: one fork launch per level
     (``mega.trace_segment(fork=True)``: nearest hit, shadows, shading and
     both children), ``index_add`` of each lane's delta into its primary
@@ -427,9 +443,13 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     scene must have no mesh triangles (the meshless instance walks
     nothing), else ``ValueError``. Forward only. Returns radiance [N,3],
     and with ``with_stats`` the live lanes the cap dropped. One host sync
-    at the end checks the stack-overflow counter."""
+    at the end checks the stack-overflow counter, unless the caller gives
+    its own ``overflow`` counter to check; ``bg``: ``mega.build_aux``'s."""
     has_mesh = bvh is not None and getattr(bvh, "leafmeta", None) is not None
-    if not has_mesh and bool(scene.meshes.valid.any()):
+    # a CUDA graph capture cannot read the device: the eager frame that
+    # precedes every capture of a key (ops/frame_graph) made this check
+    capturing = o.is_cuda and torch.cuda.is_current_stream_capturing()
+    if not has_mesh and not capturing and bool(scene.meshes.valid.any()):
         raise ValueError(
             "the fused tree (kernel='mega') walks mesh triangles through a "
             "packed BVH with leafmeta, and this scene has mesh triangles "
@@ -440,7 +460,7 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         dev = o.device
         f32 = dict(dtype=torch.float32, device=dev)
         with span("tree.aux"):
-            aux = mega.build_aux(scene, cfg.background)
+            aux = mega.build_aux(scene, cfg.background, bg)
         kw = _segment_kw(scene, cfg, has_mesh)
         packed = bvh if has_mesh else None
         acc = torch.zeros((n, 3), **f32)
@@ -448,7 +468,9 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         weight = torch.ones((n, 3), **f32)
         tmax = torch.full((n,), 3.0e38, **f32)
         n_truncated = torch.zeros((), dtype=torch.int64, device=dev)
-        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        check = overflow is None and dev.type == "cuda"
+        if overflow is None:
+            overflow = torch.zeros(1, dtype=torch.int32, device=dev)
         cap = (cfg.tree_cap or 0) * n
         count("tree.live", n)   # every primary lane enters level 0 live
         for level in range(cfg.max_bounces + 1):
@@ -474,7 +496,7 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                             cap, tmax >= 0.0, o, d, weight, parent, tmax)
                         tmax = torch.where(live, tmax, -1.0)
                         n_truncated = n_truncated + dropped
-        if dev.type == "cuda":
+        if check:
             with span("tree.sync"):
                 check_overflow(overflow)
     return (acc, n_truncated) if with_stats else acc
@@ -519,16 +541,54 @@ def trace_radiance_tree_stats(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     return _trace_tree_any(scene, o, d, cfg, bvh, with_stats=True)
 
 
-def render_frame(scene: Scene, cam: Camera, cfg: RenderConfig,
+def _frame_eager(scene: Scene, cam: Camera, cfg: RenderConfig,
                  bvh=None) -> torch.Tensor:
-    """Block-order raygen -> trace -> unswizzle -> [H,W,3] image on the
-    display (0-1) scale, on the camera's device."""
+    """``render_frame`` off the fused route, or on the CPU."""
     with span("render.raygen"):
         o, d = generate_rays_blocks(cam, cfg.block_size)
     rad = trace_radiance(scene, o, d, cfg, bvh=bvh)
     with span("render.unswizzle"):
         return unswizzle_image(rad, cam.width, cam.height,
                                cfg.block_size) / 255.0
+
+
+def _frame_fused(scene: Scene, cam: Camera, cfg: RenderConfig, bvh, bg,
+                 stage=span):
+    """The fused frame on the card, as ``ops/frame_graph`` runs it eagerly
+    and captures it: the eager frame's functions, its stack-overflow
+    counter made (zeroed) here and returned unread, ``bg`` for the aux
+    block, ``stage`` around each chain segment -> ``(image, overflow)``."""
+    with span("render.raygen"):
+        o, d = generate_rays_blocks(cam, cfg.block_size)
+    overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+    if cfg.mode == "tree":
+        rad = _trace_tree_mega(scene, o, d, cfg, bvh, overflow=overflow,
+                               bg=bg)
+    else:
+        rad = _trace_chain_mega(scene, o, d, cfg, bvh, overflow=overflow,
+                                bg=bg, stage=stage)
+    with span("render.unswizzle"):
+        img = unswizzle_image(rad, cam.width, cam.height,
+                              cfg.block_size) / 255.0
+    return img, overflow
+
+
+# the fused frames' CUDA graphs of this process; FRAME_GRAPHS.clear() frees
+# them
+FRAME_GRAPHS = frame_graph.FrameGraphs(_frame_fused)
+
+
+def render_frame(scene: Scene, cam: Camera, cfg: RenderConfig,
+                 bvh=None) -> torch.Tensor:
+    """Block-order raygen -> trace -> unswizzle -> [H,W,3] image on the
+    display (0-1) scale, on the camera's device. On the card the fused
+    route's frames go through ``FRAME_GRAPHS`` (``ops/frame_graph``):
+    from a key's second frame on, each frame is a CUDA graph replay."""
+    cfg = resolve_mode(scene, cfg)
+    check_supported(cfg)
+    if cam.position.device.type == "cuda" and uses_fused(cfg, bvh):
+        return FRAME_GRAPHS(scene, cam, cfg, bvh)
+    return _frame_eager(scene, cam, cfg, bvh)
 
 
 def _frame_chunked(scene: Scene, cam: Camera, cfg: RenderConfig, bvh,

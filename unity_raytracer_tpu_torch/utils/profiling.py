@@ -42,7 +42,9 @@ With no twin, the port's own measuring helpers, shared by the bench
   shared by every span under one outermost span (a frame's ``render``, a
   fit's ``fit.step``); a count keeps a Python int, or a device tensor by
   reference, read once when the records are read (``Recording.counts``),
-  so recording adds no launch and no sync inside the recorded work.
+  so recording adds no launch and no sync inside the recorded work;
+* ``collect_counts`` and ``recount`` — the counts made while a CUDA graph
+  is captured, kept and counted again after each of its replays.
 """
 
 from __future__ import annotations
@@ -150,10 +152,11 @@ def call_times(fn: Callable, repeats: int, warmup: int = 1,
     return CallTimes(first_s, a.elapsed_time(b) / 1e3 / repeats, host_s)
 
 
-def events_mean_s(fn: Callable, repeats: int) -> float:
-    """Mean seconds of ``repeats`` back-to-back calls of ``fn`` after one
-    warm-up call, between two CUDA events (``call_times``)."""
-    return call_times(fn, repeats).mean_s
+def events_mean_s(fn: Callable, repeats: int, warmup: int = 1) -> float:
+    """Mean seconds of ``repeats`` back-to-back calls of ``fn`` after
+    ``warmup`` warm-up calls, between two CUDA events (``call_times``).
+    A fused frame wants two (``ops/frame_graph``: its second captures)."""
+    return call_times(fn, repeats, warmup=warmup).mean_s
 
 
 def nvidia_smi(query: str) -> str:
@@ -171,6 +174,7 @@ def nvidia_smi(query: str) -> str:
 # stay one check of one flag.
 _on = False          # the one thing a span checks while nothing records
 _rec = None          # the Recording being filled
+_sink = None         # the list a collect_counts() block fills
 
 
 class Recording:
@@ -265,7 +269,11 @@ def span(name: str, **attrs):
 def count(name: str, value) -> None:
     """Keep the counter ``name`` (a Python int, or a 0-dim device tensor
     held by reference and read when the records are read) under the
-    innermost open span, while a ``recording()`` block runs."""
+    innermost open span, while a ``recording()`` block runs; inside a
+    ``collect_counts()`` block, hand it to that block instead."""
+    if _sink is not None:
+        _sink.append((name, value))
+        return
     if not _on:
         return
     top = _rec.stack[-1] if _rec.stack else None
@@ -293,6 +301,33 @@ def recording():
         _on, _rec = False, None
         rec.spans.extend(s._record(t1) for s in reversed(rec.stack))
         rec.stack.clear()
+
+
+@contextlib.contextmanager
+def collect_counts():
+    """Divert every ``count`` of the block, recording or not, into the
+    list it yields as ``(name, value)`` pairs: the counts a captured CUDA
+    graph makes again at each replay, kept for ``recount``."""
+    global _sink
+    outer, _sink = _sink, []
+    try:
+        yield _sink
+    finally:
+        _sink = outer
+
+
+def recount(counts: list) -> None:
+    """``count`` each of ``counts`` (``collect_counts``' pairs) again,
+    while a recording runs: ints as they are, the device tensors copied
+    first (one ``stack``), so that the next replay of the graph that
+    writes them does not change what this one counted."""
+    if not _on or not counts:
+        return
+    held = [v for _, v in counts if isinstance(v, torch.Tensor)]
+    copies = iter(torch.stack([v.detach().reshape(()).to(torch.int64)
+                               for v in held]).unbind(0) if held else ())
+    for name, v in counts:
+        count(name, next(copies) if isinstance(v, torch.Tensor) else v)
 
 
 SPAN_CAT = "program"    # the Chrome trace category of the program's spans
