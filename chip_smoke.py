@@ -225,7 +225,7 @@ From the root of a checkout, on a machine with a CUDA card, it
     events) beside its bound (the leaf rows read and the records written
     at the HBM rate), ``pack_bw`` timed on the host, the whole refit
     timed;
-23. the fused frame as CUDA graph replays (``ops/frame_graph``) on
+23. the fused frame as CUDA graph replays (``ops/graphs``) on
     ``mesh100k`` (1920x1080), ``mesh10k`` (1024x1024) and ``cornell_box``
     (512x512) at their preset sizes: ``GRAPH_ROUNDS`` rounds over the
     ``GRAPH_YAWS`` orbit cameras, each camera's frame eager
@@ -1045,7 +1045,7 @@ def frame_graph_phase(dev, card, failures):
     from unity_raytracer_tpu_torch.models.presets import get_preset
     from unity_raytracer_tpu_torch.ops import bvh as bvhmod
     from unity_raytracer_tpu_torch.ops import render as rd
-    from unity_raytracer_tpu_torch.ops.frame_graph import frame_key
+    from unity_raytracer_tpu_torch.ops.graphs import frame_key
     from unity_raytracer_tpu_torch.ops.kernels import mega
     from unity_raytracer_tpu_torch.utils import profiling as pf
 
@@ -1096,7 +1096,8 @@ def frame_graph_phase(dev, card, failures):
         captures = tally("render.graph.captures")
         replays = tally("render.graph.replays")
         n_graphed = len(ms["graph"])
-        pieces = [len(g.pieces) for g in rd.FRAME_GRAPHS.graphs.values()]
+        pieces = [len(g.graph.pieces)
+                  for g in rd.FRAME_GRAPHS.graphs.values()]
         want_pieces = 2 * (cfg.max_bounces + 1) + 1 if chain else 1
         for k in mega.launches:
             mega.launches[k] = 0

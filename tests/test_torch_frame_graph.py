@@ -1,5 +1,5 @@
 """PyTorch port: the fused frame as CUDA graph replays
-(``ops/frame_graph``, ``ops/render.render_frame``).
+(``ops/graphs``, ``ops/render.render_frame``).
 
 On the CPU (tier 1):
 
@@ -33,7 +33,9 @@ On the card (``gpu``; ``mesh10k`` at 64x64 and ``cornell_box`` at
   replayed tree's ``tree.lanes`` / ``tree.live`` counts;
 * a chain capture is cut into 11 graphs, and a replayed chain frame opens
   a ``chain.segment`` span for each segment's graph;
-* a replaced scene captures again.
+* a replaced scene captures again;
+* a captured mk4 walk's launch is taken back at the capture and added to
+  ``traverse_mk3.launches`` at each replay (``graphs.TABLES``).
 
 Nothing here imports JAX, so the ``gpu`` cases also run where only
 PyTorch is installed (``pytest --noconftest -m gpu``).
@@ -51,7 +53,7 @@ from torch_parity import cuda  # noqa: F401  (fixture)
 from unity_raytracer_tpu_torch.models.camera import Camera
 from unity_raytracer_tpu_torch.models.presets import get_preset
 from unity_raytracer_tpu_torch.ops import bvh as t_bvh
-from unity_raytracer_tpu_torch.ops import frame_graph as fg
+from unity_raytracer_tpu_torch.ops import graphs as fg
 from unity_raytracer_tpu_torch.ops import render as rd
 from unity_raytracer_tpu_torch.ops.kernels import mega
 from unity_raytracer_tpu_torch.utils import profiling as pf
@@ -471,7 +473,7 @@ def test_replayed_chain_keeps_its_segment_spans(cuda, card_mesh):
     n = cfg.max_bounces + 1
     _frames(card_mesh, [0, 0])
     (graph,) = rd.FRAME_GRAPHS.graphs.values()
-    assert [p[0] for p in graph.pieces] == [None] + [
+    assert [p[0] for p in graph.graph.pieces] == [None] + [
         x for k in range(n) for x in (("chain.segment", {"depth": k}),
                                       None)]
     with pf.recording() as rec:
@@ -482,3 +484,29 @@ def test_replayed_chain_keeps_its_segment_spans(cuda, card_mesh):
     segs = [s for s in rec.spans if s["name"] == "chain.segment"]
     assert [s["attrs"]["depth"] for s in segs] == list(range(n))
     assert {by_id[s["parent"]]["name"] for s in segs} == {"render.graph"}
+
+
+@pytest.mark.gpu
+def test_replay_adds_every_launch_table(cuda, card_mesh):
+    """A graph whose captured code launches the mk4 walk (its own
+    overflow counter: no sync): the capture takes its launch back, each
+    replay adds it to ``traverse_mk3.launches``, and the replayed walk
+    is the eager one."""
+    from unity_raytracer_tpu_torch.models.camera import generate_rays_blocks
+    from unity_raytracer_tpu_torch.ops.kernels import traverse_mk3 as m3
+    scene, cam, cfg, bvh = card_mesh
+    o, d = generate_rays_blocks(cam, cfg.block_size)
+    tmax = torch.full((o.shape[0],), m3._BIG, device=o.device)
+    overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+    walk = lambda stage: m3.walk_raw("mk4", bvh, o, d, tmax,
+                                     overflow=overflow)
+    want = walk(None)                     # eager first: the kernel loaded
+    before = dict(m3.launches)
+    g = fg.CapturedGraph("walk", walk, o.device)
+    assert m3.launches == before
+    for _ in range(3):
+        g.replay()
+    assert m3.launches == {**before, "mk4": before["mk4"] + 3}
+    for got, ref in zip(g.out, want):
+        assert torch.equal(got, ref)
+    assert int(overflow) == 0

@@ -147,6 +147,31 @@ def test_refit_rows_equal_host_packers(route):
             assert torch.equal(getattr(back, k), getattr(built, k)), k
 
 
+def test_refit_of_a_padded_scene_is_the_build():
+    """A scene built with pad rows and pad meshes, refit to its own verts:
+    the tree's rows and the scene's exact, gate and mesh boxes as built
+    (a pad mesh keeps its empty box)."""
+    b = SceneBuilder()
+    for sub, rad, c in MESHES:
+        v, f = meshgen.icosphere(subdivisions=sub, radius=rad, center=c)
+        b.add_mesh(v, f, AMBER)
+    b.add_sphere((-8, 4, 26), 4.0, AMBER)
+    b.add_point_light((15, 25, 5), 12000.0)
+    scene = b.build(device="cpu", pad_mesh_tris=500, pad_meshes=4)
+    assert not scene.meshes.mesh_valid[2:].any()
+    cfg = RenderConfig(use_bvh=True, kernel="mega", bvh_leaf=14)
+    built = t_bvh.prepare_bvh(scene, cfg, "cpu")
+    tree, got = t_bvh.refit(built, scene)
+    for k in ("nodes", "nodes_walk", "tris", "leafbox", "tris_bw", "wide",
+              "wide_walk"):
+        assert torch.equal(getattr(tree, k), getattr(built, k)), k
+    for k in ("aabb_min", "aabb_max", "gate_min", "gate_max"):
+        assert torch.equal(getattr(got, k), getattr(scene, k)), k
+    for k in ("mesh_aabb_min", "mesh_aabb_max"):
+        assert torch.equal(getattr(got.meshes, k),
+                           getattr(scene.meshes, k)), k
+
+
 def test_refit_refuses_a_presplit_tree():
     scene = _scene()
     cfg = RenderConfig(use_bvh=True, kernel="mega", bvh_leaf=14,

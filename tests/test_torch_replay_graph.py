@@ -20,7 +20,9 @@ On the card (``gpu``; ``mesh10k`` at 64x64, 4,096 lanes in chunks of
   ``test_value_and_grad_on_card_matches_cpu``;
 * one capture per ``fit`` call, one replay per chunk after the eager
   warm-up chunk, and the graph path's spans;
-* a changed ``live_segments`` captures again.
+* a changed ``live_segments`` captures again;
+* the capture calls neither ``gc.collect`` nor ``torch.cuda.empty_cache``
+  (``torch.cuda.graph``'s entry, which ``ops/graphs`` does without).
 
 Nothing here imports JAX, so the ``gpu`` cases also run where only
 PyTorch is installed (``pytest --noconftest -m gpu``).
@@ -215,6 +217,42 @@ def test_live_segments_change_captures_again(cuda, card_case):
         n[c["name"]] += c["value"]
     assert n["replay.graph.captures"] == 2
     assert n["replay.graph.replays"] == 4 * 3 - 2
+
+
+@pytest.mark.gpu
+def test_capture_pays_no_graph_entry(cuda, card_case, monkeypatch):
+    """A call that captures (one capture, a replay for every later chunk,
+    the eager step's numbers) calls neither ``gc.collect`` nor
+    ``torch.cuda.empty_cache``."""
+    import gc
+    calls = Counter()
+    collect, empty = gc.collect, torch.cuda.empty_cache
+
+    def counted_collect(*a):
+        calls["gc.collect"] += 1
+        return collect(*a)
+
+    def counted_empty():
+        calls["empty_cache"] += 1
+        return empty()
+
+    monkeypatch.setattr(gc, "collect", counted_collect)
+    monkeypatch.setattr(torch.cuda, "empty_cache", counted_empty)
+    scene, cfg, packed, o, d, target, w = card_case
+    params = get_params(scene, NAMES)
+    g = rp.GraphedSoftReplay(scene, params, o, d, target, cfg, packed,
+                             weights=w, chunk=CHUNK)
+    with pf.recording() as rec:
+        got = g(params, live_segments=2)
+    assert not calls, calls
+    n = Counter()
+    for c in rec.counts:
+        n[c["name"]] += c["value"]
+    assert n["replay.graph.captures"] == 1
+    assert n["replay.graph.replays"] == g.n_chunks - 1
+    _close(got, rp.soft_replay_value_and_grad(
+        scene, params, o, d, target, cfg, packed, weights=w,
+        live_segments=2, chunk=CHUNK))
 
 
 def _fit(device, record=False):

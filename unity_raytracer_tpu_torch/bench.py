@@ -105,7 +105,7 @@ def _sync(device):
 def _timed(fn, repeats, device, warmup=1):
     """``(compile_s, mean_s)`` of ``profiling.call_times``: one warm-up
     call on a synchronized host clock, ``warmup - 1`` more untimed (a
-    fused frame's second captures its CUDA graphs, ``ops/frame_graph``),
+    fused frame's second captures its CUDA graphs, ``ops/graphs``),
     then the mean of ``repeats`` back-to-back calls (CUDA events on the
     card, the host clock on the CPU)."""
     from unity_raytracer_tpu_torch.utils.profiling import call_times

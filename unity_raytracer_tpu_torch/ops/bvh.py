@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from unity_raytracer_tpu_torch.models.scene import PORT_ONLY
 from unity_raytracer_tpu_torch.ops.intersect import EPS, dot3
@@ -595,20 +596,22 @@ class RefitTables:
     (``refit_tables``) and held on the device.
 
     Boxes travel as ``(-lo, hi)`` 6-vectors, so that a union is one
-    elementwise max. ``elem_src`` indexes ``cat(verts.flatten(), [0])``
-    (entry ``9 M`` is the zero of an empty slot): the epilogue table
-    (``tv``, canonical winding folded in) and the ``tris`` rows. The
-    corners of each 7-slot group (``group_src``, rows of
-    ``verts.reshape(-1, 3)``; a dead slot repeats a live corner of its
+    elementwise max; ``sign`` turns them back into ``(lo, hi)``.
+    ``tv_src`` indexes ``cat(verts.flatten(), [0])``: the epilogue table
+    (canonical winding folded in), then a zero row for the empty slots of
+    ``leaf_prim``. The corners of each 7-slot group (``group_src``, rows
+    of ``verts.reshape(-1, 3)``; a dead slot repeats a live corner of its
     group) reduce to the group boxes, ``groups_per_leaf`` of them to a
     leaf box, and every leaf box reaches itself and its ancestors by one
-    scatter over the (leaf, node) pairs ``anc_leaf`` / ``anc_node``:
-    bottom-up from the slots, the topology fixed. ``out_src`` /
-    ``out_sign`` gather every box-derived row (``layout``: name -> offset,
-    shape) from the pool ``cat(N, S, pad(N, groups, S), consts)``."""
+    scatter over the (leaf, node) pairs ``anc_leaf`` / ``anc_node``.
+    ``static6``: the box of the spheres and loose triangles; ``mesh_src``:
+    the corner rows of each mesh. The packed rows keep the build's own
+    columns: ``meta`` (``nodes[:, 6:]``) and ``wide`` ([Nw, arity, 8]),
+    whose lanes 0-5 of a present slot (``wide_box``) take the box of node
+    ``wide_node``; ``group_used`` ([R, 2, 1]) marks the ``leafbox`` groups
+    with a live slot; ``bw``: (leaves, rows a leaf, BW rows a leaf)."""
 
     tv_src: torch.Tensor
-    tris_src: Optional[torch.Tensor]
     group_src: torch.Tensor
     groups_per_leaf: int
     anc_leaf: torch.Tensor
@@ -616,15 +619,16 @@ class RefitTables:
     n_nodes: int
     pad: float
     static6: torch.Tensor
-    mesh_corners: Tuple[Tuple[int, int], ...]
-    n_meshes: int
-    out_src: torch.Tensor
-    out_sign: torch.Tensor
-    consts: torch.Tensor
-    layout: dict
+    mesh_src: torch.Tensor
+    sign: torch.Tensor
     zero: torch.Tensor
     inf: torch.Tensor
-    bw: Optional[Tuple[int, int, int]]   # (leaves, rows a leaf, BW rows)
+    meta: Optional[torch.Tensor]
+    wide: Optional[torch.Tensor]
+    wide_node: Optional[torch.Tensor]
+    wide_box: Optional[torch.Tensor]
+    group_used: Optional[torch.Tensor]
+    bw: Optional[Tuple[int, int, int]]
 
 
 def _host(x) -> np.ndarray:
@@ -633,11 +637,11 @@ def _host(x) -> np.ndarray:
 
 
 def refit_tables(bvh, scene) -> RefitTables:
-    """The index tables of ``bvh`` (a ``PackedBVH`` from ``prepare_bvh``,
-    or a bare ``MeshBVH``) for ``scene``'s mesh rows, made on the host
-    from the tree as built and moved to the tree's device. Raises for a
-    presplit tree (its boxes bound clipped pieces, not the corners) and
-    for a packed tree without ``wide_node`` (not made by ``widen``)."""
+    """The tables of ``bvh`` (a ``PackedBVH`` from ``prepare_bvh``, or a
+    bare ``MeshBVH``) for ``scene``'s mesh rows, made on the host from the
+    tree as built and moved to the tree's device. Raises for a presplit
+    tree (its boxes bound clipped pieces, not the corners) and for a
+    packed tree without ``wide_node`` (not made by ``widen``)."""
     packed = isinstance(bvh, PackedBVH)
     inner = bvh.bvh if packed else bvh
     dev = torch.as_tensor(inner.prim_index).device
@@ -655,27 +659,12 @@ def refit_tables(bvh, scene) -> RefitTables:
     is_leaf = count > 0
     leaf_nodes = np.nonzero(is_leaf)[0]
     n_leaves = len(leaf_nodes)
-    zero_at = 9 * m_rows
     # the epilogue table: leaf-order row j -> MeshSet row prim[j]
     corner = 3 * prim[:, None] + perm[prim]                    # [Mb,3]
-    tv_src = (3 * corner[..., None] + np.arange(3)).reshape(-1)
-    # slots of each leaf, in leaf order; -1 past its count
-    if packed:
-        rpl = bvh.rows_per_leaf
-        slots = rpl * PALLAS_LEAF
-    else:
-        rpl, slots = 0, int(count.max(initial=1))
-    k = np.arange(slots)
-    live = k[None] < count[leaf_nodes][:, None]                # [L,S]
-    row = np.where(live, first[leaf_nodes][:, None] + k[None], -1)
-    tris_src = None
-    if packed:
-        el = np.where(live[..., None, None], 3 * corner[row.clip(0)][..., None]
-                      + np.arange(3), zero_at)                 # [L,S,3,3]
-        tris = np.full((max(n_leaves, 1) * rpl, 128), zero_at, np.int64)
-        tris[:n_leaves * rpl, :9 * PALLAS_LEAF] = el.reshape(
-            n_leaves * rpl, 9 * PALLAS_LEAF)
-        tris_src = tris.reshape(-1)
+    tv_src = np.concatenate([(3 * corner[..., None] + np.arange(3))
+                             .reshape(-1), np.full(9, 9 * m_rows)])
+    rpl = bvh.rows_per_leaf if packed else 0
+    slots = rpl * PALLAS_LEAF if packed else int(count.max(initial=1))
     # 7-slot groups; a dead slot repeats its group's first slot (live
     # where any slot of the group is: slots fill from 0), else the leaf's
     k7 = np.arange(-(-slots // 7) * 7)
@@ -687,23 +676,15 @@ def refit_tables(bvh, scene) -> RefitTables:
     tri_c = np.where(live7, at(k7), np.where(live7[:, head], at(head),
                                              at(0 * k7)))      # [L,7g]
     group_src = (tri_c[..., None] + np.arange(3)).reshape(-1)
-    group_used = live7.reshape(n_leaves, gpl, 7).any(-1)       # [L,g]
-    # each leaf, and every ancestor of it
-    parent = np.full(nn, -1, np.int64)
-    inner_nodes = np.nonzero(~is_leaf)[0]
-    if nn > 1:
-        parent[inner_nodes + 1] = inner_nodes
-        parent[miss[inner_nodes + 1]] = inner_nodes
-    pairs_l, pairs_n = [], []
-    cur = leaf_nodes.copy()
-    ids = np.arange(n_leaves)
-    while len(cur):
-        pairs_l.append(ids)
-        pairs_n.append(cur)
-        keep = parent[cur] >= 0
-        ids, cur = ids[keep], parent[cur][keep]
-    anc_leaf = np.concatenate(pairs_l)
-    anc_node = np.concatenate(pairs_n)
+    # every node over each leaf of its subtree: the DFS range that its
+    # miss link ends
+    end = np.where(miss >= 0, miss, nn)
+    below = np.concatenate([[0], np.cumsum(is_leaf)])   # leaves before i
+    n_under = below[end] - below[:nn]
+    anc_node = np.repeat(np.arange(nn), n_under)
+    anc_leaf = (np.arange(len(anc_node))
+                - np.repeat(np.cumsum(n_under) - n_under - below[:nn],
+                            n_under))
     # the boxes of the scene's other primitives, as the builder takes them
     pts = []
     tv_loose = _host(scene.triangles.verts)[_host(scene.triangles.valid)]
@@ -720,121 +701,44 @@ def refit_tables(bvh, scene) -> RefitTables:
         allp = np.concatenate(pts)
         static6[:3] = -allp.min(0).astype(np.float32)
         static6[3:] = allp.max(0).astype(np.float32)
-    # the mesh boxes: meshes fill the first rows, one after another
-    mid = _host(scene.meshes.mesh_id)
-    mvalid = _host(scene.meshes.valid)
-    kvalid = _host(scene.meshes.mesh_valid)
-    n_real = int(mvalid.sum())
-    n_mesh = int(kvalid.sum())
-    if not (mvalid[:n_real].all() and kvalid[:n_mesh].all()
-            and (np.diff(mid[:n_real]) >= 0).all()):
-        raise ValueError("refit: the mesh rows are not laid out as "
-                         "SceneBuilder lays them out")
-    if n_leaves == 0 or n_mesh == 0:
+    # each mesh's corner rows, repeated to one width (a mesh without rows
+    # reads the row past the corners)
+    mid = np.where(_host(scene.meshes.valid), _host(scene.meshes.mesh_id),
+                   -1).repeat(3)
+    rows = [np.nonzero(mid == k)[0]
+            for k in range(scene.meshes.mesh_valid.shape[0])]
+    width = max(map(len, rows))
+    if n_leaves == 0 or not width:
         raise ValueError("refit: the scene has no mesh triangles")
-    bounds = np.searchsorted(mid[:n_real], np.arange(n_mesh + 1))
-    mesh_corners = tuple((3 * int(a), 3 * int(b))
-                         for a, b in zip(bounds[:-1], bounds[1:]))
-
-    # the pool: N (nn), S (1), padded N, groups, S, then the constants
-    n_groups = n_leaves * gpl
-    o_s = 6 * nn
-    o_p = o_s + 6
-    o_c = o_p + 6 * (nn + n_groups + 1)
-    consts: list = [np.zeros(1, np.float32)]
-    out_src: list = []
-    out_sign: list = []
-    layout: dict = {}
-
-    def emit(name, src, sign, shape):
-        at = sum(len(x) for x in out_src)
-        pad = (-at) % 4          # every piece 16-byte aligned
-        if pad:
-            out_src.append(np.full(pad, -1, np.int64))
-            out_sign.append(np.ones(pad, np.float32))
-            at += pad
-        out_src.append(np.asarray(src, np.int64).reshape(-1))
-        out_sign.append(np.asarray(sign, np.float32).reshape(-1))
-        layout[name] = (at, tuple(shape))
-
-    sign6 = np.asarray(_SIGN6, np.float32)
-    box = lambda base, i: base + 6 * np.asarray(i)[..., None] + np.arange(6)
-    # a constant is marked -(2 + its index into the concatenated consts)
-    # and numbered after the pool's boxes once all are known (-1: the
-    # alignment padding)
-    def cref(vals):
-        v = np.asarray(vals, np.float32)
-        start = sum(len(c) for c in consts)
-        consts.append(v.reshape(-1))
-        return -(2 + start + np.arange(v.size).reshape(v.shape))
-
-    nsrc = box(0, np.arange(nn))
-    emit("node_min", nsrc[:, :3], -np.ones((nn, 3)), (nn, 3))
-    emit("node_max", nsrc[:, 3:], np.ones((nn, 3)), (nn, 3))
-    emit("aabb_min", o_s + np.arange(3), -np.ones(3), (3,))
-    emit("aabb_max", o_s + 3 + np.arange(3), np.ones(3), (3,))
-    gsrc = box(o_p, nn + n_groups)
-    emit("gate_min", gsrc[:3], -np.ones(3), (3,))
-    emit("gate_max", gsrc[3:], np.ones(3), (3,))
-    bw = None
+    mesh_src = np.stack([np.resize(r if len(r) else [3 * m_rows], width)
+                         for r in rows])
+    meta = wide = wide_node = wide_box = used = bw = None
     if packed:
         meta = _host(bvh.nodes)[:, 6:]
-        for name, base in (("nodes", 0), ("nodes_walk", o_p)):
-            src = np.concatenate([box(base, np.arange(nn)), cref(meta)], 1)
-            sign = np.concatenate([np.broadcast_to(sign6, (nn, 6)),
-                                   np.ones_like(meta)], 1)
-            emit(name, src, sign, (nn, 16))
         if bvh.wide is not None:
             if bvh.wide_node is None:
                 raise ValueError("refit: the PackedBVH has no wide_node; "
                                  "build it with widen / prepare_bvh")
-            wide = _host(bvh.wide)
             wn = _host(bvh.wide_node).astype(np.int64)
-            nw, ar = wn.shape
-            wv = wide.reshape(nw, ar, 8)
-            present = wn >= 0
-            for name, base in (("wide", 0), ("wide_walk", o_p)):
-                src = np.concatenate([
-                    np.where(present[..., None], box(base, wn.clip(0)),
-                             cref(wv[..., :6])), cref(wv[..., 6:])], -1)
-                sign = np.concatenate([
-                    np.where(present[..., None], sign6, 1.0),
-                    np.ones((nw, ar, 2))], -1)
-                emit(name, src, sign, (nw, 8 * ar))
-        # the group boxes of each tris row: 2 groups of 8 lanes, the last
-        # two lanes 0; a group with no live slot all 0
-        rows = max(n_leaves, 1) * rpl
-        gi = np.arange(rows * 2).reshape(rows, 2)
-        used = np.zeros(rows * 2, bool)
-        used[:n_groups] = group_used.reshape(-1)
-        used = used.reshape(rows, 2)
-        zeros = cref(np.zeros((rows, 2, 8)))
-        src = np.where(used[..., None], np.concatenate(
-            [box(o_p, nn + gi.clip(0, max(n_groups - 1, 0))),
-             zeros[..., 6:]], -1), zeros)
-        sign = np.where(used[..., None],
-                        np.concatenate([sign6, [1.0, 1.0]]), 1.0)
-        emit("leafbox", src, sign, (rows, 16))
+            wide = _host(bvh.wide).reshape(*wn.shape, 8)
+            wide_box = (wn >= 0)[..., None] & (np.arange(8) < 6)
+            wide_node = wn.clip(0)
+        # two groups a tris row, in row order
+        used = live7.reshape(-1, 2, 7).any(-1, keepdims=True)
         if bvh.tris_bw is not None:
             bw = (n_leaves, rpl, bvh.bw_rows_per_leaf)
-    cvals, inv = np.unique(np.concatenate(consts), return_inverse=True)
-    src = np.concatenate(out_src)
-    src = np.where(src < -1, o_c + inv[np.maximum(-src - 2, 0)],
-                   np.maximum(src, 0))
-    t = lambda a: torch.as_tensor(a, device=dev)
+    t = lambda a: None if a is None else torch.as_tensor(a, device=dev)
     return RefitTables(
-        tv_src=t(tv_src), tris_src=None if tris_src is None else
-        t(tris_src), group_src=t(group_src), groups_per_leaf=gpl,
+        tv_src=t(tv_src), group_src=t(group_src), groups_per_leaf=gpl,
         anc_leaf=t(anc_leaf),
         anc_node=t(np.broadcast_to(anc_node[:, None], (len(anc_node), 6))
                    .copy()),
         n_nodes=nn, pad=float(inner.aabb_pad),
-        static6=t(static6), mesh_corners=mesh_corners,
-        n_meshes=int(scene.meshes.mesh_valid.shape[0]),
-        out_src=t(src), out_sign=t(np.concatenate(out_sign)),
-        consts=t(cvals), layout=layout,
-        zero=torch.zeros(1, device=dev),
-        inf=torch.tensor(np.inf, device=dev), bw=bw)
+        static6=t(static6), mesh_src=t(mesh_src),
+        sign=t(np.float32(_SIGN6)), zero=torch.zeros(1, device=dev),
+        inf=torch.tensor(np.inf, device=dev),
+        meta=t(meta), wide=t(wide), wide_node=t(wide_node),
+        wide_box=t(wide_box), group_used=t(used), bw=bw)
 
 
 def with_refit_tables(bvh, scene):
@@ -871,18 +775,14 @@ def _bw_rows(tris: torch.Tensor, bw: Tuple[int, int, int]) -> torch.Tensor:
     if tris.device.type == "cpu":
         return pack_bw(PackedBVH(nodes=None, tris=tris, leaf_prim=None,
                                  bvh=None, rows_per_leaf=rpl)).tris_bw
-    out = torch.empty((max(n_leaves, 1) * bw_rpl, 128), dtype=torch.float32,
+    out = torch.empty((n_leaves * bw_rpl, 128), dtype=torch.float32,
                       device=tris.device)
-    if n_leaves:
-        err = _lib.refit_lib().urt_bw_records(
-            tris.data_ptr(), n_leaves, rpl, bw_rpl, out.data_ptr(),
-            torch.cuda.current_stream(tris.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"urt_bw_records launch failed: CUDA error "
-                               f"{err}")
-        launches["bw_records"] += 1
-    else:
-        out.zero_()
+    err = _lib.refit_lib().urt_bw_records(
+        tris.data_ptr(), n_leaves, rpl, bw_rpl, out.data_ptr(),
+        torch.cuda.current_stream(tris.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"urt_bw_records launch failed: CUDA error {err}")
+    launches["bw_records"] += 1
     return out
 
 
@@ -902,8 +802,8 @@ def refit(bvh, scene):
     made (``with_refit_tables``; made here at the first call otherwise).
 
     Spans: ``bvh.refit`` over ``bvh.refit.leaves`` (epilogue table, rows,
-    group boxes, BW records), ``bvh.refit.nodes`` (leaf and node boxes,
-    their padded walk copies, the group and scene boxes padded) and
+    group boxes, BW records), ``bvh.refit.nodes`` (the leaf, node and
+    scene boxes, exact and padded, and the rows they fill) and
     ``bvh.refit.gates`` (the mesh boxes, the scene written)."""
     bvh = with_refit_tables(bvh, scene)
     packed = isinstance(bvh, PackedBVH)
@@ -912,10 +812,9 @@ def refit(bvh, scene):
     with span("bvh.refit"):
         v = scene.meshes.verts
         with span("bvh.refit.leaves"):
-            flat = torch.cat([v.reshape(-1), tb.zero])
-            tv = flat[tb.tv_src].view(-1, 3, 3)
-            tris = (flat.detach()[tb.tris_src].view(-1, 128)
-                    if tb.tris_src is not None else None)
+            tv9 = torch.cat([v.reshape(-1), tb.zero])[tb.tv_src].view(-1, 9)
+            tris = F.pad(tv9.detach()[bvh.leaf_prim].flatten(1), (0, 2)) \
+                if packed else None
             p = v.detach().reshape(-1, 3)
             c6 = torch.cat([-p, p], 1)
             groups = c6[tb.group_src].view(-1, 21, 6).amax(1)
@@ -928,42 +827,40 @@ def refit(bvh, scene):
             s6 = torch.maximum(n6[0], tb.static6)[None]
             if tb.pad:
                 n6 = n6 + tb.pad
-            padded = _pad6(torch.cat([n6, groups, s6]), tb.inf)
-            pool = torch.cat([n6.reshape(-1), s6.reshape(-1),
-                              padded.reshape(-1), tb.consts])
-            out = pool[tb.out_src] * tb.out_sign
+            b6 = torch.cat([n6, groups, s6])
+            # (lo, hi) of the nodes, groups and scene: [0] exact, [1] padded
+            box = torch.stack([b6, _pad6(b6, tb.inf)]) * tb.sign
+            nn = tb.n_nodes
+            if packed:
+                rows = torch.cat([box[:, :nn], tb.meta.expand(2, -1, -1)],
+                                 -1)
+                kw = dict(nodes=rows[0], nodes_walk=rows[1], tris=tris,
+                          leafbox=torch.where(tb.group_used, F.pad(
+                              box[1, nn:-1].view(-1, 2, 6), (0, 2)),
+                              0.0).view(-1, 16))
+                if tb.wide is not None:
+                    wide = torch.where(tb.wide_box,
+                                       rows[:, tb.wide_node, :8],
+                                       tb.wide).flatten(2)
+                    kw.update(wide=wide[0], wide_walk=wide[1])
+                if tris_bw is not None:
+                    kw["tris_bw"] = tris_bw
         with span("bvh.refit.gates"):
-            mesh6 = torch.stack([c6[a:b].amax(0)
-                                 for a, b in tb.mesh_corners])
+            mesh6 = torch.cat([c6, -tb.inf.expand(1, 6)])[tb.mesh_src] \
+                .amax(1)
             kmin, kmax = -mesh6[:, :3], mesh6[:, 3:]
-            short = tb.n_meshes - kmin.shape[0]
-            if short:
-                kmin = torch.cat([kmin, tb.inf.expand(short, 3)])
-                kmax = torch.cat([kmax, -tb.inf.expand(short, 3)])
-
-            def piece(name):
-                at, shape = tb.layout[name]
-                return out[at: at + int(np.prod(shape))].view(shape)
-
             meshes = dataclasses.replace(scene.meshes, mesh_aabb_min=kmin,
                                          mesh_aabb_max=kmax)
             scene = dataclasses.replace(
-                scene, meshes=meshes, aabb_min=piece("aabb_min"),
-                aabb_max=piece("aabb_max"), gate_min=piece("gate_min"),
-                gate_max=piece("gate_max"))
-        inner = dataclasses.replace(inner, tri_verts=tv,
-                                    node_min=piece("node_min"),
-                                    node_max=piece("node_max"))
+                scene, meshes=meshes, aabb_min=box[0, -1, :3],
+                aabb_max=box[0, -1, 3:], gate_min=box[1, -1, :3],
+                gate_max=box[1, -1, 3:])
+        inner = dataclasses.replace(inner, tri_verts=tv9[:-1].view(-1, 3, 3),
+                                    node_min=box[0, :nn, :3],
+                                    node_max=box[0, :nn, 3:])
         if not packed:
             return inner, scene
-        kw = dict(bvh=inner, nodes=piece("nodes"),
-                  nodes_walk=piece("nodes_walk"), tris=tris,
-                  leafbox=piece("leafbox"))
-        if "wide" in tb.layout:
-            kw.update(wide=piece("wide"), wide_walk=piece("wide_walk"))
-        if tris_bw is not None:
-            kw["tris_bw"] = tris_bw
-        return bvh.replace(**kw), scene
+        return bvh.replace(bvh=inner, **kw), scene
 
 
 def _meshless_packed(arity: int) -> PackedBVH:

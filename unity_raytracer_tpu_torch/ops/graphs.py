@@ -1,14 +1,40 @@
-"""The fused frame as CUDA graph replays.
+"""The port's CUDA graphs: one capture mechanism, and the fused frame's graphs.
 
-On the card, ``ops/render.render_frame`` hands each frame of the fused
-route (``render.uses_fused``; ``render`` unchunked) to a ``FrameGraphs``:
-the frame's raygen, aux block, segment launches with their ``acc`` adds
-(the chain) or fork launches with their folds, ``cat``s and compactions
-(the tree), and the unswizzle, captured once per key and replayed for
-every later frame of that key. The graphs hold the same kernels in the
-same order on the same inputs as the eager frame, so a chain frame is the
-eager frame's bit for bit; the tree's ``index_add`` folds sum in an order
-neither route fixes.
+Two pieces of work run as CUDA graph replays on the card: each fused frame
+(``ops/render.render_frame``, through ``FrameGraphs`` below) and each chunk
+of the soft replay fit step (``ops/replay.GraphedSoftReplay``). Both
+capture through ``CapturedGraph``, under one rule: a graph is captured only
+after the same code has run eagerly once (a frame key's first frame; the
+replay's chunk 0, run on the capture's side stream, as autograd's backward
+needs), so every kernel is loaded, and the capture then records that code
+without running it.
+
+``CapturedGraph(name, fn, device)`` captures ``fn(stage)``:
+
+* on a side stream that waits for the work already queued, by
+  ``torch.cuda.CUDAGraph``'s own calls, without the entry of the
+  ``torch.cuda.graph`` context (a device synchronize, ``gc.collect`` and
+  ``empty_cache``: ~0.9 s a ``fit.fit`` call in the replay fit);
+* cut at each ``stage(name, **attrs)`` context that ``fn`` opens, into a
+  sequence of graphs that share one memory pool;
+* ``replay()`` runs the pieces in order, each stage's inside a span of its
+  name (a profiler trace names a graph's kernels by the span their launch
+  was made in, so kernel #1's launches keep ``chain.segment``), counts
+  ``<name>.graph.replays``, adds to every kernel launch table (``TABLES``)
+  what the captured code added to it (the capture launched nothing, so it
+  takes those additions back), and, while a recording runs, counts again
+  what the captured code counted (``profiling.collect_counts`` /
+  ``recount``);
+* the capture counts ``<name>.graph.captures``; ``out`` is what ``fn``
+  returned: tensors of the pool that every replay writes again.
+
+The fused frame (``FrameGraphs``): the frame's raygen, aux block, segment
+launches with their ``acc`` adds (the chain) or fork launches with their
+folds, ``cat``s and compactions (the tree), and the unswizzle, captured once
+per key and replayed for every later frame of that key. The graphs hold the
+same kernels in the same order on the same inputs as the eager frame, so a
+chain frame is the eager frame's bit for bit; the tree's ``index_add``
+folds sum in an order neither route fixes.
 
 * **The key** (``frame_key``): the scene's and the BVH's identity, the
   config, the image size, and the camera tensors' shapes, dtypes and
@@ -29,33 +55,22 @@ neither route fixes.
   way) or a camera tensor is not float32. The CPU never comes here. The
   eager frame is what the capture holds (``frame``), then the read of its
   stack-overflow counter.
-* **The pieces**: the capture is cut at each chain segment (the ``stage``
-  that ``frame`` runs each segment launch in) into a sequence of graphs
-  that share one memory pool, replayed in order, each segment's inside a
-  ``chain.segment`` span: a profiler trace names a graph's kernels by the
-  span its launch was made in, so kernel #1's launches keep their span.
-* **Each call** returns a new image (a clone of the graphs' output), reads
-  the stack-overflow counter the graphs zero and the kernels add to (one
-  sync a frame, as the eager frame's; it raises as ``check_overflow``
-  does) and adds the captured launches to ``mega.launches`` /
-  ``mega.route_launches``. The capture frame's image comes from the
-  first replay.
+* **The pieces**: the chain's capture is cut at each segment (the
+  ``stage`` that ``frame`` runs each segment launch in; spans
+  ``chain.segment``) into 11 graphs; the tree's is one.
+* **Each call** returns a new image (a clone of the graphs' output) and
+  reads the stack-overflow counter the graphs zero and the kernels add to
+  (one sync a frame, as the eager frame's; it raises as ``check_overflow``
+  does). The capture frame's image comes from the first replay.
 * **Spans**: ``render.capture`` (the capture), ``render.graph`` (the
   camera copy and the replay), ``render.sync`` (the overflow read).
   Counters: ``render.graph.captures``, ``render.graph.replays`` (each
-  replay, the capture frame's included), and, while a recording runs, the
-  frame's own counts of the captured code (the tree's ``tree.lanes`` /
-  ``tree.live``) again after each replay (``profiling.recount``).
+  replay, the capture frame's included), and the recounted ``tree.lanes``
+  / ``tree.live`` of a replayed tree.
 * **Memory**: each key's graphs keep a frame's intermediates in their
   private pool (~420 MB at 1920x1080 on ``mesh100k``); ``FrameGraphs``
   keeps the graphs of the ``KEEP`` most recently used keys (``clear``
   frees them) and remembers ``SEEN`` keys seen once.
-
-The capture runs on a side stream between ``capture_begin`` and
-``capture_end``, without ``torch.cuda.graph``'s entry (a device
-synchronize, ``gc.collect`` and ``empty_cache``, ~0.9 s in the replay fit):
-the eager frame before it has loaded every kernel, and the side stream
-waits for the work already queued.
 """
 
 from __future__ import annotations
@@ -68,11 +83,16 @@ from collections import OrderedDict
 
 import torch
 
-from unity_raytracer_tpu_torch.ops.kernels import mega
+from unity_raytracer_tpu_torch.ops import bvh as bvhmod
+from unity_raytracer_tpu_torch.ops.kernels import (
+    intersect_mk, mega, traverse_mk3)
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import check_overflow
 from unity_raytracer_tpu_torch.utils import profiling
 from unity_raytracer_tpu_torch.utils.profiling import count, span
 
+# every kernel launch table of the port; a replay adds the capture's share
+TABLES = (mega.launches, mega.route_launches, traverse_mk3.launches,
+          intersect_mk.launches, bvhmod.launches)
 CAMERA = ("position", "forward", "right", "up", "dist", "half_h", "half_v")
 KEEP = 2     # keys whose graphs are kept, least recently used dropped first
 SEEN = 8     # keys remembered from one eager frame
@@ -80,65 +100,37 @@ _SEGMENT = mega.trace_segment
 _META = operator.attrgetter("shape", "dtype", "device")
 
 
-def frame_key(scene, cam, cfg, bvh) -> tuple:
-    """The key of a frame's graphs (module docstring)."""
-    return (id(scene), id(bvh), cfg, cam.width, cam.height,
-            tuple(_META(getattr(cam, f)) for f in CAMERA))
+class CapturedGraph:
+    """``fn(stage)`` captured as CUDA graphs on ``device`` and replayed by
+    ``replay()`` (module docstring). ``warm``: run ``fn(span)`` eagerly on
+    the capture's side stream first, its work and counts real."""
 
-
-def _ref(obj):
-    """A weak reference to ``obj``; for None, a call that returns None."""
-    return (lambda: None) if obj is None else weakref.ref(obj)
-
-
-def _camera_flat(cam) -> list:
-    return [getattr(cam, f).reshape(-1) for f in CAMERA]
-
-
-class FrameGraph:
-    """One captured frame: ``frame(scene, cam, cfg, bvh, bg, stage) ->
-    (image, overflow)`` recorded once on a camera made of views into a
-    static buffer, in pieces cut at each ``stage``, replayed by
-    ``__call__(cam)``."""
-
-    def __init__(self, frame, scene, cam, cfg, bvh):
-        self.scene, self.bvh = scene, bvh     # read by address
-        self.device = dev = cam.position.device
-        self.cam_buf = torch.cat(_camera_flat(cam))
-        views, at = {}, 0
-        for f in CAMERA:
-            t = getattr(cam, f)
-            views[f] = self.cam_buf[at:at + t.numel()].view(t.shape)
-            at += t.numel()
-        cam_in = dataclasses.replace(cam, **views)
-        self.bg = mega.background_row(cfg.background, dev)
+    def __init__(self, name: str, fn, device, warm: bool = False):
+        self.name = name
         self.pieces = []      # (the stage's (name, attrs) or None, graph)
-        before = dict(mega.launches), dict(mega.route_launches)
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(device=dev)
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device=device)
         side.wait_stream(main)
-        try:
-            with torch.cuda.stream(side), torch.no_grad(), \
-                    profiling.collect_counts() as counts:
-                self._begin()
-                try:
-                    self.out, self.overflow = frame(scene, cam_in, cfg, bvh,
-                                                    self.bg, self._stage)
-                finally:
-                    self._end(None)
-        finally:
-            # the capture launched nothing: each replay adds these
-            self.launches = {k: v - before[0][k]
-                             for k, v in mega.launches.items()
-                             if v != before[0][k]}
-            self.route_launches = {k: v - before[1][k]
-                                   for k, v in mega.route_launches.items()
-                                   if v != before[1][k]}
-            mega.launches.update(before[0])
-            mega.route_launches.update(before[1])
+        with torch.cuda.stream(side):
+            if warm:
+                fn(span)
+            before = [dict(t) for t in TABLES]
+            try:
+                with profiling.collect_counts() as counts:
+                    self._begin()
+                    try:
+                        self.out = fn(self._stage)
+                    finally:
+                        self._end(None)
+            finally:
+                self.launches = [{k: v - b[k] for k, v in t.items()
+                                  if v != b[k]}
+                                 for t, b in zip(TABLES, before)]
+                for t, b in zip(TABLES, before):
+                    t.update(b)
         main.wait_stream(side)
         self.counts = counts
-        count("render.graph.captures", 1)
+        count(f"{name}.graph.captures", 1)
 
     def _begin(self) -> None:
         self._open = torch.cuda.CUDAGraph()
@@ -160,25 +152,69 @@ class FrameGraph:
         self._end((name, attrs))
         self._begin()
 
+    def replay(self) -> None:
+        """Replay the pieces in order and carry the capture's launches and
+        counts (module docstring)."""
+        for stage, graph in self.pieces:
+            if stage is None:
+                graph.replay()
+            else:
+                with span(stage[0], **stage[1]):
+                    graph.replay()
+        count(f"{self.name}.graph.replays", 1)
+        for table, added in zip(TABLES, self.launches):
+            for k, v in added.items():
+                table[k] += v
+        profiling.recount(self.counts)
+
+
+def frame_key(scene, cam, cfg, bvh) -> tuple:
+    """The key of a frame's graphs (module docstring)."""
+    return (id(scene), id(bvh), cfg, cam.width, cam.height,
+            tuple(_META(getattr(cam, f)) for f in CAMERA))
+
+
+def _ref(obj):
+    """A weak reference to ``obj``; for None, a call that returns None."""
+    return (lambda: None) if obj is None else weakref.ref(obj)
+
+
+def _camera_flat(cam) -> list:
+    return [getattr(cam, f).reshape(-1) for f in CAMERA]
+
+
+class FrameGraph:
+    """One captured frame: ``frame(scene, cam, cfg, bvh, bg, stage) ->
+    (image, overflow)`` recorded once on a camera made of views into a
+    static buffer, replayed by ``__call__(cam)``."""
+
+    def __init__(self, frame, scene, cam, cfg, bvh):
+        self.scene, self.bvh = scene, bvh     # read by address
+        self.device = dev = cam.position.device
+        self.cam_buf = torch.cat(_camera_flat(cam))
+        views, at = {}, 0
+        for f in CAMERA:
+            t = getattr(cam, f)
+            views[f] = self.cam_buf[at:at + t.numel()].view(t.shape)
+            at += t.numel()
+        cam_in = dataclasses.replace(cam, **views)
+        self.bg = mega.background_row(cfg.background, dev)
+
+        def held(stage):
+            with torch.no_grad():
+                return frame(scene, cam_in, cfg, bvh, self.bg, stage)
+
+        self.graph = CapturedGraph("render", held, dev)
+
     def __call__(self, cam) -> torch.Tensor:
         with span("render.graph"):
             with torch.cuda.device(self.device):
                 torch.cat(_camera_flat(cam), out=self.cam_buf)
-                for stage, graph in self.pieces:
-                    if stage is None:
-                        graph.replay()
-                    else:
-                        with span(stage[0], **stage[1]):
-                            graph.replay()
-            count("render.graph.replays", 1)
-        for k, v in self.launches.items():
-            mega.launches[k] += v
-        for k, v in self.route_launches.items():
-            mega.route_launches[k] += v
-        img = self.out.clone()
-        profiling.recount(self.counts)
+                self.graph.replay()
+        out, overflow = self.graph.out
+        img = out.clone()
         with span("render.sync"):
-            check_overflow(self.overflow)
+            check_overflow(overflow)
         return img
 
 

@@ -63,7 +63,7 @@ and on the composed chain ``chain.live`` and ``chain.shadow`` (live
 nearest and shadow lanes of a segment), all counts the code already made.
 
 On the card ``render_frame`` runs the fused route's frames through
-``ops/frame_graph``: a key's first frame eagerly, its second captured as
+``ops/graphs``: a key's first frame eagerly, its second captured as
 CUDA graphs (span ``render.capture``, holding the spans above), every
 later one a replay of them (``render.graph``, holding a
 ``chain.segment`` span around each segment's graph; then
@@ -81,7 +81,7 @@ from unity_raytracer_tpu_torch.models.camera import (
     Camera, generate_rays_blocks)
 from unity_raytracer_tpu_torch.models.scene import Scene
 from unity_raytracer_tpu_torch.ops import bvh as bvhmod
-from unity_raytracer_tpu_torch.ops import frame_graph
+from unity_raytracer_tpu_torch.ops import graphs
 from unity_raytracer_tpu_torch.ops import shade as sh
 from unity_raytracer_tpu_torch.ops.intersect import (
     KIND_SPHERE, Hit, dot3, nearest_hit)
@@ -231,7 +231,7 @@ def _trace_chain_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     int32 [1] device counter of dropped pushes that the caller checks
     instead (no sync here); ``bg``: ``mega.build_aux``'s; ``stage``: the
     context each segment launch runs in, ``span`` or a capture's
-    (``ops/frame_graph``)."""
+    (``ops/graphs``)."""
     with span("chain"):
         with span("chain.aux"):
             aux = mega.build_aux(scene, cfg.background, bg)
@@ -447,7 +447,7 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     its own ``overflow`` counter to check; ``bg``: ``mega.build_aux``'s."""
     has_mesh = bvh is not None and getattr(bvh, "leafmeta", None) is not None
     # a CUDA graph capture cannot read the device: the eager frame that
-    # precedes every capture of a key (ops/frame_graph) made this check
+    # precedes every capture of a key (ops/graphs) made this check
     capturing = o.is_cuda and torch.cuda.is_current_stream_capturing()
     if not has_mesh and not capturing and bool(scene.meshes.valid.any()):
         raise ValueError(
@@ -541,49 +541,66 @@ def trace_radiance_tree_stats(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     return _trace_tree_any(scene, o, d, cfg, bvh, with_stats=True)
 
 
-def _frame_eager(scene: Scene, cam: Camera, cfg: RenderConfig,
-                 bvh=None) -> torch.Tensor:
-    """``render_frame`` off the fused route, or on the CPU."""
+def _frame(cam: Camera, cfg: RenderConfig, trace, chunk: int = 0
+           ) -> torch.Tensor:
+    """Block-order raygen, ``trace(o, d)`` -> radiance [N,3], then
+    un-swizzle and /255 -> [H,W,3]. With ``chunk``, ``trace`` takes chunks
+    of ``chunk`` rays, the last padded with the twin's filler rays (origin
+    and direction +z); a tree's ``tree_cap`` then applies per chunk, as in
+    the twin."""
     with span("render.raygen"):
         o, d = generate_rays_blocks(cam, cfg.block_size)
-    rad = trace_radiance(scene, o, d, cfg, bvh=bvh)
+        total = o.shape[0]
+        pad = (-total) % chunk if chunk else 0
+        if pad:
+            filler = torch.zeros((pad, 3), dtype=o.dtype, device=o.device)
+            filler[:, 2] = 1.0
+            o, d = torch.cat([o, filler]), torch.cat([d, filler])
+    if chunk:
+        rad = torch.cat([trace(o[i:i + chunk], d[i:i + chunk])
+                         for i in range(0, total + pad, chunk)])[:total]
+    else:
+        rad = trace(o, d)
     with span("render.unswizzle"):
         return unswizzle_image(rad, cam.width, cam.height,
                                cfg.block_size) / 255.0
 
 
+def _frame_eager(scene: Scene, cam: Camera, cfg: RenderConfig, bvh=None,
+                 chunk: int = 0) -> torch.Tensor:
+    """``render_frame`` off the fused route, or on the CPU; with
+    ``chunk``, ``render``'s chunked frame."""
+    return _frame(cam, cfg, lambda o, d: trace_radiance(scene, o, d, cfg,
+                                                        bvh=bvh), chunk)
+
+
 def _frame_fused(scene: Scene, cam: Camera, cfg: RenderConfig, bvh, bg,
                  stage=span):
-    """The fused frame on the card, as ``ops/frame_graph`` runs it eagerly
-    and captures it: the eager frame's functions, its stack-overflow
-    counter made (zeroed) here and returned unread, ``bg`` for the aux
-    block, ``stage`` around each chain segment -> ``(image, overflow)``."""
-    with span("render.raygen"):
-        o, d = generate_rays_blocks(cam, cfg.block_size)
-    overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+    """The fused frame on the card, as ``ops/graphs`` runs it eagerly and
+    captures it: the eager frame's functions, its stack-overflow counter
+    made (zeroed) here and returned unread, ``bg`` for the aux block,
+    ``stage`` around each chain segment -> ``(image, overflow)``."""
+    overflow = torch.zeros(1, dtype=torch.int32, device=cam.position.device)
     if cfg.mode == "tree":
-        rad = _trace_tree_mega(scene, o, d, cfg, bvh, overflow=overflow,
-                               bg=bg)
+        trace = lambda o, d: _trace_tree_mega(
+            scene, o, d, cfg, bvh, overflow=overflow, bg=bg)
     else:
-        rad = _trace_chain_mega(scene, o, d, cfg, bvh, overflow=overflow,
-                                bg=bg, stage=stage)
-    with span("render.unswizzle"):
-        img = unswizzle_image(rad, cam.width, cam.height,
-                              cfg.block_size) / 255.0
-    return img, overflow
+        trace = lambda o, d: _trace_chain_mega(
+            scene, o, d, cfg, bvh, overflow=overflow, bg=bg, stage=stage)
+    return _frame(cam, cfg, trace), overflow
 
 
 # the fused frames' CUDA graphs of this process; FRAME_GRAPHS.clear() frees
 # them
-FRAME_GRAPHS = frame_graph.FrameGraphs(_frame_fused)
+FRAME_GRAPHS = graphs.FrameGraphs(_frame_fused)
 
 
 def render_frame(scene: Scene, cam: Camera, cfg: RenderConfig,
                  bvh=None) -> torch.Tensor:
     """Block-order raygen -> trace -> unswizzle -> [H,W,3] image on the
     display (0-1) scale, on the camera's device. On the card the fused
-    route's frames go through ``FRAME_GRAPHS`` (``ops/frame_graph``):
-    from a key's second frame on, each frame is a CUDA graph replay."""
+    route's frames go through ``FRAME_GRAPHS`` (``ops/graphs``): from a
+    key's second frame on, each frame is a CUDA graph replay."""
     cfg = resolve_mode(scene, cfg)
     check_supported(cfg)
     if cam.position.device.type == "cuda" and uses_fused(cfg, bvh):
@@ -591,39 +608,17 @@ def render_frame(scene: Scene, cam: Camera, cfg: RenderConfig,
     return _frame_eager(scene, cam, cfg, bvh)
 
 
-def _frame_chunked(scene: Scene, cam: Camera, cfg: RenderConfig, bvh,
-                   chunk: int) -> torch.Tensor:
-    """The frame in chunks of ``chunk`` block-ordered rays, the last
-    padded with the twin's filler rays (origin and direction +z), then
-    un-swizzled and divided by 255. A tree's ``tree_cap`` applies per
-    chunk, as in the twin."""
-    with span("render.raygen"):
-        o, d = generate_rays_blocks(cam, cfg.block_size)
-        total = o.shape[0]
-        pad = (-total) % chunk
-        if pad:
-            filler = torch.zeros((pad, 3), dtype=o.dtype, device=o.device)
-            filler[:, 2] = 1.0
-            o, d = torch.cat([o, filler]), torch.cat([d, filler])
-    rad = torch.cat([trace_radiance(scene, o[i:i + chunk], d[i:i + chunk],
-                                    cfg, bvh=bvh)
-                     for i in range(0, total + pad, chunk)])[:total]
-    with span("render.unswizzle"):
-        return unswizzle_image(rad, cam.width, cam.height,
-                               cfg.block_size) / 255.0
-
-
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
            bvh=None) -> torch.Tensor:
     """Render the full image [H,W,3] on the display (0-1) scale: resolve
     'auto' mode, build the BVH ``cfg.kernel`` walks on the scene's device
-    if ``cfg.use_bvh`` and none was passed, then ``render_frame``, or
-    ``_frame_chunked`` when ``cfg.ray_chunk`` is below the pixel count."""
+    if ``cfg.use_bvh`` and none was passed, then ``render_frame``, or the
+    chunked frame when ``cfg.ray_chunk`` is below the pixel count."""
     with span("render"):
         cfg = resolve_mode(scene, cfg)
         check_supported(cfg)
         if cfg.use_bvh and bvh is None:
             bvh = bvhmod.prepare_bvh(scene, cfg, scene.aabb_min.device)
         if cfg.ray_chunk and cfg.ray_chunk < cam.width * cam.height:
-            return _frame_chunked(scene, cam, cfg, bvh, cfg.ray_chunk)
+            return _frame_eager(scene, cam, cfg, bvh, cfg.ray_chunk)
         return render_frame(scene, cam, cfg, bvh)

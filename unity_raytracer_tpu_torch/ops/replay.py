@@ -47,13 +47,14 @@ from unity_raytracer_tpu_torch.models.scene import Materials, Scene
 from unity_raytracer_tpu_torch.ops import intersect as isect
 from unity_raytracer_tpu_torch.ops.intersect import dot3
 from unity_raytracer_tpu_torch.ops.bvh import _mt_one
+from unity_raytracer_tpu_torch.ops.graphs import CapturedGraph
 from unity_raytracer_tpu_torch.ops.kernels import mega
 from unity_raytracer_tpu_torch.ops.render import (
     check_supported, resolve_mode)
 from unity_raytracer_tpu_torch.ops.shade import (
     SHADOW_EPS, _rows, _soft_or_hard_vis, reflect_dir)
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
-from unity_raytracer_tpu_torch.utils.profiling import count, span
+from unity_raytracer_tpu_torch.utils.profiling import span
 
 # records tuple, each stacked over segments (leading dim B):
 #   hard: (t [B,N], n [B,N,3], matid [B,N], occbits [B,N])
@@ -732,11 +733,11 @@ class GraphedSoftReplay:
     graph (span ``replay.graph``, counter ``replay.graph.replays``). The
     first call, and a call whose ``live_segments`` differs from the
     captured one, captures instead on chunk 0 (span ``replay.capture``,
-    counter ``replay.graph.captures``): chunk 0 runs eagerly on a side
-    stream (the warm-up capture needs), which adds it to the sums, and
-    the capture then records the same code without running it. Returns
-    ``(loss, grads)`` as new tensors, as ``soft_replay_value_and_grad``
-    does; callers may keep them."""
+    counter ``replay.graph.captures``; ``ops/graphs.CapturedGraph`` with
+    ``warm``): chunk 0 runs eagerly on the capture's side stream, which
+    adds it to the sums, and the capture then records the same code
+    without running it. Returns ``(loss, grads)`` as new tensors, as
+    ``soft_replay_value_and_grad`` does; callers may keep them."""
 
     def __init__(self, template: Scene, params: Dict[str, torch.Tensor],
                  o: torch.Tensor, d: torch.Tensor, target: torch.Tensor,
@@ -798,21 +799,6 @@ class GraphedSoftReplay:
             if g is not None:
                 self.grads[k].add_(g)
 
-    def _capture(self, recs: Records, live_segments) -> None:
-        self.graph = None           # the old graph's pool goes first
-        self.fill(0, recs)
-        main = torch.cuda.current_stream()
-        side = torch.cuda.Stream(device=self.o.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._chunk_step(live_segments)
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._chunk_step(live_segments)
-        self.graph, self.live_segments = graph, live_segments
-        count("replay.graph.captures", 1)
-
     def __call__(self, params: Dict[str, torch.Tensor],
                  live_segments: int | None = None):
         from unity_raytracer_tpu_torch.fit import set_params
@@ -830,13 +816,17 @@ class GraphedSoftReplay:
         first = 0
         if self.graph is None or live_segments != self.live_segments:
             with span("replay.chunk", i=0), span("replay.capture"):
-                self._capture(recs, live_segments)
+                self.graph = None       # the old graph's pool goes first
+                self.fill(0, recs)
+                self.graph = CapturedGraph(
+                    "replay", lambda stage: self._chunk_step(live_segments),
+                    self.o.device, warm=True)
+                self.live_segments = live_segments
             first = 1
         for i in range(first, self.n_chunks):
             with span("replay.chunk", i=i), span("replay.graph"):
                 self.fill(i, recs)
                 self.graph.replay()
-                count("replay.graph.replays", 1)
         return (self.loss / self.denom,
                 {k: g / self.denom for k, g in self.grads.items()})
 

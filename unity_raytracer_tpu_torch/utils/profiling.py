@@ -155,7 +155,7 @@ def call_times(fn: Callable, repeats: int, warmup: int = 1,
 def events_mean_s(fn: Callable, repeats: int, warmup: int = 1) -> float:
     """Mean seconds of ``repeats`` back-to-back calls of ``fn`` after
     ``warmup`` warm-up calls, between two CUDA events (``call_times``).
-    A fused frame wants two (``ops/frame_graph``: its second captures)."""
+    A fused frame wants two (``ops/graphs``: its second captures)."""
     return call_times(fn, repeats, warmup=warmup).mean_s
 
 
