@@ -11,10 +11,20 @@ pixel-gradient descent, on one of three steps:
 * the composed path, whole image (the default): autograd through
   ``ops/render.render`` — the composed bounce chain around the traversal
   kernels, with soft visibility for silhouette gradients;
-* the composed path, chunked (``rcfg.ray_chunk`` set): one ``backward()``
-  per chunk of rays into accumulated gradients, then the weighted mean
-  (``make_chunked_value_and_grad``); with ``rcfg.remat`` each bounce
-  segment is recomputed in the backward;
+* the composed path, chunked (``rcfg.ray_chunk`` set): per chunk of rays
+  the gradient of its squared error (``autograd.grad``) added into
+  accumulated sums, then the weighted mean (``make_chunked_value_and_grad``);
+  with ``rcfg.remat`` each bounce segment is recomputed in the backward.
+  On the card ``fit`` runs the mirror chain's chunked step as one CUDA
+  graph replay (``GraphedComposedStep``: the refit of a mesh fit and every
+  chunk's forward and backward, captured in the first step of each
+  ``fit`` call; the chain runs every segment and nothing inside the step
+  syncs, so the host issues Adam's launches and reads the loss and the
+  stack-overflow counter once a step). It needs the walk kernels on a
+  ``PackedBVH`` (``ops/bvh.kernel_walk``); the CPU, the dielectric tree,
+  the plain walk (``kernel='xla'``), a fit without a BVH, the whole-image
+  step and the other callers of ``make_chunked_value_and_grad``
+  (``parallel/shard``, ``bench.py``) run it eagerly;
 * the record-replay path (``FitConfig.use_replay``): each step records
   the bounce chain with the fused kernel at the current parameters and
   back-propagates through the soft shading replay
@@ -38,11 +48,18 @@ Spans (``utils/profiling.span``): each step of ``fit`` is a ``fit.step``
 (the caller's hook), ``fit.adam``, ``fit.sync`` (the loss read back),
 ``fit.prefix_guard`` and ``fit.checkpoint`` where they run; the chunked
 composed step splits into ``composed.chunk`` (attribute ``i``) over
-``composed.forward`` and ``composed.backward``.
+``composed.forward`` and ``composed.backward``. The graphed step's call is
+``composed.capture`` (its first: the eager warm-up step and the capture,
+the spans above inside it) or ``composed.graph`` (the parameters copied
+in, the replay, a mesh fit's refit replayed inside a ``bvh.refit`` span);
+counters ``composed.graph.captures`` (1 a ``fit`` call) and
+``composed.graph.replays`` (1 a later step); the overflow read sits in
+``fit.sync``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -57,7 +74,10 @@ from unity_raytracer_tpu_torch.models.convert import (
 from unity_raytracer_tpu_torch.models.scene import Scene
 from unity_raytracer_tpu_torch.ops import replay as rp
 from unity_raytracer_tpu_torch.ops.bvh import (
-    bind_verts, refit, with_refit_tables)
+    bind_verts, kernel_walk, refit, with_refit_tables)
+from unity_raytracer_tpu_torch.ops.graphs import CapturedGraph
+from unity_raytracer_tpu_torch.ops.kernels.mega import background_row
+from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import check_overflow
 from unity_raytracer_tpu_torch.ops.render import (
     render, resolve_mode, trace_radiance)
 from unity_raytracer_tpu_torch.utils import checkpoint as ckpt
@@ -114,12 +134,17 @@ def set_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
     return scene
 
 
-def _refit(bvh, template: Scene, params: Dict[str, torch.Tensor]):
+def _refit(bvh, template: Scene, params: Dict[str, torch.Tensor],
+           stage: Optional[Callable] = None):
     """``(bvh, template)`` refit to the mesh of ``params`` (detached):
-    ``ops/bvh.refit``, once a step, before the step's rays."""
+    ``ops/bvh.refit``, once a step, before the step's rays; inside
+    ``stage('bvh.refit')`` where a stage is given (a graph's piece of its
+    own)."""
     with torch.no_grad():
-        return refit(bvh, set_params(template, {k: v.detach() for k, v in
-                                                params.items()}))
+        scene = set_params(template, {k: v.detach() for k, v in
+                                      params.items()})
+        with stage("bvh.refit") if stage else contextlib.nullcontext():
+            return refit(bvh, scene)
 
 
 def _replace_path(node, path, value):
@@ -191,30 +216,22 @@ def _bind(bvh, scene):
     return bind_verts(bvh, scene)
 
 
-def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
-                                o: torch.Tensor, d: torch.Tensor,
-                                target: torch.Tensor, bvh=None,
-                                chunk: Optional[int] = None,
-                                weights: Optional[torch.Tensor] = None,
-                                denom: Optional[float] = None,
-                                refit_bvh: bool = False) -> Callable:
-    """Chunked gradient accumulation on the composed path: for each chunk
-    of rays, ``backward()`` of its summed squared error into the same
-    ``.grad``; the loss and gradients are divided once at the end by 3x
-    the weight sum, so they equal the unchunked weighted-mean MSE's. Only
-    one chunk's graph is alive at a time; ``rcfg.remat`` also recomputes
-    each bounce segment in the backward.
+class _Chunks(NamedTuple):
+    """A batch's lanes in chunks of equal size ``[B, C, ...]``, the last
+    one padded (``_chunks``), and the step's divisor."""
+    o: torch.Tensor
+    d: torch.Tensor
+    target: torch.Tensor
+    weights: torch.Tensor
+    denom: torch.Tensor | float
 
-    ``target``: radiance on the 0-255 scale, [N,3] aligned with
-    ``(o, d)``. ``weights`` (optional [N]): per-lane loss weights, e.g. 0
-    on the pad margin of block-ordered raygen. ``denom`` replaces the
-    divisor: a rank's share of a loss over more rays than its own
-    (``parallel/shard.make_sharded_train_step``). ``refit_bvh``: refit
-    ``bvh`` to the mesh of ``params`` once per call, before the first
-    chunk (a fit that moves the mesh). Each chunk installs the parameters
-    anew, so that a chunk's graph (``positions[faces]``) is its own.
-    Returns ``f(params) -> (loss, grads)``."""
-    rcfg = resolve_mode(template, rcfg)
+
+def _chunks(rcfg: RenderConfig, o, d, target, chunk=None, weights=None,
+            denom=None) -> _Chunks:
+    """``make_chunked_value_and_grad``'s lanes in chunks of ``chunk``
+    (default ``rcfg.ray_chunk``): the last chunk padded with dead lanes
+    (origin 0, direction +z, target 0, weight 0), ``denom`` 3x the weight
+    sum unless given."""
     n = o.shape[0]
     c = min(chunk or rcfg.ray_chunk or n, n)
     w = (torch.ones((n,), dtype=torch.float32, device=o.device)
@@ -228,28 +245,164 @@ def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
         o, d = torch.cat([o, z]), torch.cat([d, z])
         target = torch.cat([target, torch.zeros_like(z)])
         w = torch.cat([w, w.new_zeros(pad)])
-    oc, dc = o.reshape(-1, c, 3), d.reshape(-1, c, 3)
-    tc, wc = target.reshape(-1, c, 3), w.reshape(-1, c)
+    return _Chunks(o.reshape(-1, c, 3), d.reshape(-1, c, 3),
+                   target.reshape(-1, c, 3), w.reshape(-1, c), denom)
+
+
+def _chunk_sums(template: Scene, rcfg: RenderConfig, ch: _Chunks, bvh,
+                bg: torch.Tensor, leaves: Dict[str, torch.Tensor],
+                loss: torch.Tensor, grads: Dict[str, torch.Tensor],
+                refit_bvh: bool = False,
+                overflow: Optional[torch.Tensor] = None,
+                stage: Optional[Callable] = None) -> None:
+    """The chunked step's body, the eager step's and its graph's: the
+    refit of ``bvh`` to the mesh of ``leaves`` (inside ``stage
+    ('bvh.refit')`` where a stage is given), then per chunk the forward,
+    ``autograd.grad`` of its weighted squared-error sum to ``leaves`` and
+    the adds into ``loss`` and ``grads``. ``bg``: the background row
+    (``mega.background_row``, built once by the caller); ``overflow``: the
+    chain's stack-overflow counter, read by the caller
+    (``trace_radiance``)."""
+    tmpl, b = template, bvh
+    if refit_bvh:
+        b, tmpl = _refit(bvh, template, leaves, stage)
+    names = list(leaves)
+    for i in range(ch.o.shape[0]):
+        with span("composed.chunk", i=i):
+            with span("composed.forward"):
+                scene = set_params(tmpl, leaves)
+                rad = trace_radiance(scene, ch.o[i], ch.d[i], rcfg,
+                                     bvh=_bind(b, scene), overflow=overflow,
+                                     bg=bg)
+                l_i = (((rad - ch.target[i]) ** 2)
+                       * ch.weights[i][:, None]).sum()
+            with span("composed.backward"):
+                gs = torch.autograd.grad(l_i, [leaves[k] for k in names],
+                                         allow_unused=True)
+            loss.add_(l_i.detach())
+            for k, g in zip(names, gs):
+                if g is not None:
+                    grads[k].add_(g)
+
+
+def make_chunked_value_and_grad(template: Scene, rcfg: RenderConfig,
+                                o: torch.Tensor, d: torch.Tensor,
+                                target: torch.Tensor, bvh=None,
+                                chunk: Optional[int] = None,
+                                weights: Optional[torch.Tensor] = None,
+                                denom: Optional[float] = None,
+                                refit_bvh: bool = False) -> Callable:
+    """Chunked gradient accumulation on the composed path: for each chunk
+    of rays, the gradient of its summed squared error added into the same
+    sums; the loss and gradients are divided once at the end by 3x the
+    weight sum, so they equal the unchunked weighted-mean MSE's. Only one
+    chunk's graph is alive at a time; ``rcfg.remat`` also recomputes each
+    bounce segment in the backward.
+
+    ``target``: radiance on the 0-255 scale, [N,3] aligned with
+    ``(o, d)``. ``weights`` (optional [N]): per-lane loss weights, e.g. 0
+    on the pad margin of block-ordered raygen. ``denom`` replaces the
+    divisor: a rank's share of a loss over more rays than its own
+    (``parallel/shard.make_sharded_train_step``). ``refit_bvh``: refit
+    ``bvh`` to the mesh of ``params`` once per call, before the first
+    chunk (a fit that moves the mesh). Each chunk installs the parameters
+    anew, so that a chunk's graph (``positions[faces]``) is its own.
+    Returns ``f(params) -> (loss, grads)``; ``GraphedComposedStep`` runs
+    the same body as one CUDA graph replay."""
+    rcfg = resolve_mode(template, rcfg)
+    ch = _chunks(rcfg, o, d, target, chunk, weights, denom)
+    bg = background_row(rcfg.background, o.device)
 
     def value_and_grad_fn(params):
         leaves = rp._leaves(params)
-        tmpl, b = template, bvh
-        if refit_bvh:
-            b, tmpl = _refit(bvh, template, leaves)
         loss = torch.zeros((), dtype=torch.float32, device=o.device)
-        for i in range(oc.shape[0]):
-            with span("composed.chunk", i=i):
-                with span("composed.forward"):
-                    scene = set_params(tmpl, leaves)
-                    rad = trace_radiance(scene, oc[i], dc[i], rcfg,
-                                         bvh=_bind(b, scene))
-                    l_i = (((rad - tc[i]) ** 2) * wc[i][:, None]).sum()
-                with span("composed.backward"):
-                    l_i.backward()
-                loss = loss + l_i.detach()
-        return loss / denom, rp._grads(leaves, denom)
+        grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
+        _chunk_sums(template, rcfg, ch, bvh, bg, leaves, loss, grads,
+                    refit_bvh)
+        return loss / ch.denom, {k: g / ch.denom for k, g in grads.items()}
 
     return value_and_grad_fn
+
+
+class GraphedComposedStep:
+    """``make_chunked_value_and_grad`` with the whole step one CUDA graph
+    replay (``ops/graphs.CapturedGraph`` named ``composed``): the refit of
+    a mesh fit (its own stage, replayed inside a ``bvh.refit`` span), then
+    for every chunk the forward, the (rematerialised) backward and the
+    adds into the step's sums: ``_chunk_sums``, the eager step's body, with
+    the chain's stack-overflow counter passed in, so every chain segment
+    runs and nothing inside the step syncs. The same kernels on the same
+    float32 inputs as the eager step; besides the order of the
+    ``index_add_`` atomics, the one difference is the dead segments it
+    runs, which add exactly 0.
+
+    One object serves one ``fit.fit`` call (built there on the card, for
+    the composed chunked scan chain). It owns what the graph reads and
+    writes by address: the chunks of the rays, targets and weights
+    (fixed for the call, padded as the eager step pads them), one
+    ``requires_grad`` leaf per parameter, the loss and gradient sums and
+    the overflow counter, all of which the graph zeroes first, and the
+    background row, built here so that nothing is copied from the host
+    inside the step.
+
+    Per call: the values of ``params`` are copied into the leaves and the
+    graph replayed (span ``composed.graph``, counter
+    ``composed.graph.replays``). The first call captures instead (span
+    ``composed.capture``, counter ``composed.graph.captures``;
+    ``warm=True``: the step runs eagerly on the capture's side stream,
+    which fills the sums, and the capture then records the same code
+    without running it). Returns ``(loss, grads)`` divided as the eager
+    step divides them, as new tensors; ``check`` reads the overflow
+    counter (one sync, after the caller's read of the loss) and raises as
+    ``check_overflow`` does."""
+
+    def __init__(self, template: Scene, params: Dict[str, torch.Tensor],
+                 rcfg: RenderConfig, o: torch.Tensor, d: torch.Tensor,
+                 target: torch.Tensor, bvh=None,
+                 weights: Optional[torch.Tensor] = None,
+                 refit_bvh: bool = False):
+        if refit_bvh:
+            bvh = with_refit_tables(bvh, template)
+        self.template, self.bvh, self.refit_bvh = template, bvh, refit_bvh
+        self.rcfg = resolve_mode(template, rcfg)
+        self.ch = _chunks(self.rcfg, o, d, target, weights=weights)
+        self.device = o.device
+        self.leaves = {k: torch.zeros_like(v).requires_grad_(True)
+                       for k, v in params.items()}
+        self.loss = torch.zeros((), dtype=torch.float32, device=o.device)
+        self.grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+        self.bg = background_row(self.rcfg.background, o.device)
+        self.graph = None
+
+    def _step(self, stage) -> None:
+        """What the graph holds: the sums zeroed, then ``_chunk_sums``."""
+        self.loss.zero_()
+        for g in self.grads.values():
+            g.zero_()
+        self.overflow.zero_()
+        _chunk_sums(self.template, self.rcfg, self.ch, self.bvh, self.bg,
+                    self.leaves, self.loss, self.grads, self.refit_bvh,
+                    overflow=self.overflow, stage=stage)
+
+    def __call__(self, params: Dict[str, torch.Tensor]):
+        first = self.graph is None
+        with span("composed.capture" if first else "composed.graph"):
+            with torch.no_grad():
+                for k, v in params.items():
+                    self.leaves[k].copy_(v)
+            if first:
+                self.graph = CapturedGraph("composed", self._step,
+                                           self.device, warm=True)
+            else:
+                self.graph.replay()
+        denom = self.ch.denom
+        return self.loss / denom, {k: g / denom
+                                   for k, g in self.grads.items()}
+
+    def check(self) -> None:
+        """Raise if the last step's walks dropped stack pushes."""
+        check_overflow(self.overflow, "traversal")
 
 
 def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
@@ -283,7 +436,7 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
               for k, v in src.items()}
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
     scale = 1.0 / (255.0 * 255.0)  # radiance-scale MSE -> image MSE
-    live_prefix = measure_prefix = None
+    live_prefix = measure_prefix = step_graph = None
     refit_bvh = bvh is not None and any(k in params for k in MESH_PARAMS)
     if refit_bvh:
         if cfg.use_replay:
@@ -346,9 +499,18 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
     elif rcfg.ray_chunk:
         o, d = generate_rays_blocks(cam, rcfg.block_size)
         tgt_rad = swizzle_image(target, rcfg.block_size) * 255.0
-        raw_vg = make_chunked_value_and_grad(
-            template, rcfg, o, d, tgt_rad, bvh=bvh,
-            weights=_lane_weights(cam, rcfg, dev), refit_bvh=refit_bvh)
+        kw = dict(bvh=bvh, weights=_lane_weights(cam, rcfg, dev),
+                  refit_bvh=refit_bvh)
+        # on the card the chain's whole step on the walk kernels is one
+        # CUDA graph replay (captured in the first step); the tree and the
+        # plain walk read the device on the host and stay eager
+        if (dev.type == "cuda" and rcfg.mode == "scan"
+                and kernel_walk(bvh, rcfg.kernel)):
+            raw_vg = step_graph = GraphedComposedStep(
+                template, params, rcfg, o, d, tgt_rad, **kw)
+        else:
+            raw_vg = make_chunked_value_and_grad(template, rcfg, o, d,
+                                                 tgt_rad, **kw)
 
         def value_and_grad(p):
             loss, grads = raw_vg(p)
@@ -387,6 +549,8 @@ def fit(template: Scene, cam: Camera, rcfg: RenderConfig,
                 optimizer.step()
             with span("fit.sync"):
                 losses.append(float(loss))
+                if step_graph is not None:
+                    step_graph.check()
             if cfg.log_every and (step % cfg.log_every == 0
                                   or step == cfg.steps - 1):
                 print(f"[fit] step {step:5d} loss {losses[-1]:.6e}")

@@ -576,7 +576,10 @@ def bind_verts(bvh, scene):
     v = scene.meshes.verts
     if inner.flip is not None:
         flip = torch.as_tensor(inner.flip, device=v.device)
-        v = torch.where(flip[:, None, None], v[:, (0, 2, 1), :], v)
+        # corners swapped by views, not a host-built index (a CUDA graph
+        # holds this)
+        swapped = torch.stack([v[:, 0], v[:, 2], v[:, 1]], 1)
+        v = torch.where(flip[:, None, None], swapped, v)
     idx = torch.as_tensor(inner.prim_index, device=v.device).long()
     new_inner = dataclasses.replace(
         inner, tri_verts=torch.index_select(v, 0, idx.clamp_min(0)))
@@ -955,6 +958,13 @@ def _prepare_bvh(scene, cfg, device):
         leafmeta[:, : lp.shape[1]] = matid.astype(np.float32)
     with span("bvh.to_device"):
         return packed.replace(leafmeta=torch.from_numpy(leafmeta)).to(device)
+
+
+def kernel_walk(bvh, kernel: str) -> bool:
+    """Whether ``traverse_any`` walks ``bvh`` with a kernel (a
+    ``PackedBVH`` and any ``kernel`` but 'xla'), not with the plain
+    per-lane walk ``traverse``, whose loop reads the device every step."""
+    return isinstance(bvh, PackedBVH) and kernel != "xla"
 
 
 def traverse_any(bvh, o: torch.Tensor, d: torch.Tensor,

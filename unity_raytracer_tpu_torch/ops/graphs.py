@@ -1,13 +1,14 @@
 """The port's CUDA graphs: one capture mechanism, and the fused frame's graphs.
 
-Two pieces of work run as CUDA graph replays on the card: each fused frame
-(``ops/render.render_frame``, through ``FrameGraphs`` below) and each chunk
-of the soft replay fit step (``ops/replay.GraphedSoftReplay``). Both
-capture through ``CapturedGraph``, under one rule: a graph is captured only
-after the same code has run eagerly once (a frame key's first frame; the
-replay's chunk 0, run on the capture's side stream, as autograd's backward
-needs), so every kernel is loaded, and the capture then records that code
-without running it.
+Three pieces of work run as CUDA graph replays on the card: each fused
+frame (``ops/render.render_frame``, through ``FrameGraphs`` below), each
+chunk of the soft replay fit step (``ops/replay.GraphedSoftReplay``) and
+each composed chunked fit step (``fit.GraphedComposedStep``). All capture
+through ``CapturedGraph``, under one rule: a graph is captured only after
+the same code has run eagerly once (a frame key's first frame; the
+replay's chunk 0 and the composed fit's first step, run on the capture's
+side stream, as autograd's backward needs), so every kernel is loaded,
+and the capture then records that code without running it.
 
 ``CapturedGraph(name, fn, device)`` captures ``fn(stage)``:
 

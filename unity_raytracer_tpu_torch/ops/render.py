@@ -28,9 +28,15 @@ one of two routes:
   lanes get ``t_max = -1``, so the kernels cull them. A chain segment with
   no live lane is skipped, as the twin's ``lax.cond`` skips it: that test
   is one host sync per segment, and once a segment is dead the rest are
-  too. ``cfg.remat`` runs each chain segment under
+  too. A caller that passes its own stack-overflow counter (``overflow``;
+  ``fit.GraphedComposedStep``, which captures the chain in a CUDA graph)
+  gets every segment run instead, with no live test and no overflow read:
+  a dead segment's lanes all carry ``t_max = -1`` and it adds exactly 0
+  to the radiance, so the chain makes no host sync and the caller reads
+  the counter. ``cfg.remat`` runs each chain segment under
   ``torch.utils.checkpoint`` (the backward recomputes it; the kernels are
-  deterministic, so the recompute equals the forward).
+  deterministic, so the recompute equals the forward). The background row
+  is built once a chain or tree, not once a segment.
 
 Both tree routes compact the lanes between levels the same way (the
 composed tree's rule: weakest throughput first, stable, one gather) and
@@ -54,7 +60,8 @@ Spans (``utils/profiling.span``, kept only while a recording runs):
 ``render`` > ``render.raygen``, ``chain`` or ``tree``, ``render.unswizzle``;
 ``chain`` > ``chain.aux``, ``chain.segment`` (attribute ``depth``; around
 the segment's launch, or the composed segment), ``chain.sync`` (the live
-test of a composed segment, the overflow check); ``tree`` > ``tree.aux``,
+test of a composed segment, the overflow check; neither runs, nor the
+span, where the caller passes its counter); ``tree`` > ``tree.aux``,
 ``tree.level`` (attribute ``level``) > ``tree.fork``, ``tree.fold``,
 ``tree.compact``, then ``tree.sync``. Counters: ``tree.lanes`` (lanes of a
 fork launch), ``tree.live`` (the lanes entering level 0, then
@@ -127,19 +134,21 @@ def check_supported(cfg: RenderConfig) -> None:
 
 
 def _local_radiance(scene: Scene, o, d, cfg: RenderConfig, hit: Hit,
-                    bvh=None, active: torch.Tensor | None = None,
+                    bg: torch.Tensor, bvh=None,
+                    active: torch.Tensor | None = None,
                     with_stats: bool = False,
                     overflow: torch.Tensor | None = None):
     """One segment's surface point, attributes and local shading.
 
-    Returns ``(contrib [N,3] (local radiance or background), p, n, mats,
-    hit_mask)``, paired with the live shadow-query count under
-    ``with_stats``. With ``cfg.diff.soft_hit_temp > 0`` a missing ray
-    adopts a proxy hit on its best near-miss sphere (first maximum of the
-    silhouette margin), shaded at the closest-approach point, and the
-    segment blends toward it with ``sigmoid(margin / temp)``; with
-    ``straight_through`` the forward value stays hard. Masked lanes carry
-    finite values. ``overflow`` goes to the shadow walks."""
+    Returns ``(contrib [N,3] (local radiance or background ``bg``, the
+    caller's ``mega.background_row``), p, n, mats, hit_mask)``, paired with
+    the live shadow-query count under ``with_stats``. With
+    ``cfg.diff.soft_hit_temp > 0`` a missing ray adopts a proxy hit on its
+    best near-miss sphere (first maximum of the silhouette margin), shaded
+    at the closest-approach point, and the segment blends toward it with
+    ``sigmoid(margin / temp)``; with ``straight_through`` the forward
+    value stays hard. Masked lanes carry finite values. ``overflow`` goes
+    to the shadow walks."""
     hit_mask = hit.is_hit
     soft_temp = cfg.diff.soft_hit_temp
     if soft_temp > 0.0:
@@ -204,8 +213,6 @@ def _local_radiance(scene: Scene, o, d, cfg: RenderConfig, hit: Hit,
         straight_through=cfg.diff.straight_through, bvh=bvh,
         kernel=cfg.kernel, mask=shadow_mask, light_cull=cfg.light_cull,
         with_stats=True, overflow=overflow)
-    bg = torch.tensor(cfg.background, dtype=torch.float32,
-                      device=o.device) * 255.0
     local_safe = torch.where(shade_mask[:, None], local, bg[None, :])
     contrib = bg[None, :] + w[:, None] * (local_safe - bg[None, :])
     out = (contrib, p, n, mats, hit_mask)
@@ -255,7 +262,7 @@ def _trace_chain_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
 
 
 def _segment(scene: Scene, cfg: RenderConfig, bvh, depth: int, o, d, thr,
-             active, acc, overflow):
+             active, acc, overflow, bg):
     """One composed bounce segment (the twin's ``live_seg``): returns the
     next ``(o, d, thr, active, acc)`` and the live shadow-query count.
     Its walks add dropped stack pushes to ``overflow``."""
@@ -263,7 +270,7 @@ def _segment(scene: Scene, cfg: RenderConfig, bvh, depth: int, o, d, thr,
     hit = nearest_hit(scene, o, d, bvh=bvh, kernel=cfg.kernel, t_max=tmax,
                       overflow=overflow)
     (contrib, p, n, mats, hit_mask), n_shadow = _local_radiance(
-        scene, o, d, cfg, hit, bvh=bvh, active=active, with_stats=True,
+        scene, o, d, cfg, hit, bg, bvh=bvh, active=active, with_stats=True,
         overflow=overflow)
     acc = acc + thr * contrib * active[:, None]
     cont = (active & hit_mask & mats.is_mirror
@@ -275,7 +282,9 @@ def _segment(scene: Scene, cfg: RenderConfig, bvh, depth: int, o, d, thr,
 
 
 def _trace_chain(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-                 cfg: RenderConfig, bvh=None, with_stats: bool = False):
+                 cfg: RenderConfig, bvh=None, with_stats: bool = False,
+                 overflow: torch.Tensor | None = None,
+                 bg: torch.Tensor | None = None):
     """Mirror-only linear bounce chain — the exact reference semantics.
 
     Segment s contributes ``prod(mirror_0..s-1) * local_s``; the chain
@@ -285,38 +294,52 @@ def _trace_chain(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     ``with_stats`` also returns ``(live [B], shadow_live [B])`` int32
     lane counts per segment. The walks of the whole chain share one
     stack-overflow counter, checked once at the end (a raise if any push
-    was dropped)."""
+    was dropped). ``overflow``: the caller's int32 [1] counter instead,
+    which the caller reads; the composed chain then runs every segment
+    (no live test, no host sync: a dead segment adds exactly 0) and
+    checkpoints without stashing the RNG state (a segment draws no random
+    numbers), so a CUDA graph can hold it (``fit.GraphedComposedStep``,
+    which also passes ``bg``, ``mega.background_row`` built outside the
+    graph; else it is built here, a copy from the host)."""
     if not with_stats and uses_fused(cfg, bvh):
-        return _trace_chain_mega(scene, o, d, cfg, bvh)
+        return _trace_chain_mega(scene, o, d, cfg, bvh, overflow=overflow,
+                                 bg=bg)
     with span("chain"):
         n = o.shape[0]
         f32 = dict(dtype=torch.float32, device=o.device)
         acc = torch.zeros((n, 3), **f32)
         thr = torch.ones((n, 3), **f32)
         active = torch.ones((n,), dtype=torch.bool, device=o.device)
+        if bg is None:
+            bg = mega.background_row(cfg.background, o.device)
         live, shadow = [], []
         zero = torch.zeros((), dtype=torch.int32, device=o.device)
-        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+        every = overflow is not None   # the caller's counter: no sync here
+        if overflow is None:
+            overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
         for depth in range(cfg.max_bounces + 1):
             n_live = active.sum(dtype=torch.int32)
-            with span("chain.sync"):
-                dead = not bool(n_live > 0)  # the twin's dead_seg; a sync
-            if dead:
-                live.append(zero)
-                shadow.append(zero)
-                continue
-            args = (scene, cfg, bvh, depth, o, d, thr, active, acc, overflow)
+            if not every:
+                with span("chain.sync"):
+                    dead = not bool(n_live > 0)  # the twin's dead_seg; a sync
+                if dead:
+                    live.append(zero)
+                    shadow.append(zero)
+                    continue
+            args = (scene, cfg, bvh, depth, o, d, thr, active, acc, overflow,
+                    bg)
             with span("chain.segment", depth=depth):
                 if cfg.remat:
                     o, d, thr, active, acc, n_shadow = checkpoint(
-                        _segment, *args, use_reentrant=False)
+                        _segment, *args, use_reentrant=False,
+                        preserve_rng_state=not every)
                 else:
                     o, d, thr, active, acc, n_shadow = _segment(*args)
                 count("chain.live", n_live)
                 count("chain.shadow", n_shadow)
             live.append(n_live)
             shadow.append(n_shadow)
-        if o.device.type == "cuda":
+        if not every and o.device.type == "cuda":
             with span("chain.sync"):
                 check_overflow(overflow, "traversal")
     if with_stats:
@@ -352,7 +375,9 @@ def _compact(cap: int, live, o, d, weight, parent, extra=None):
 
 
 def _trace_tree(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-                cfg: RenderConfig, bvh=None, with_stats: bool = False):
+                cfg: RenderConfig, bvh=None, with_stats: bool = False,
+                overflow: torch.Tensor | None = None,
+                bg: torch.Tensor | None = None):
     """Whitted tree with mirror and dielectric branches as a
     level-synchronous wavefront (the twin's ``_trace_tree``).
 
@@ -367,7 +392,8 @@ def _trace_tree(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     ray. Differentiable. Returns radiance [N,3] (0-255 scale), and with
     ``with_stats`` the count of live lanes the cap dropped (a device
     tensor: no host sync per level). The walks share one stack-overflow
-    counter, checked once at the end."""
+    counter, checked once at the end, unless the caller gives its own
+    ``overflow`` counter to read; ``bg``: as in ``_trace_chain``."""
     n = o.shape[0]
     dev = o.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -377,15 +403,20 @@ def _trace_tree(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     weight = torch.ones((n, 3), **f32)
     live = torch.ones((n,), dtype=torch.bool, device=dev)
     n_truncated = torch.zeros((), dtype=torch.int64, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    check = overflow is None and dev.type == "cuda"
+    if overflow is None:
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     cap = (cfg.tree_cap or 0) * n
     up = torch.tensor([0.0, 0.0, 1.0], **f32)
+    if bg is None:
+        bg = mega.background_row(cfg.background, dev)
     for level in range(cfg.max_bounces + 1):
         tmax = torch.where(live, 3.0e38, -1.0)
         hit = nearest_hit(scene, o, d, bvh=bvh, kernel=cfg.kernel,
                           t_max=tmax, overflow=overflow)
         contrib, p, nrm, mats, hit_mask = _local_radiance(
-            scene, o, d, cfg, hit, bvh=bvh, active=live, overflow=overflow)
+            scene, o, d, cfg, hit, bg, bvh=bvh, active=live,
+            overflow=overflow)
         acc = acc.index_add(0, parent, weight * contrib * live[:, None])
         if level == cfg.max_bounces:
             break
@@ -426,7 +457,7 @@ def _trace_tree(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             live, o, d, weight, parent, _, dropped = _compact(
                 cap, live, o, d, weight, parent)
             n_truncated = n_truncated + dropped
-    if dev.type == "cuda":
+    if check:
         check_overflow(overflow, "traversal")
     return (acc, n_truncated) if with_stats else acc
 
@@ -502,22 +533,30 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     return (acc, n_truncated) if with_stats else acc
 
 
-def _trace_tree_any(scene, o, d, cfg, bvh, with_stats=False):
+def _trace_tree_any(scene, o, d, cfg, bvh, with_stats=False, overflow=None,
+                    bg=None):
     """The tree on its route: fused when ``uses_fused``, else composed."""
     if uses_fused(cfg, bvh):
-        return _trace_tree_mega(scene, o, d, cfg, bvh, with_stats)
-    return _trace_tree(scene, o, d, cfg, bvh, with_stats)
+        return _trace_tree_mega(scene, o, d, cfg, bvh, with_stats, overflow,
+                                bg)
+    return _trace_tree(scene, o, d, cfg, bvh, with_stats, overflow, bg)
 
 
 def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-                   cfg: RenderConfig, bvh=None) -> torch.Tensor:
+                   cfg: RenderConfig, bvh=None,
+                   overflow: torch.Tensor | None = None,
+                   bg: torch.Tensor | None = None) -> torch.Tensor:
     """Radiance [N,3] (0-255 scale) for arbitrary ray batches; ``bvh=None``
-    intersects by brute force."""
+    intersects by brute force. ``overflow``: the caller's stack-overflow
+    counter, which it reads itself, and ``bg``: the background row built
+    once by the caller (``_trace_chain``: the composed chain then runs
+    every segment, with no host sync and no copy from the host)."""
     cfg = resolve_mode(scene, cfg)
     check_supported(cfg)
     if cfg.mode == "tree":
-        return _trace_tree_any(scene, o, d, cfg, bvh)
-    return _trace_chain(scene, o, d, cfg, bvh=bvh)
+        return _trace_tree_any(scene, o, d, cfg, bvh, overflow=overflow,
+                               bg=bg)
+    return _trace_chain(scene, o, d, cfg, bvh=bvh, overflow=overflow, bg=bg)
 
 
 def trace_radiance_stats(scene: Scene, o: torch.Tensor, d: torch.Tensor,
