@@ -236,9 +236,11 @@ From the root of a checkout, on a machine with a CUDA card, it
     gap of two eager frames of each camera (``index_add``'s atomics; at
     least ``GRAPH_ULPS`` ulps of the frame's largest value); one capture
     and a replay for every later graphed frame (``render.graph.captures``
-    / ``.replays``); the graphs a key's capture is cut into (the chain's
-    one per segment and one before, between and after them; the tree's
-    one); the launches of a replayed frame in ``mega.launches``
+    / ``.replays``); the whole frame one graph, and the capture a
+    recorded frame makes cut into a graph per stage and one before,
+    between and after them (the chain's stages its segments, the tree's
+    its fork launches and compactions); the launches of a replayed frame
+    in ``mega.launches``
     (one per segment or level); each side's median frame time (CUDA
     events around the call) and host time after the first round, the
     capture's host time and the key's (``frame_key``, a mean of 2,000)
@@ -1096,14 +1098,24 @@ def frame_graph_phase(dev, card, failures):
         captures = tally("render.graph.captures")
         replays = tally("render.graph.replays")
         n_graphed = len(ms["graph"])
-        pieces = [len(g.graph.pieces)
+        pieces = [len(g.graphs[False].pieces)
                   for g in rd.FRAME_GRAPHS.graphs.values()]
-        want_pieces = 2 * (cfg.max_bounces + 1) + 1 if chain else 1
+        stages = cfg.max_bounces + 1     # a segment's or a fork's graph
+        lanes = 1                         # the tree's, in pixels
+        for _ in range(0 if chain else cfg.max_bounces):
+            lanes *= 2
+            if cfg.tree_cap and lanes > cfg.tree_cap:
+                lanes, stages = cfg.tree_cap, stages + 1  # a compaction's
+        want_pieces = 2 * stages + 1
         for k in mega.launches:
             mega.launches[k] = 0
         rd.render_frame(*args(cams[0]))
         torch.cuda.synchronize()
         launched = sum(mega.launches.values())
+        with pf.recording():                # captures the cut frame
+            rd.render_frame(*args(cams[0]))
+        cut = [len(g.graphs[True].pieces)
+               for g in rd.FRAME_GRAPHS.graphs.values()]
         n_key = 2000
         k0 = time.perf_counter()
         for _ in range(n_key):
@@ -1116,7 +1128,7 @@ def frame_graph_phase(dev, card, failures):
                    eager_host_ms=med_host["eager"],
                    graph_host_ms=med_host["graph"],
                    capture_host_ms=host["graph"][1], key_us=key_us,
-                   captures=captures, pieces=pieces,
+                   captures=captures, pieces=pieces, cut_pieces=cut,
                    replays=replays, frames=n_graphed,
                    launches_replayed=launched,
                    differ=differ, worst_gap=worst,
@@ -1130,7 +1142,7 @@ def frame_graph_phase(dev, card, failures):
             f"{host['graph'][1]:.1f} ms host; the key {key_us:.1f} us "
             f"host; {captures} capture, "
             f"{replays} replays over {n_graphed} graphed frames; "
-            f"{pieces} graphs a key; "
+            f"{pieces} graphs a key, {cut} recorded; "
             f"{launched} segment launches a replayed frame; "
             f"{differ} frames not bit for bit, worst gap {worst:.3g} "
             f"(eager vs eager {max(eager_gap):.3g}); "
@@ -1138,9 +1150,9 @@ def frame_graph_phase(dev, card, failures):
         if captures != 1 or replays != n_graphed - 1:
             failures.append(f"frame graph {name}: {captures} captures and "
                             f"{replays} replays over {n_graphed} frames")
-        if pieces != [want_pieces]:
-            failures.append(f"frame graph {name}: graphs {pieces} a key, "
-                            f"not [{want_pieces}]")
+        if pieces != [1] or cut != [want_pieces]:
+            failures.append(f"frame graph {name}: graphs {pieces} a key and "
+                            f"{cut} recorded, not [1] and [{want_pieces}]")
         if launched != cfg.max_bounces + 1:
             failures.append(f"frame graph {name}: {launched} segment "
                             f"launches counted for a replayed frame")

@@ -16,7 +16,8 @@ On the CPU (tier 1):
 * what the graph holds (``render._frame_fused``), run eagerly on the CPU,
   is the eager frame bit for bit, on the chain and on the tree, and makes
   the same counts; it runs each chain segment, and nothing else, in its
-  ``stage``; ``FrameGraphs.eager`` is it and the overflow read;
+  ``stage``, and each tree level's fork launch and compaction in theirs;
+  ``FrameGraphs.eager`` is it and the overflow read;
 * ``profiling.collect_counts`` / ``recount``.
 
 On the card (``gpu``; ``mesh10k`` at 64x64 and ``cornell_box`` at
@@ -31,8 +32,10 @@ On the card (``gpu``; ``mesh10k`` at 64x64 and ``cornell_box`` at
 * ``mega.launches`` counts the 5 segment launches of a replayed frame;
 * one capture per key, a replay per frame from the capture on, and the
   replayed tree's ``tree.lanes`` / ``tree.live`` counts;
-* a chain capture is cut into 11 graphs, and a replayed chain frame opens
-  a ``chain.segment`` span for each segment's graph;
+* a key's frames replay one whole graph while nothing records; a
+  recorded frame captures the frame cut into 11 graphs, into the same
+  pool, and its replay opens a ``chain.segment`` span for each segment's
+  graph;
 * a replaced scene captures again;
 * a captured mk4 walk's launch is taken back at the capture and added to
   ``traverse_mk3.launches`` at each replay (``graphs.TABLES``).
@@ -43,6 +46,7 @@ PyTorch is installed (``pytest --noconftest -m gpu``).
 
 import contextlib
 import dataclasses
+import weakref
 from collections import Counter
 
 import numpy as np
@@ -240,7 +244,9 @@ def test_captured_frame_equals_eager_on_cpu(name):
 @pytest.mark.parametrize("name", ["mesh", "cornell"])
 def test_stage_holds_each_chain_segment(name, monkeypatch):
     """``_frame_fused`` runs each chain segment launch, and nothing else,
-    inside its ``stage`` (where a capture cuts its graphs); the tree none.
+    inside its ``stage`` (where a capture cuts its graphs); the tree each
+    level's fork launch in a ``tree.fork`` stage and each compaction in a
+    ``tree.compact`` one (cap 1: every level but the last compacts).
     ``FrameGraphs.eager`` is that frame with ``span`` and the overflow
     read."""
     scene, cam, cfg, bvh = (_mesh("cpu", 8) if name == "mesh"
@@ -269,7 +275,11 @@ def test_stage_holds_each_chain_segment(name, monkeypatch):
                           for k in range(n)]
         assert launched == [True] * n
     else:
-        assert staged == [] and launched == [False] * n
+        assert cfg.tree_cap == 1
+        assert staged == [x for k in range(n) for x in (
+            ("tree.fork", {"level": k}, 1),
+            ("tree.compact", {"level": k}, 0))][:-1]
+        assert launched == [True] * n
     monkeypatch.undo()
     with pf.recording() as rec:
         got = fg.FrameGraphs(rd._frame_fused).eager(scene, cam, cfg, bvh)
@@ -284,6 +294,18 @@ def test_build_aux_takes_its_background_row(cpu_mesh):
                        mega.build_aux(scene, cfg.background))
 
 
+def test_a_dropped_frame_graph_is_freed_at_once(cpu_mesh):
+    """A key's ``FrameGraph`` holds no reference cycle, so dropping it
+    frees it (and, on the card, its CUDA graphs) at once: a cycle would
+    leave them to a garbage collection that can fall inside another key's
+    capture, where freeing a CUDA graph breaks that capture."""
+    scene, cam, cfg, bvh = cpu_mesh
+    graph = fg.FrameGraph(rd._frame_fused, scene, cam, cfg, bvh)
+    ref = weakref.ref(graph)
+    del graph
+    assert ref() is None
+
+
 def test_recount_copies_device_counts():
     v = torch.tensor(7)
     with pf.collect_counts() as got:
@@ -296,6 +318,10 @@ def test_recount_copies_device_counts():
         v.fill_(9)                        # the next replay's write
         pf.recount(got)
     assert _counts(rec) == [("a", 3), ("b", 7), ("a", 3), ("b", 9)]
+    with pf.collect_counts() as again:    # diverted, not recording
+        pf.recount(got)
+    v.fill_(11)
+    assert [(n, int(x)) for n, x in again] == [("a", 3), ("b", 9)]
 
 
 # -- on the card --------------------------------------------------------------
@@ -465,25 +491,47 @@ def test_replaced_scene_captures_again(cuda, card_mesh):
 
 @pytest.mark.gpu
 def test_replayed_chain_keeps_its_segment_spans(cuda, card_mesh):
-    """A chain capture is cut into a graph before, after and between the
-    segments and one for each segment; a replay opens a ``chain.segment``
-    span (its ``depth``) around each segment's graph, inside
-    ``render.graph``, so the trace names kernel #1's launches by it."""
+    """A key's frames replayed while nothing records run one whole graph.
+    The first recorded frame captures the frame cut into a graph before,
+    after and between the segments and one for each segment, in the
+    whole graph's pool; a recorded replay opens a ``chain.segment`` span
+    (its ``depth``) around each segment's graph, inside ``render.graph``,
+    so the trace names kernel #1's launches by it. All are the eager
+    frame bit for bit. A dropped key's graphs are freed at once (no
+    reference cycle), so no later garbage collection frees a CUDA graph
+    inside another key's capture."""
     scene, cam, cfg, bvh = card_mesh
     n = cfg.max_bounces + 1
     _frames(card_mesh, [0, 0])
     (graph,) = rd.FRAME_GRAPHS.graphs.values()
-    assert [p[0] for p in graph.graph.pieces] == [None] + [
-        x for k in range(n) for x in (("chain.segment", {"depth": k}),
-                                      None)]
+    assert list(graph.graphs) == [False]
+    assert [p[0] for p in graph.graphs[False].pieces] == [None]
     with pf.recording() as rec:
         got = rd.render_frame(scene, _orbit(cam, 1), cfg, bvh)
     assert torch.equal(got, rd._frame_eager(scene, _orbit(cam, 1), cfg,
                                             bvh))
+    assert _sum(rec, "render.graph.captures") == 1
+    cut = graph.graphs[True]
+    assert [p[0] for p in cut.pieces] == [None] + [
+        x for k in range(n) for x in (("chain.segment", {"depth": k}),
+                                      None)]
+    assert cut.pool == graph.graphs[False].pool
+    whole = rd.render_frame(scene, _orbit(cam, 2), cfg, bvh)
+    assert torch.equal(whole, rd._frame_eager(scene, _orbit(cam, 2), cfg,
+                                              bvh))
+    with pf.recording() as rec:
+        got = rd.render_frame(scene, _orbit(cam, 3), cfg, bvh)
+    assert torch.equal(got, rd._frame_eager(scene, _orbit(cam, 3), cfg,
+                                            bvh))
+    assert _sum(rec, "render.graph.captures") == 0
     by_id = {s["id"]: s for s in rec.spans}
     segs = [s for s in rec.spans if s["name"] == "chain.segment"]
     assert [s["attrs"]["depth"] for s in segs] == list(range(n))
     assert {by_id[s["parent"]]["name"] for s in segs} == {"render.graph"}
+    ref = weakref.ref(graph)
+    del graph, cut
+    rd.FRAME_GRAPHS.clear()
+    assert ref() is None
 
 
 @pytest.mark.gpu

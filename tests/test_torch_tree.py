@@ -18,7 +18,10 @@
   bounds (99th percentile < 0.02 and max < 1.0 of the per-pixel max error
   on the 0-255 scale; depth 0 at rtol 1e-3, atol 5e-3), and against the
   twin's fused tree where the twin's composed tree truncated nothing
-  (ROADMAP Queue C #1); a mesh + glass scene on both routes.
+  (ROADMAP Queue C #1); a mesh + glass scene on both routes; a glass
+  mesh (refracted lanes walking the BVH from inside it), the port's
+  composed tree and its fused tree on both BVH4 leaf tests against the
+  JAX composed tree, live.
 * The truncation count of a scene ``tree_cap`` is too small for: the
   composed count equals JAX's ``trace_radiance_tree_stats``, the fused
   route counts too; a mesh scene on the fused tree without a BVH raises
@@ -289,6 +292,48 @@ def test_mesh_tree_fused_matches_composed(layout):
     fused = trace_radiance(scene, o, d, cfg.with_(kernel="mega"), bvh=bvh)
     _assert_tree_bounds(fused.numpy(), ref.numpy())
     assert ref.std() > 1.0
+
+
+@pytest.fixture(scope="module")
+def glass_mesh_jax():
+    """The glass-icosphere scene (``small_scene(glass_mesh=True)``) at
+    16x16 through ``CAMERA``: its rays and the JAX composed tree's
+    radiance and truncation count (``trace_radiance_tree_stats`` on the
+    plain BVH walk), at the port's default cap and depth 4."""
+    import jax
+    from unity_raytracer_tpu.models import meshgen, scene as j_scene
+    from unity_raytracer_tpu.models.camera import Camera as JCamera
+    from unity_raytracer_tpu.models.camera import (
+        generate_rays_blocks as j_rays)
+    from unity_raytracer_tpu.ops import bvh as j_bvh
+    from unity_raytracer_tpu.ops.render import (
+        trace_radiance_tree_stats as j_tree_stats)
+
+    cfg = MESH_CFG.with_(mode="tree", max_bounces=4)
+    js = small_scene(j_scene, meshgen, glass_mesh=True)
+    o, d = j_rays(JCamera.make(width=16, height=16, **CAMERA),
+                  cfg.block_size)
+    rad, trunc = j_tree_stats(js, o, d, cfg, bvh=j_bvh.prepare_bvh(js, cfg))
+    return cfg, np.array(o), np.array(d), jax.device_get((rad, trunc))
+
+
+@pytest.mark.parametrize("kernel", ["xla", "bw4", "mt4"])
+def test_glass_mesh_tree_matches_jax(glass_mesh_jax, kernel):
+    """A dielectric mesh, whose refracted lanes walk the BVH from inside
+    it, on the JAX package's rays: the port's composed tree against the
+    JAX composed tree at 5e-4, and the fused fork kernel (each BVH4 leaf
+    test) at tests/test_tree_mega.py's bounds."""
+    cfg, o, d, (want, trunc) = glass_mesh_jax
+    assert int(trunc) == 0 and want.std() > 1.0
+    scene = small_scene(t_scene, t_meshgen, glass_mesh=True, device="cpu")
+    c = (cfg.with_(kernel="xla") if kernel == "xla"
+         else cfg.with_(kernel="mega", **LAYOUTS[kernel]))
+    got = trace_radiance(scene, torch.from_numpy(o), torch.from_numpy(d), c,
+                         bvh=t_bvh.prepare_bvh(scene, c)).numpy()
+    if kernel == "xla":
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        _assert_tree_bounds(got, want)
 
 
 def test_truncation_is_counted(gold):

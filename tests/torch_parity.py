@@ -12,26 +12,31 @@ import pytest
 import torch
 
 
-def small_scene(mod_scene, mod_meshgen, glass=False, **build_kw):
+def small_scene(mod_scene, mod_meshgen, glass=False, glass_mesh=False,
+                **build_kw):
     """tests/test_mega.py's scene: two-light icosphere mesh, mirror
     sphere, two ground triangles — every feature of the fused segment
     (BVH mesh, sphere, loose tris, shadows, mirror bounce, misses).
     ``glass`` adds cornell_box's glass sphere (ior 1.5, transparency
-    0.95): a mesh scene for the dielectric tree."""
+    0.95): a mesh scene for the dielectric tree. ``glass_mesh`` gives the
+    icosphere that glass instead (refracted lanes walk the BVH from inside
+    the mesh)."""
     b = mod_scene.SceneBuilder()
     mm = mod_scene.make_material
+    glass_mat = lambda: mm(
+        specular=(0.6, 0.6, 0.6), phong=300.0,
+        transparency=(0.95, 0.95, 0.95), ior=1.5, is_dielectric=True)
     v, f = mod_meshgen.icosphere(subdivisions=2, radius=2.0,
                                  center=(0, 2, 8))
-    b.add_mesh(v, f, mm(diffuse=(0.7, 0.5, 0.2), ambient=(0.7, 0.5, 0.2),
-                        specular=(0.6, 0.6, 0.6), phong=40.0))
+    b.add_mesh(v, f, glass_mat() if glass_mesh else mm(
+        diffuse=(0.7, 0.5, 0.2), ambient=(0.7, 0.5, 0.2),
+        specular=(0.6, 0.6, 0.6), phong=40.0))
     b.add_sphere((-3, 1.5, 6), 1.5, mm(
         diffuse=(0.1, 0.1, 0.1), ambient=(0.1, 0.1, 0.1),
         specular=(1, 1, 1), phong=200.0, mirror=(0.9, 0.9, 0.9),
         is_mirror=True))
     if glass:
-        b.add_sphere((4.5, 3.0, 9.0), 3.0, mm(
-            specular=(0.6, 0.6, 0.6), phong=300.0,
-            transparency=(0.95, 0.95, 0.95), ior=1.5, is_dielectric=True))
+        b.add_sphere((4.5, 3.0, 9.0), 3.0, glass_mat())
     g = 30.0
     gmat = mm(diffuse=(0.5, 0.5, 0.55), ambient=(0.5, 0.5, 0.55),
               phong=1.0)

@@ -17,15 +17,17 @@ and the capture then records that code without running it.
   ``torch.cuda.graph`` context (a device synchronize, ``gc.collect`` and
   ``empty_cache``: ~0.9 s a ``fit.fit`` call in the replay fit);
 * cut at each ``stage(name, **attrs)`` context that ``fn`` opens, into a
-  sequence of graphs that share one memory pool;
+  sequence of graphs that share one memory pool (with ``like``, another
+  capture's);
 * ``replay()`` runs the pieces in order, each stage's inside a span of its
   name (a profiler trace names a graph's kernels by the span their launch
-  was made in, so kernel #1's launches keep ``chain.segment``), counts
+  was made in, so kernel #1's launches keep ``chain.segment`` or
+  ``tree.fork``, and the tree's compactions ``tree.compact``), counts
   ``<name>.graph.replays``, adds to every kernel launch table (``TABLES``)
   what the captured code added to it (the capture launched nothing, so it
-  takes those additions back), and, while a recording runs, counts again
-  what the captured code counted (``profiling.collect_counts`` /
-  ``recount``);
+  takes those additions back), and, while a recording runs or a
+  ``profiling.collect_counts`` block diverts the counts, counts again
+  what the captured code counted (``collect_counts`` / ``recount``);
 * the capture counts ``<name>.graph.captures``; ``out`` is what ``fn``
   returned: tensors of the pool that every replay writes again.
 
@@ -56,22 +58,35 @@ folds sum in an order neither route fixes.
   way) or a camera tensor is not float32. The CPU never comes here. The
   eager frame is what the capture holds (``frame``), then the read of its
   stack-overflow counter.
-* **The pieces**: the chain's capture is cut at each segment (the
-  ``stage`` that ``frame`` runs each segment launch in; spans
-  ``chain.segment``) into 11 graphs; the tree's is one.
+* **Two captures of a key** (``FrameGraph``), each made at the first
+  replay that needs it: a frame replayed while nothing records runs the
+  whole frame as one graph; one replayed while a recording runs, the
+  frame cut at each ``stage`` that ``frame`` opens, each stage's graph
+  replayed inside a span of its name. The chain's stages are its segment
+  launches (``chain.segment``, with their ``depth``: 11 graphs); the
+  tree's, each level's fork launch (``tree.fork``) and compaction
+  (``tree.compact``), with their ``level``: 19 graphs at
+  ``cornell_box``'s cap 1 and depth 4, 15 at the default cap 4, where
+  levels 0 and 1 hand on their children uncompacted. The cut capture
+  runs the whole one's kernels in its order, so the image is its own.
+  Its launch a piece is host time that the whole frame does not pay,
+  and short pieces leave the card waiting for it (19 graphs cost
+  ``cornell_box.tree`` ~6% of its rays/s on an H100, PERF.md §6), so
+  only a recording, which reads the stages, pays it.
 * **Each call** returns a new image (a clone of the graphs' output) and
   reads the stack-overflow counter the graphs zero and the kernels add to
   (one sync a frame, as the eager frame's; it raises as ``check_overflow``
   does). The capture frame's image comes from the first replay.
-* **Spans**: ``render.capture`` (the capture), ``render.graph`` (the
+* **Spans**: ``render.capture`` (a capture), ``render.graph`` (the
   camera copy and the replay), ``render.sync`` (the overflow read).
   Counters: ``render.graph.captures``, ``render.graph.replays`` (each
   replay, the capture frame's included), and the recounted ``tree.lanes``
-  / ``tree.live`` of a replayed tree.
-* **Memory**: each key's graphs keep a frame's intermediates in their
-  private pool (~420 MB at 1920x1080 on ``mesh100k``); ``FrameGraphs``
-  keeps the graphs of the ``KEEP`` most recently used keys (``clear``
-  frees them) and remembers ``SEEN`` keys seen once.
+  / ``tree.live`` / ``tree.dropped`` of a replayed tree.
+* **Memory**: a key's captures keep a frame's intermediates in one
+  private pool (~420 MB at 1920x1080 on ``mesh100k``), the second reusing
+  the blocks the first freed (same side stream); ``FrameGraphs`` keeps
+  the graphs of the ``KEEP`` most recently used keys (``clear`` frees
+  them) and remembers ``SEEN`` keys seen once.
 """
 
 from __future__ import annotations
@@ -104,13 +119,19 @@ _META = operator.attrgetter("shape", "dtype", "device")
 class CapturedGraph:
     """``fn(stage)`` captured as CUDA graphs on ``device`` and replayed by
     ``replay()`` (module docstring). ``warm``: run ``fn(span)`` eagerly on
-    the capture's side stream first, its work and counts real."""
+    the capture's side stream first, its work and counts real. ``like``:
+    a graph never replayed while this one runs, whose side stream and
+    memory pool this one takes (the allocator reuses a pool's freed
+    blocks only on the stream that freed them)."""
 
-    def __init__(self, name: str, fn, device, warm: bool = False):
+    def __init__(self, name: str, fn, device, warm: bool = False,
+                 like: CapturedGraph | None = None):
         self.name = name
         self.pieces = []      # (the stage's (name, attrs) or None, graph)
+        self.pool = None if like is None else like.pool
         main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device=device)
+        self.side = side = (torch.cuda.Stream(device=device) if like is None
+                            else like.side)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             if warm:
@@ -135,12 +156,13 @@ class CapturedGraph:
 
     def _begin(self) -> None:
         self._open = torch.cuda.CUDAGraph()
-        self._open.capture_begin(
-            pool=self.pieces[0][1].pool() if self.pieces else None)
+        self._open.capture_begin(pool=self.pool)
 
     def _end(self, stage) -> None:
         self._open.capture_end()
         self.pieces.append((stage, self._open))
+        if self.pool is None:
+            self.pool = self._open.pool()
 
     @contextlib.contextmanager
     def _stage(self, name: str, **attrs):
@@ -185,9 +207,11 @@ def _camera_flat(cam) -> list:
 
 
 class FrameGraph:
-    """One captured frame: ``frame(scene, cam, cfg, bvh, bg, stage) ->
-    (image, overflow)`` recorded once on a camera made of views into a
-    static buffer, replayed by ``__call__(cam)``."""
+    """One key's frame: ``frame(scene, cam, cfg, bvh, bg, stage) ->
+    (image, overflow)`` on a camera made of views into a static buffer,
+    replayed by ``__call__(cam)`` from its whole capture, or, while a
+    recording runs, from its capture cut at each stage; each captured at
+    its first replay, into one memory pool (module docstring)."""
 
     def __init__(self, frame, scene, cam, cfg, bvh):
         self.scene, self.bvh = scene, bvh     # read by address
@@ -199,20 +223,36 @@ class FrameGraph:
             views[f] = self.cam_buf[at:at + t.numel()].view(t.shape)
             at += t.numel()
         cam_in = dataclasses.replace(cam, **views)
-        self.bg = mega.background_row(cfg.background, dev)
+        self.bg = bg = mega.background_row(cfg.background, dev)
 
+        # no reference back to self: a dropped key's graphs must go at
+        # once, not in a later garbage collection that may fall inside
+        # another key's capture (a CUDA graph freed then breaks it)
         def held(stage):
             with torch.no_grad():
-                return frame(scene, cam_in, cfg, bvh, self.bg, stage)
+                return frame(scene, cam_in, cfg, bvh, bg, stage)
 
-        self.graph = CapturedGraph("render", held, dev)
+        self.held = held
+        self.graphs = {}      # cut at each stage? -> CapturedGraph
+
+    def graph(self, cut: bool) -> CapturedGraph:
+        """The capture cut at each stage (``cut``) or whole, made now if
+        it does not exist yet."""
+        if cut not in self.graphs:
+            fn = self.held if cut else (lambda stage: self.held(span))
+            like = next(iter(self.graphs.values()), None)
+            with span("render.capture"):
+                self.graphs[cut] = CapturedGraph("render", fn, self.device,
+                                                 like=like)
+        return self.graphs[cut]
 
     def __call__(self, cam) -> torch.Tensor:
+        graph = self.graph(profiling.is_recording())
         with span("render.graph"):
             with torch.cuda.device(self.device):
                 torch.cat(_camera_flat(cam), out=self.cam_buf)
-                self.graph.replay()
-        out, overflow = self.graph.out
+                graph.replay()
+        out, overflow = graph.out
         img = out.clone()
         with span("render.sync"):
             check_overflow(overflow)
@@ -273,9 +313,7 @@ class FrameGraphs:
             del self.seen[key]
             while len(self.graphs) >= KEEP:   # free a pool first
                 self.graphs.popitem(last=False)
-            with span("render.capture"):
-                self.graphs[key] = FrameGraph(self.frame, scene, cam, cfg,
-                                              bvh)
+            self.graphs[key] = FrameGraph(self.frame, scene, cam, cfg, bvh)
         else:
             self.graphs.move_to_end(key)
         return self.graphs[key](cam)

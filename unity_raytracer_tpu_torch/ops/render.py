@@ -62,19 +62,29 @@ Spans (``utils/profiling.span``, kept only while a recording runs):
 the segment's launch, or the composed segment), ``chain.sync`` (the live
 test of a composed segment, the overflow check; neither runs, nor the
 span, where the caller passes its counter); ``tree`` > ``tree.aux``,
-``tree.level`` (attribute ``level``) > ``tree.fork``, ``tree.fold``,
-``tree.compact``, then ``tree.sync``. Counters: ``tree.lanes`` (lanes of a
-fork launch), ``tree.live`` (the lanes entering level 0, then
-``_compact``'s live lanes: the next launch's live lanes up to the cap),
-and on the composed chain ``chain.live`` and ``chain.shadow`` (live
-nearest and shadow lanes of a segment), all counts the code already made.
+``tree.level`` (attribute ``level``) > ``tree.fork`` (attribute
+``level``; around the fork launch), ``tree.fold``, ``tree.compact``
+(attribute ``level`` on the fused tree), then ``tree.sync``. Counters:
+``tree.lanes`` (lanes of a fork launch), ``tree.live`` (the live lanes
+handed to each fork launch: every primary lane at level 0, then
+``_compact``'s live lanes (the next launch's live lanes up to the cap)
+or, where the level was not compacted, the children with ``tmax >= 0``),
+``tree.dropped`` (``_compact``'s live lanes past the cap: 0 unless the cap
+cut the tree), and on the composed chain ``chain.live`` and
+``chain.shadow`` (live nearest and shadow lanes of a segment). All are
+device tensors or ints the code makes anyway, but the live children of an
+uncompacted fused level (one sum over its lanes), which only a recorded
+frame (or capture) computes.
 
 On the card ``render_frame`` runs the fused route's frames through
 ``ops/graphs``: a key's first frame eagerly, its second captured as
 CUDA graphs (span ``render.capture``, holding the spans above), every
-later one a replay of them (``render.graph``, holding a
-``chain.segment`` span around each segment's graph; then
-``render.sync``: the overflow read; the eager frame reads it there too).
+later one a replay of them (``render.graph``; while a recording runs,
+the replay of the capture cut at each stage, which holds a
+``chain.segment`` span around each segment's graph, or a ``tree.fork``
+span around each fork launch's graph and a ``tree.compact`` span around
+each compaction's; then ``render.sync``: the overflow read; the eager
+frame reads it there too).
 """
 
 from __future__ import annotations
@@ -95,7 +105,7 @@ from unity_raytracer_tpu_torch.ops.intersect import (
 from unity_raytracer_tpu_torch.ops.kernels import mega
 from unity_raytracer_tpu_torch.ops.kernels.traverse_mk3 import check_overflow
 from unity_raytracer_tpu_torch.utils.config import RenderConfig
-from unity_raytracer_tpu_torch.utils.profiling import count, span
+from unity_raytracer_tpu_torch.utils.profiling import count, is_recording, span
 from unity_raytracer_tpu_torch.utils.swizzle import unswizzle_image
 
 SHADOW_EPS = sh.SHADOW_EPS
@@ -362,6 +372,7 @@ def _compact(cap: int, live, o, d, weight, parent, extra=None):
     n_live = live.sum()
     count("tree.live", n_live)
     dropped = torch.clamp_min(n_live - cap, 0)
+    count("tree.dropped", dropped)
     order = torch.argsort(-score, stable=True)[:cap]
     cols = [o, d, weight, parent.view(torch.float32)[:, None],
             live.to(torch.float32)[:, None]]
@@ -464,7 +475,7 @@ def _trace_tree(scene: Scene, o: torch.Tensor, d: torch.Tensor,
 
 def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                      cfg: RenderConfig, bvh=None, with_stats: bool = False,
-                     overflow=None, bg=None):
+                     overflow=None, bg=None, stage=span):
     """The tree on the fused kernel: one fork launch per level
     (``mega.trace_segment(fork=True)``: nearest hit, shadows, shading and
     both children), ``index_add`` of each lane's delta into its primary
@@ -475,7 +486,9 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     nothing), else ``ValueError``. Forward only. Returns radiance [N,3],
     and with ``with_stats`` the live lanes the cap dropped. One host sync
     at the end checks the stack-overflow counter, unless the caller gives
-    its own ``overflow`` counter to check; ``bg``: ``mega.build_aux``'s."""
+    its own ``overflow`` counter to check; ``bg``: ``mega.build_aux``'s;
+    ``stage``: the context each level's fork launch and compaction run in,
+    ``span`` or a capture's (``ops/graphs``)."""
     has_mesh = bvh is not None and getattr(bvh, "leafmeta", None) is not None
     # a CUDA graph capture cannot read the device: the eager frame that
     # precedes every capture of a key (ops/graphs) made this check
@@ -506,7 +519,7 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         count("tree.live", n)   # every primary lane enters level 0 live
         for level in range(cfg.max_bounces + 1):
             with span("tree.level", level=level):
-                with span("tree.fork"):
+                with stage("tree.fork", level=level):
                     count("tree.lanes", o.shape[0])
                     (delta, ro, rd, w_re, tm_re, to, td, w_tr,
                      tm_tr) = mega.trace_segment(
@@ -522,11 +535,15 @@ def _trace_tree_mega(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                 tmax = torch.cat([tm_re, tm_tr], dim=0)
                 parent = torch.cat([parent, parent], dim=0)
                 if cap and o.shape[0] > cap:
-                    with span("tree.compact"):
+                    with stage("tree.compact", level=level):
                         live, o, d, weight, parent, tmax, dropped = _compact(
                             cap, tmax >= 0.0, o, d, weight, parent, tmax)
-                        tmax = torch.where(live, tmax, -1.0)
-                        n_truncated = n_truncated + dropped
+                    # outside the stage: a capture's piece between two
+                    # stages is never empty
+                    tmax = torch.where(live, tmax, -1.0)
+                    n_truncated = n_truncated + dropped
+                elif is_recording():   # a sum no unrecorded frame needs
+                    count("tree.live", (tmax >= 0.0).sum())
         if check:
             with span("tree.sync"):
                 check_overflow(overflow)
@@ -618,11 +635,12 @@ def _frame_fused(scene: Scene, cam: Camera, cfg: RenderConfig, bvh, bg,
     """The fused frame on the card, as ``ops/graphs`` runs it eagerly and
     captures it: the eager frame's functions, its stack-overflow counter
     made (zeroed) here and returned unread, ``bg`` for the aux block,
-    ``stage`` around each chain segment -> ``(image, overflow)``."""
+    ``stage`` around each chain segment, or each tree level's fork launch
+    and compaction -> ``(image, overflow)``."""
     overflow = torch.zeros(1, dtype=torch.int32, device=cam.position.device)
     if cfg.mode == "tree":
         trace = lambda o, d: _trace_tree_mega(
-            scene, o, d, cfg, bvh, overflow=overflow, bg=bg)
+            scene, o, d, cfg, bvh, overflow=overflow, bg=bg, stage=stage)
     else:
         trace = lambda o, d: _trace_chain_mega(
             scene, o, d, cfg, bvh, overflow=overflow, bg=bg, stage=stage)

@@ -266,6 +266,11 @@ def span(name: str, **attrs):
     return _Span(name, attrs)
 
 
+def is_recording() -> bool:
+    """Whether a ``recording()`` block runs."""
+    return _on
+
+
 def count(name: str, value) -> None:
     """Keep the counter ``name`` (a Python int, or a 0-dim device tensor
     held by reference and read when the records are read) under the
@@ -318,10 +323,11 @@ def collect_counts():
 
 def recount(counts: list) -> None:
     """``count`` each of ``counts`` (``collect_counts``' pairs) again,
-    while a recording runs: ints as they are, the device tensors copied
-    first (one ``stack``), so that the next replay of the graph that
-    writes them does not change what this one counted."""
-    if not _on or not counts:
+    while a recording runs or a ``collect_counts`` block diverts them:
+    ints as they are, the device tensors copied first (one ``stack``), so
+    that the next replay of the graph that writes them does not change
+    what this one counted."""
+    if not (_on or _sink is not None) or not counts:
         return
     held = [v for _, v in counts if isinstance(v, torch.Tensor)]
     copies = iter(torch.stack([v.detach().reshape(()).to(torch.int64)
